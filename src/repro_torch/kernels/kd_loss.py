@@ -1,0 +1,150 @@
+"""kd_loss on Hopper: the wrapper, its launch counts and its autograd.Function.
+
+The CUDA kernels in ``csrc/kd_loss.cu`` replace the Pallas TPU kernel
+``src/repro/kernels/kd_loss.py::_kd_kernel`` and add the backward it lacks;
+that file's header says what bounds them and how they are laid out. A
+wrapper takes the plain version (`repro_torch.kernels.ref`) only for tensors
+on the CPU. For CUDA tensors it launches its kernel or raises: a build or
+launch failure is never covered by the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+#: kernel launches per wrapper; each wrapper adds one where it launches its
+#: kernel and nowhere else (CPU calls go to the plain version, uncounted)
+launches: Dict[str, int] = {"kd_loss_fwd": 0, "kd_loss_bwd": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("kd_loss")
+    if lib.kd_loss_fwd.argtypes is None:
+        lib.kd_loss_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
+        lib.kd_loss_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _P]
+        lib.kd_loss_fwd.restype = lib.kd_loss_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _check(x: torch.Tensor, y: torch.Tensor, labels: torch.Tensor) -> None:
+    if x.dim() != 2 or x.shape != y.shape or x.shape[0] == 0 or x.shape[1] == 0:
+        raise ValueError(f"logits must be two non-empty (N, V) tensors of one "
+                         f"shape, got {tuple(x.shape)} and {tuple(y.shape)}")
+    if labels.shape != (x.shape[0],):
+        raise ValueError(f"labels must be ({x.shape[0]},), got "
+                         f"{tuple(labels.shape)}")
+    if x.dtype != y.dtype or x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"logits must both be float32 or bfloat16, got "
+                        f"{x.dtype} and {y.dtype}")
+    if labels.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"labels must be int32 or int64, got {labels.dtype}")
+    if not (x.device == y.device == labels.device):
+        raise ValueError("logits and labels must be on one device")
+
+
+def _cuda_args(x, y, labels, *more):
+    """Checks that only the kernel path needs; returns int32 labels."""
+    if x.device.type != "cuda":
+        raise ValueError(f"kd_loss kernels run on CUDA, got {x.device}")
+    for t in (x, y, labels) + more:
+        if not t.is_contiguous():
+            raise ValueError("kd_loss kernels need contiguous tensors")
+    if max(x.shape) >= 2 ** 31:
+        raise ValueError(f"N and V must fit in int32, got {tuple(x.shape)}")
+    return labels if labels.dtype == torch.int32 else labels.to(torch.int32)
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def kd_loss_fwd(x: torch.Tensor, y: torch.Tensor, labels: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, V) logits x, y and (N,) labels -> terms (4, N) fp32 = (ce_x,
+    ce_y, kl_xy, kl_yx) and stats (4, N) fp32 = (lse_x, lse_y, e_x, e_y)."""
+    _check(x, y, labels)
+    if x.device.type == "cpu":
+        return ref.kd_loss_fwd_ref(x, y, labels)
+    lab = _cuda_args(x, y, labels)
+    N, V = x.shape
+    out = torch.empty((8, N), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _lib().kd_loss_fwd(
+            x.data_ptr(), y.data_ptr(), lab.data_ptr(), out.data_ptr(), N, V,
+            _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "kd_loss_fwd")
+    launches["kd_loss_fwd"] += 1
+    return out[:4], out[4:]
+
+
+def kd_loss_bwd(x: torch.Tensor, y: torch.Tensor, labels: torch.Tensor,
+                stats: torch.Tensor, grads: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradients (dx, dy), in the logits' dtype, from the forward's stats
+    and the upstream per-row gradients grads (4, N) of (ce_x, ce_y, kl_xy,
+    kl_yx)."""
+    _check(x, y, labels)
+    N, V = x.shape
+    for t, what in ((stats, "stats"), (grads, "grads")):
+        if t.shape != (4, N) or t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f"{what} must be (4, {N}) float32 on {x.device}")
+    if x.device.type == "cpu":
+        return ref.kd_loss_bwd_ref(x, y, labels, stats, grads)
+    lab = _cuda_args(x, y, labels, stats, grads)
+    dx, dy = torch.empty_like(x), torch.empty_like(y)
+    with torch.cuda.device(x.device):
+        err = _lib().kd_loss_bwd(
+            x.data_ptr(), y.data_ptr(), lab.data_ptr(), stats.data_ptr(),
+            grads.data_ptr(), dx.data_ptr(), dy.data_ptr(), N, V,
+            _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "kd_loss_bwd")
+    launches["kd_loss_bwd"] += 1
+    return dx, dy
+
+
+class KDLoss(torch.autograd.Function):
+    """Per-row (ce_x, ce_y, kl_xy, kl_yx) of logits x (local model), y
+    (LiteModel) and labels, differentiable in x and y through the backward
+    kernel.
+
+    The gradients carry the stop-gradients of the paper's Eqs. 33-34
+    (``repro.core.distill.mutual_losses``): ce_x and kl_xy = KL(x || sg(y))
+    send gradient to x only, ce_y and kl_yx = KL(y || sg(x)) to y only. So
+    a loss l1*ce_x + l2*kl_xy + l3*ce_y + l4*kl_yx trains the local model by
+    L1 and the LiteModel by L2 in one backward pass.
+    """
+
+    @staticmethod
+    def forward(ctx, x, y, labels):
+        terms, stats = kd_loss_fwd(x, y, labels)
+        ctx.save_for_backward(x, y, labels, stats)
+        return tuple(terms.unbind(0))
+
+    @staticmethod
+    def backward(ctx, g_ce_x, g_ce_y, g_kl_xy, g_kl_yx):
+        x, y, labels, stats = ctx.saved_tensors
+        grads = torch.stack([g_ce_x, g_ce_y, g_kl_xy, g_kl_yx]).float()
+        dx, dy = kd_loss_bwd(x, y, labels, stats, grads)
+        return dx, dy, None
+
+
+def kd_loss(x: torch.Tensor, y: torch.Tensor, labels: torch.Tensor
+            ) -> Dict[str, torch.Tensor]:
+    """Differentiable per-row terms {ce_x, ce_y, kl_xy, kl_yx}, each (N,)
+    fp32; see KDLoss for where the gradients go."""
+    ce_x, ce_y, kl_xy, kl_yx = KDLoss.apply(x, y, labels)
+    return {"ce_x": ce_x, "ce_y": ce_y, "kl_xy": kl_xy, "kl_yx": kl_yx}

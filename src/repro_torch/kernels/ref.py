@@ -1,0 +1,66 @@
+"""Plain PyTorch versions of the port's kernels: the path CPU tensors take,
+and the oracle the CUDA kernels are held against on the card."""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+
+def kd_loss_ref(x_logits: torch.Tensor, y_logits: torch.Tensor,
+                labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Fused mutual-KD loss terms (paper Eqs. 33-34), per row.
+
+    x_logits, y_logits: (N, V) float; labels: (N,) int.
+    Returns per-row (N,) fp32: ce_x, ce_y, kl_xy (KL(X||Y)), kl_yx.
+    """
+    x, y = x_logits.float(), y_logits.float()
+    lab = labels.long()[:, None]
+    logp_x = torch.log_softmax(x, -1)
+    logp_y = torch.log_softmax(y, -1)
+    return {"ce_x": -logp_x.gather(-1, lab)[:, 0],
+            "ce_y": -logp_y.gather(-1, lab)[:, 0],
+            "kl_xy": (logp_x.exp() * (logp_x - logp_y)).sum(-1),
+            "kl_yx": (logp_y.exp() * (logp_y - logp_x)).sum(-1)}
+
+
+def kd_loss_fwd_ref(x_logits: torch.Tensor, y_logits: torch.Tensor,
+                    labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the forward kernel writes: terms (4, N) fp32 = (ce_x, ce_y,
+    kl_xy, kl_yx) and the saved row statistics (4, N) fp32 = (lse_x, lse_y,
+    e_x, e_y), where e_x = E_{p_x}[x - y] and e_y = E_{p_y}[y - x]."""
+    x, y = x_logits.float(), y_logits.float()
+    lab = labels.long()[:, None]
+    lse_x = torch.logsumexp(x, -1)
+    lse_y = torch.logsumexp(y, -1)
+    p_x = torch.exp(x - lse_x[:, None])
+    p_y = torch.exp(y - lse_y[:, None])
+    e_x = (p_x * (x - y)).sum(-1)
+    e_y = (p_y * (y - x)).sum(-1)
+    terms = torch.stack([lse_x - x.gather(-1, lab)[:, 0],
+                         lse_y - y.gather(-1, lab)[:, 0],
+                         e_x - lse_x + lse_y,
+                         e_y - lse_y + lse_x])
+    return terms, torch.stack([lse_x, lse_y, e_x, e_y])
+
+
+def kd_loss_bwd_ref(x_logits: torch.Tensor, y_logits: torch.Tensor,
+                    labels: torch.Tensor, stats: torch.Tensor,
+                    grads: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the backward kernel writes. grads (4, N) are the upstream
+    per-row gradients of (ce_x, ce_y, kl_xy, kl_yx); stats as saved by the
+    forward. kl_xy sends nothing to y and kl_yx nothing to x:
+
+        dx = g_ce_x (p_x - onehot) + g_kl_xy p_x ((x - y) - e_x)
+        dy = g_ce_y (p_y - onehot) + g_kl_yx p_y ((y - x) - e_y)
+
+    dx, dy come back in the logits' dtype."""
+    x, y = x_logits.float(), y_logits.float()
+    lse_x, lse_y, e_x, e_y = (s[:, None] for s in stats)
+    g_ce_x, g_ce_y, g_kl_xy, g_kl_yx = (g[:, None] for g in grads)
+    onehot = torch.zeros_like(x).scatter_(1, labels.long()[:, None], 1.0)
+    p_x = torch.exp(x - lse_x)
+    p_y = torch.exp(y - lse_y)
+    dx = g_ce_x * (p_x - onehot) + g_kl_xy * p_x * ((x - y) - e_x)
+    dy = g_ce_y * (p_y - onehot) + g_kl_yx * p_y * ((y - x) - e_y)
+    return dx.to(x_logits.dtype), dy.to(y_logits.dtype)

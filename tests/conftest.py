@@ -11,6 +11,8 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: slow tests (dry-run subprocesses, FL e2e)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips inside the test without one")
 
 
 def pytest_addoption(parser):
