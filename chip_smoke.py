@@ -11,23 +11,31 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 src/repro_torch/kernels/csrc with nvcc (one process per
                 source, all at once) and print ptxas' register/spill report.
   3. kernels  — hold kd_loss_fwd / kd_loss_bwd against their plain PyTorch
-                versions at the main path's shape, a ragged N, a ragged V
-                and a vocabulary shape in fp32 and bf16 (tolerances of
-                tests/test_kernels.py: fp32 1e-4, bf16 5e-2), then time each
-                kernel and its plain version with CUDA events.
+                versions at the main path's row counts (4 and 8 padded
+                clients x batch 32), a ragged N, a ragged V and a vocabulary
+                shape in fp32 and bf16 (tolerances of
+                tests/test_kernels.py: fp32 1e-4, bf16 5e-2).
   4. main path— HAPFL Algorithm 1 on the paper's cifar10 pool at full width
                 (small + large CNNs, 10 clients, 6 per round): 10
                 latency-only PPO pretraining rounds, then 3 training rounds
                 through the batched engine. Launch counters are zeroed just
                 before and read just after; each kernel must have launched
-                exactly once per padded step of every size group.
-  5. parity   — with PPO off and the same starting globals, one ragged
+                exactly once per padded step of every size group. A shape
+                the main path gave the kernels that phase 3 did not check is
+                checked now.
+  5. timing   — each kernel and its plain version at every shape the main
+                path gave it and at the vocabulary shape. `ms` is device
+                time: the calls are captured into one CUDA graph and its
+                replay is timed with CUDA events, so the host's issue cost
+                is left out. `eager_ms` is the wall time per call of
+                back-to-back eager calls, the wrapper's host cost included.
+  6. parity   — with PPO off and the same starting globals, one ragged
                 cohort trained on the card (through the kernels) equals the
                 same cohort trained on the CPU (plain versions).
-  6. profile  — one more training round under torch.profiler: device time
+  7. profile  — one more training round under torch.profiler: device time
                 by kernel and the device's busy share of the round.
 
-The parity phases (3 and 5) turn TF32 off for cuDNN and matmuls, so that
+The parity phases (3 and 6) turn TF32 off for cuDNN and matmuls, so that
 both sides compute in full float32, and restore the defaults afterwards.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without CUDA, or run outside a checkout of
@@ -47,12 +55,13 @@ PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_OPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 TERMS = ("ce_x", "ce_y", "kl_xy", "kl_yx")
-MAIN_SHAPE = (256, 10)          # C*B rows at 8 padded clients x batch 32
-CHECK_SHAPES = [(256, 10, "float32"), (1000, 10, "float32"),
-                (64, 777, "float32"), (2048, 32000, "float32"),
-                (2048, 32000, "bfloat16")]
-TIME_SHAPES = [(256, 10, "float32"), (2048, 32000, "float32"),
-               (2048, 32000, "bfloat16")]
+# the main path calls kd_loss on C*B logit rows: C is a size group's client
+# count padded to a power of two, at least 4; 6 clients per round give
+# groups of 4 or 8 padded clients, at batch 32
+CHECK_SHAPES = [(128, 10, "float32"), (256, 10, "float32"),
+                (1000, 10, "float32"), (64, 777, "float32"),
+                (2048, 32000, "float32"), (2048, 32000, "bfloat16")]
+VOCAB_SHAPES = [(2048, 32000, "float32"), (2048, 32000, "bfloat16")]
 
 
 def log(*a):
@@ -102,7 +111,7 @@ def phase_build():
 
 
 # ---------------------------------------------------------------------- #
-# 3. kernels against their plain versions
+# 3 and 5. kernels against their plain versions, and their times
 # ---------------------------------------------------------------------- #
 def _inputs(torch, N, V, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -138,11 +147,12 @@ def _close(torch, got, exp, tol, what):
                                    msg=lambda m: f"{what}: {m}")
 
 
-def phase_kernels(torch):
+def phase_kernels(torch, shapes):
+    """{(N, V, dtype): (fwd max|err|, bwd max|err|)} at each shape."""
     from repro_torch.kernels import kd_loss as kd, ref
     errs = {}
     with full_fp32(torch):
-        for N, V, dtype in CHECK_SHAPES:
+        for N, V, dtype in shapes:
             x, y, lab, grads = _inputs(torch, N, V, dtype, seed=N + V)
             terms, stats = kd.kd_loss_fwd(x, y, lab)
             dx, dy = kd.kd_loss_bwd(x, y, lab, stats, grads)
@@ -171,17 +181,42 @@ def phase_kernels(torch):
     return errs
 
 
-def _time_ms(torch, fn, iters):
-    for _ in range(3):
-        fn()
+def _graph_ms(torch, fn, iters):
+    """Device ms per call: `iters` calls captured into one CUDA graph, whose
+    replay is timed with CUDA events. The host issues one replay, so its
+    per-call cost (Python, the wrapper's checks, ctypes) is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    for _ in range(iters):
-        fn()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _eager_ms(torch, fn, iters):
+    """Wall ms per call of back-to-back eager calls, ended by a sync: the
+    host's issue cost when it exceeds the device's time."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def kd_bounds(N, V, elt):
@@ -202,10 +237,12 @@ def kd_bounds(N, V, elt):
     return out
 
 
-def phase_timing(torch):
+def phase_timing(torch, shapes):
+    """{(kernel, N, V, dtype): times} at each shape, for the kernel and its
+    plain version: device ms from graph replays, eager wall ms per call."""
     from repro_torch.kernels import kd_loss as kd, ref
     times = {}
-    for N, V, dtype in TIME_SHAPES:
+    for N, V, dtype in shapes:
         x, y, lab, grads = _inputs(torch, N, V, dtype, seed=7)
         _, stats = kd.kd_loss_fwd(x, y, lab)
         iters = 200 if N * V < 1e6 else 20
@@ -218,18 +255,22 @@ def phase_timing(torch):
         for name, (kernel, plain) in fns.items():
             # plain, kernel, kernel, plain: the two kernel and two plain
             # timings are averaged, so drift in clocks hits both alike
-            p1 = _time_ms(torch, plain, iters)
-            k1 = _time_ms(torch, kernel, iters)
-            k2 = _time_ms(torch, kernel, iters)
-            p2 = _time_ms(torch, plain, iters)
+            p1 = _graph_ms(torch, plain, iters)
+            k1 = _graph_ms(torch, kernel, iters)
+            k2 = _graph_ms(torch, kernel, iters)
+            p2 = _graph_ms(torch, plain, iters)
+            k_eager = _eager_ms(torch, kernel, iters)
+            p_eager = _eager_ms(torch, plain, iters)
             b_ms, b_by = bounds[name]
             times[(name, N, V, dtype)] = {
                 "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                "bound_ms": b_ms, "bound_by": b_by}
-            log(f"[timing] {name} {N}x{V} {dtype}: kernel "
-                f"{(k1 + k2) / 2:.5f} ms ({k1:.5f}, {k2:.5f}), plain "
-                f"{(p1 + p2) / 2:.5f} ms, bound {b_ms:.6f} ms by {b_by} "
-                f"(3.35 TB/s, 67 TFLOP/s fp32)")
+                "bound_ms": b_ms, "bound_by": b_by,
+                "eager_ms": k_eager, "plain_eager_ms": p_eager}
+            log(f"[timing] {name} {N}x{V} {dtype}: kernel device "
+                f"{(k1 + k2) / 2:.6f} ms ({k1:.6f}, {k2:.6f}), plain device "
+                f"{(p1 + p2) / 2:.6f} ms, bound {b_ms:.7f} ms by {b_by} "
+                f"(3.35 TB/s, 67 TFLOP/s fp32); eager wall per call: "
+                f"kernel {k_eager:.6f} ms, plain {p_eager:.6f} ms")
     return times
 
 
@@ -245,17 +286,23 @@ def main_path_config():
                        batch_size=32, batches_per_epoch=2)
 
 
-def padded_steps(server, rec) -> int:
-    """Sum over the round's size groups of each group's padded step count
-    S: the kd_loss launches of one round, per kernel."""
-    from repro_torch.fl.batched import next_pow2
+def padded_steps(server, rec) -> dict:
+    """{(N, V): launches} of one round, per kernel: each size group of the
+    batched engine runs its padded step count S, one kd_loss call per step
+    on C_p * B rows (C_p its padded client count, B its batch size)."""
+    from repro_torch.fl.batched import BatchedClientEngine, next_pow2
     env = server.env
     bpe = env.cfg.batches_per_epoch
     groups = {}
     for c, s, tau in zip(rec.clients, rec.sizes, rec.intensities):
         key = (s, env.loaders[c].batch_size, next_pow2(tau * bpe))
         groups.setdefault(key, []).append(tau * bpe)
-    return sum(next_pow2(max(steps)) for steps in groups.values())
+    out = {}
+    for (_, batch, _), steps in groups.items():
+        rows = BatchedClientEngine._client_pad(len(steps)) * batch
+        shape = (rows, env.n_classes)
+        out[shape] = out.get(shape, 0) + next_pow2(max(steps))
+    return out
 
 
 def _finite(torch, tree):
@@ -273,7 +320,7 @@ def phase_main_path(torch):
     pre = server.pretrain_rl(10)
     log(f"[main] pretrain_rl(10): straggling {pre[0]['straggling']:.3f} -> "
         f"{pre[-1]['straggling']:.3f}")
-    expected, seconds = 0, []
+    shapes, seconds = {}, []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -281,13 +328,16 @@ def phase_main_path(torch):
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         steps = padded_steps(server, rec)
-        expected += steps
+        for shape, n in steps.items():
+            shapes[shape] = shapes.get(shape, 0) + n
         log(f"[main] round {rec.round_idx}: {seconds[-1]:.3f} s, sizes "
-            f"{rec.sizes}, intensities {rec.intensities}, padded steps "
-            f"{steps}, straggling {rec.straggling:.3f}, acc_lite "
+            f"{rec.sizes}, intensities {rec.intensities}, padded steps by "
+            f"(rows, V) {steps}, straggling {rec.straggling:.3f}, acc_lite "
             f"{rec.acc_lite:.4f}, acc_by_size {rec.acc_by_size}")
     launches = dict(kd.launches)
-    log(f"[main] launches {launches}, expected {expected} each")
+    expected = sum(shapes.values())
+    log(f"[main] launches {launches}, expected {expected} each, by (rows, "
+        f"V) {shapes}")
     if launches != {"kd_loss_fwd": expected, "kd_loss_bwd": expected}:
         raise SystemExit(f"chip_smoke: launches {launches} != padded steps "
                          f"{expected} per kernel")
@@ -296,11 +346,11 @@ def phase_main_path(torch):
         raise SystemExit("chip_smoke: non-finite global params")
     log(f"[main] seconds per round after the first {seconds[1:]}, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
-    return server, launches
+    return server, launches, shapes
 
 
 # ---------------------------------------------------------------------- #
-# 5. the cohort on the card against the cohort on the CPU
+# 6. the cohort on the card against the cohort on the CPU
 # ---------------------------------------------------------------------- #
 def phase_parity(torch):
     from repro_torch.fl import FLEnvironment, FLSimConfig, HAPFLServer
@@ -332,7 +382,7 @@ def phase_parity(torch):
 
 
 # ---------------------------------------------------------------------- #
-# 6. where a round's device time goes
+# 7. where a round's device time goes
 # ---------------------------------------------------------------------- #
 def phase_profile(torch, server):
     from torch.profiler import ProfilerActivity, profile
@@ -370,6 +420,19 @@ def phase_profile(torch, server):
                     f"({100 * dev_us / 1e6 / busy:.2f}% of device time)")
 
 
+def main_path_times(times, name, shapes):
+    """One kernel's times over the main path, each the mean over the shapes
+    it ran at weighted by its launches there; bound_by is that of the shape
+    with the most launches."""
+    total = sum(shapes.values())
+    at = {s: times[(name, *s, "float32")] for s in shapes}
+    out = {k: sum(at[s][k] * n for s, n in shapes.items()) / total
+           for k in ("ms", "plain_ms", "bound_ms", "eager_ms",
+                     "plain_eager_ms")}
+    out["bound_by"] = at[max(shapes, key=shapes.get)]["bound_by"]
+    return out
+
+
 # ---------------------------------------------------------------------- #
 def main() -> int:
     import torch
@@ -377,23 +440,25 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
     phase_build()
-    errs = phase_kernels(torch)
-    times = phase_timing(torch)
-    server, launches = phase_main_path(torch)
+    errs = phase_kernels(torch, CHECK_SHAPES)
+    server, launches, shapes = phase_main_path(torch)
+    main = [(N, V, "float32") for N, V in sorted(shapes)]
+    errs.update(phase_kernels(torch, [s for s in main if s not in errs]))
+    times = phase_timing(torch, main + VOCAB_SHAPES)
     phase_parity(torch)
     phase_profile(torch, server)
 
     from repro_torch.kernels import kd_loss as kd
-    N, V = MAIN_SHAPE
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kd_loss.cu",
          "replaces": "src/repro/kernels/kd_loss.py:30",
          "launches": launches[name],
-         "max_abs_err": errs[(N, V, "float32")][i],
-         **times[(name, N, V, "float32")],
+         "max_abs_err": max(errs[s][i] for s in main),
+         **main_path_times(times, name, shapes),
          "library_ms": None,
-         "shape": [N, V], "dtype": "float32"}
+         "shapes": [[N, V, n] for (N, V), n in sorted(shapes.items())],
+         "dtype": "float32"}
         for i, name in enumerate(kd.launches)]}
     log(card)
     log(json.dumps(record))

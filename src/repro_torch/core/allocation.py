@@ -20,7 +20,7 @@ class ModelAllocator:
     def __init__(self, k: int, size_names: Sequence[str],
                  gen: torch.Generator, md: float = 10.0, lr: float = 0.02,
                  buffer_size: int = 5, gamma: float = 0.3,
-                 update_epochs: int = 8, device="cpu"):
+                 update_epochs: int = 8, device=None):
         # Paper Table II: lr1=0.02, B=5, eps=0.2. gamma/epochs are ours: the
         # FL round is contextual-bandit-like (speeds evolve exogenously), so
         # a small discount cuts credit-assignment variance markedly.

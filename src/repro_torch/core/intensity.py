@@ -25,7 +25,7 @@ class IntensityAllocator:
     def __init__(self, k: int, gen: torch.Generator,
                  total_intensity: int = None, lr: float = 3e-4,
                  buffer_size: int = 5, gamma: float = 0.3,
-                 update_epochs: int = 8, device="cpu"):
+                 update_epochs: int = 8, device=None):
         # Paper Table II: lr2=3e-4, B=5, eps=0.2. See ModelAllocator re gamma.
         self.k = k
         self.total_intensity = total_intensity or 20 * k  # E=20 per client avg

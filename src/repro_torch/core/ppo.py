@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.optim import adamw
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import (tree_add, tree_leaves, tree_map,
                                       tree_unflatten)
 
@@ -30,7 +31,7 @@ from repro_torch.utils.pytree import (tree_add, tree_leaves, tree_map,
 # --------------------------------------------------------------------- #
 # tiny MLP substrate
 # --------------------------------------------------------------------- #
-def _mlp_init(gen: torch.Generator, sizes, device="cpu"):
+def _mlp_init(gen: torch.Generator, sizes, device: torch.device):
     params = []
     for a, b in zip(sizes[:-1], sizes[1:]):
         w = torch.randn((a, b), generator=gen, device=gen.device) / math.sqrt(a)
@@ -64,12 +65,12 @@ class PPOConfig:
 
 
 class PPOAgent:
-    """Stateful wrapper: params and optimizer state on `device`, python-side
-    buffer."""
+    """Stateful wrapper: params and optimizer state on `device` (CUDA when
+    None), python-side buffer."""
 
-    def __init__(self, cfg: PPOConfig, gen: torch.Generator, device="cpu"):
+    def __init__(self, cfg: PPOConfig, gen: torch.Generator, device=None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = device = resolve_device(device)
         out_dim = (cfg.state_dim * cfg.n_categories
                    if cfg.kind == "categorical_multihead" else cfg.state_dim)
         self.params = {

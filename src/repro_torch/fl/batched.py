@@ -27,6 +27,7 @@ import torch
 from repro_torch.core.distill import make_mutual_train_fns
 from repro_torch.models.cnn import apply_cnn_fast
 from repro_torch.obs.trace import current as _tracer
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import tree_map
 
 
@@ -62,11 +63,11 @@ def make_batched_trainer(raw_step, init_opt):
 
 class BatchedClientEngine:
     """Trains a whole HAPFL cohort with one batched step per size group and
-    step, on `device`."""
+    step, on `device` (CUDA when None)."""
 
-    def __init__(self, env, lr: float = None, device="cpu"):
+    def __init__(self, env, lr: float = None, device=None):
         self.env = env
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         lr = env.cfg.lr if lr is None else lr
         self._trainers = {}
         for s, c in env.pool.items():

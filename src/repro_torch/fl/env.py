@@ -156,9 +156,8 @@ class PopulationEnv:
     wave callbacks as `FLEnvironment`, but only in latency_only mode
     (plan -> PPO decisions -> feedback; no CNN training or accuracy
     evaluation): pair with ``EventScheduler(latency_only=True,
-    eval_accuracy=False)`` or a ``ParamService``. Requires the server's
-    ClientStore path (``client_store=True``, the default) — there are no
-    profile objects for the legacy loop to read."""
+    eval_accuracy=False)`` or a ``ParamService``. The server reads every
+    latency query from the store, so no profile objects are needed."""
 
     def __init__(self, cfg: FLSimConfig, mean_dataset_size: int = 300):
         self.cfg = cfg

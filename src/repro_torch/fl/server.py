@@ -35,6 +35,7 @@ from repro_torch.fl.batched import BatchedClientEngine
 from repro_torch.fl.env import FLEnvironment
 from repro_torch.models.cnn import init_cnn
 from repro_torch.obs.trace import current as _tracer
+from repro_torch.utils.device import resolve_device
 
 
 @dataclass
@@ -77,24 +78,13 @@ class WavePlan:
     wire_bytes: List[float] = field(default_factory=list)  # per-client uplink
 
 
-def resolve_device(device) -> torch.device:
-    """`device`, CUDA when None. Asking for CUDA without a card raises; no
-    entry point falls back to the CPU on its own."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "on the CPU")
-    return device
-
-
 class HAPFLServer:
     def __init__(self, env: FLEnvironment, seed: int = 0,
                  use_ppo1: bool = True, use_ppo2: bool = True,
                  weighted_agg: bool = True,
                  lr_ppo1: float = 2e-3, lr_ppo2: float = 3e-4,
                  engine: str = "auto", aggregation: str = "group",
-                 codec=None, client_store: bool = True, mesh=None,
-                 device=None):
+                 codec=None, mesh=None, device=None):
         # paper Table II: lr1=0.02 — unstable for Adam on our tiny actor
         # (PPO1 reward degrades); 2e-3 learns cleanly (DESIGN.md §8).
         if engine not in ("auto", "batched", "sequential", "sharded"):
@@ -121,9 +111,8 @@ class HAPFLServer:
             engine = ("batched" if self.device.type == "cuda"
                       or env.cfg.batch_size <= 8 else "sequential")
         # struct-of-arrays per-client state (DESIGN.md §15): latency
-        # queries route through it vectorized; client_store=False keeps the
-        # per-profile loop, element-for-element identical
-        self.store = getattr(env, "store", None) if client_store else None
+        # queries route through it vectorized
+        self.store = env.store
         self.env = env
         self.engine = engine
         self.aggregation = aggregation
@@ -197,12 +186,8 @@ class HAPFLServer:
         clients = [int(c) for c in clients]
         m = len(clients)
         # 1. performance assessment training (one Lite epoch, simulated)
-        if self.store is not None:
-            assess = [float(a) for a in
-                      env.latency.assessment_times(self.store, clients, r)]
-        else:
-            assess = [env.latency.assessment_time(env.profiles[c], r)
-                      for c in clients]
+        assess = [float(a) for a in
+                  env.latency.assessment_times(self.store, clients, r)]
         # 2. PPO1: model allocation
         if self.use_ppo1:
             sizes, _ = self.allocator.allocate(self.gen, self._pad(assess),
@@ -221,15 +206,9 @@ class HAPFLServer:
             intensities = intensities[:m]
         else:
             intensities = [cfg.default_epochs] * m
-        if self.store is not None:
-            local_times = [float(t) for t in env.latency.local_train_times(
-                self.store, clients, r, sizes, intensities)]
-            self.store.note_plan(clients, assess, local_times, sizes,
-                                 intensities)
-        else:
-            local_times = [env.latency.local_train_time(env.profiles[c], r,
-                                                        s, tau)
-                           for c, s, tau in zip(clients, sizes, intensities)]
+        local_times = [float(t) for t in env.latency.local_train_times(
+            self.store, clients, r, sizes, intensities)]
+        self.store.note_plan(clients, assess, local_times, sizes, intensities)
         return WavePlan(round_idx=r, clients=clients, assess=assess,
                         sizes=sizes, intensities=list(intensities),
                         local_times=local_times, latency_only=latency_only)

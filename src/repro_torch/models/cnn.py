@@ -19,6 +19,8 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.utils.device import resolve_device
+
 
 @dataclass(frozen=True)
 class CNNConfig:
@@ -102,9 +104,12 @@ def cnn_pool(dataset: str) -> Dict[str, CNNConfig]:
     return pool
 
 
-def init_cnn(gen: torch.Generator, cfg: CNNConfig, device="cpu"):
+def init_cnn(gen: torch.Generator, cfg: CNNConfig, device=None):
     """He-normal convs and fc1, fan-in-normal fc2, zero biases (the
-    reference's distributions), drawn from `gen` on its own device."""
+    reference's distributions), drawn from `gen` on its own device and
+    placed on `device` (CUDA when None)."""
+    device = resolve_device(device)
+
     def normal(shape, std):
         w = torch.randn(shape, generator=gen, device=gen.device) * std
         return w.to(device)

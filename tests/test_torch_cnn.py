@@ -29,7 +29,7 @@ def test_apply_cnn_matches_reference(dataset, size):
     x = np.random.default_rng(0).standard_normal(
         (3,) + cfg.in_shape).astype(np.float32)
     exp = np.asarray(jax.jit(jcnn.apply_cnn, static_argnums=1)(jp, cfg, x))
-    tp = params_from_numpy(jax.device_get(jp))
+    tp = params_from_numpy(jax.device_get(jp), "cpu")
     got = tcnn.apply_cnn(tp, cfg, torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, exp, atol=ATOL, rtol=1e-5)
 
@@ -43,7 +43,7 @@ def test_apply_cnn_fast_client_axis(dataset):
     jps = [init(jax.random.PRNGKey(i), cfg) for i in (5, 6)]
     x = np.random.default_rng(1).standard_normal(
         (2, 4) + cfg.in_shape).astype(np.float32)
-    tps = [params_from_numpy(jax.device_get(p)) for p in jps]
+    tps = [params_from_numpy(jax.device_get(p), "cpu") for p in jps]
     stacked = tree_map(lambda a, b: torch.stack([a, b]), *tps)
     got = tcnn.apply_cnn_fast(stacked, cfg, torch.from_numpy(x)).numpy()
     fast = jax.jit(jcnn.apply_cnn_fast, static_argnums=1)
@@ -54,13 +54,13 @@ def test_apply_cnn_fast_client_axis(dataset):
 
 def test_init_cnn_layout_and_round_trip():
     cfg = tcnn.cnn_pool("cifar10")["large"]
-    tp = tcnn.init_cnn(torch.Generator().manual_seed(0), cfg)
+    tp = tcnn.init_cnn(torch.Generator().manual_seed(0), cfg, "cpu")
     jp = jax.eval_shape(lambda: jcnn.init_cnn(jax.random.PRNGKey(0), cfg))
     shapes = lambda t: tree_map(lambda a: tuple(a.shape), t)
     assert shapes(params_to_numpy(tp)) == shapes(jp)
     n = sum(a.numel() for a in tp["conv"] + tp["conv_b"]) + sum(
         tp[k].numel() for k in ("fc1", "fc1_b", "fc2", "fc2_b"))
     assert n == cfg.num_params()
-    back = params_from_numpy(params_to_numpy(tp))
+    back = params_from_numpy(params_to_numpy(tp), "cpu")
     for a, b in zip(back["conv"], tp["conv"]):
         assert torch.equal(a, b)

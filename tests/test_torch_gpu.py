@@ -53,7 +53,8 @@ def _stopgrad_reference(x, y, lab, g):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("N,V,dtype", [(256, 10, "float32"),
+@pytest.mark.parametrize("N,V,dtype", [(128, 10, "float32"),
+                                       (256, 10, "float32"),
                                        (1000, 10, "float32"),
                                        (64, 777, "float32"),
                                        (2048, 32000, "float32"),
@@ -99,8 +100,8 @@ def test_cuda_cohort_matches_cpu(cuda):
                       k_per_round=4, size_names=("small", "large"))
     gen = torch.Generator().manual_seed(0)
     env0 = FLEnvironment(cfg)
-    lite = init_cnn(gen, env0.lite_cfg)
-    globals_ = {s: init_cnn(gen, c) for s, c in env0.pool.items()}
+    lite = init_cnn(gen, env0.lite_cfg, "cpu")
+    globals_ = {s: init_cnn(gen, c, "cpu") for s, c in env0.pool.items()}
     cohort = ([0, 1, 2, 3], ["small", "small", "large", "large"],
               [1, 3, 2, 1])
     out = {}

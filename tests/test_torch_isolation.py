@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -53,3 +54,38 @@ def test_server_defaults_to_cuda_and_never_falls_back(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         HAPFLServer(env, device="cuda")
     assert HAPFLServer(env, device="cpu").device == torch.device("cpu")
+
+
+def _default_device_cases():
+    """Each public constructor of the port, called with its device left at
+    the default."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.allocation import ModelAllocator
+    from repro_torch.core.intensity import IntensityAllocator
+    from repro_torch.core.ppo import PPOAgent, PPOConfig
+    from repro_torch.fl import BatchedClientEngine, FLEnvironment, FLSimConfig
+    from repro_torch.models.cnn import cnn_pool, init_cnn
+    gen = torch.Generator().manual_seed(0)
+    return {
+        "engine": lambda: BatchedClientEngine(FLEnvironment(FLSimConfig(
+            n_train=100, n_test=20, n_clients=4, k_per_round=2))),
+        "ppo_agent": lambda: PPOAgent(
+            PPOConfig(state_dim=4, kind="gaussian_simplex"), gen),
+        "model_allocator": lambda: ModelAllocator(4, ["small", "large"], gen),
+        "intensity_allocator": lambda: IntensityAllocator(4, gen),
+        "init_cnn": lambda: init_cnn(gen, cnn_pool("mnist")["lite"]),
+        "params_from_numpy": lambda: params_from_numpy(
+            {"w": np.zeros((2, 2), np.float32)}),
+    }
+
+
+@pytest.mark.parametrize("name", ["engine", "ppo_agent", "model_allocator",
+                                  "intensity_allocator", "init_cnn",
+                                  "params_from_numpy"])
+def test_constructors_default_to_cuda(monkeypatch, name):
+    """Left at its default, every entry point asks for the card, and
+    without one it raises instead of running on the CPU."""
+    make = _default_device_cases()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()

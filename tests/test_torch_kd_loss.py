@@ -119,7 +119,7 @@ def test_mutual_losses_match_reference_value_and_grad():
                                       jcnn.apply_cnn(p["lite"], cl, x), lab)
     (jl, jm), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jparams)
 
-    tparams = params_from_numpy(jax.device_get(jparams))
+    tparams = params_from_numpy(jax.device_get(jparams), "cpu")
     leaves = [p.requires_grad_(True) for p in tree_leaves(tparams)]
     xt, labt = torch.from_numpy(x), torch.from_numpy(lab)
     tl, tm = tdistill.mutual_losses(
@@ -131,7 +131,7 @@ def test_mutual_losses_match_reference_value_and_grad():
     for k in jm:
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), atol=1e-5,
                                    rtol=1e-5, err_msg=k)
-    jg = params_from_numpy(jax.device_get(jg))
+    jg = params_from_numpy(jax.device_get(jg), "cpu")
     for m in ("local", "lite"):
         for a, b in zip(tree_leaves(tg[m]), tree_leaves(jg[m])):
             np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5,

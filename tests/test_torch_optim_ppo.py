@@ -52,12 +52,13 @@ def test_optimizer_steps_match_reference(name, kw):
     p0 = _tree(rng)
     grads = [_tree(rng) for _ in range(4)]
     jo, to = getattr(jopt, name)(1e-2, **kw), getattr(topt, name)(1e-2, **kw)
-    jp, tp = jax.tree_util.tree_map(jnp.asarray, p0), params_from_numpy(p0)
+    jp = jax.tree_util.tree_map(jnp.asarray, p0)
+    tp = params_from_numpy(p0, "cpu")
     js, ts = jo.init(jp), to.init(tp)
     for g in grads:
         ju, js = jo.update(jax.tree_util.tree_map(jnp.asarray, g), js, jp)
         jp = jax.tree_util.tree_map(lambda a, u: a + u, jp, ju)
-        tu, ts = to.update(params_from_numpy(g), ts, tp)
+        tu, ts = to.update(params_from_numpy(g, "cpu"), ts, tp)
         tp = tree_add(tp, tu)
     _assert_trees_close(tp, jp)
     assert int(ts["step"]) == int(js["step"]) == len(grads)
@@ -74,8 +75,8 @@ def _agents(kind, seed=0):
     kw = dict(state_dim=4, kind=kind, n_categories=3)
     ja = jppo.PPOAgent(jppo.PPOConfig(**kw), jax.random.PRNGKey(seed))
     ta = tppo.PPOAgent(tppo.PPOConfig(**kw),
-                       torch.Generator().manual_seed(seed))
-    ta.params = params_from_numpy(jax.device_get(ja.params))
+                       torch.Generator().manual_seed(seed), "cpu")
+    ta.params = params_from_numpy(jax.device_get(ja.params), "cpu")
     ta.opt_state = ta.opt.init(ta.params)
     return ja, ta
 

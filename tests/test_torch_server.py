@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 from repro import fl as jfl
 from repro_torch import fl as tfl
 from repro_torch.convert import params_from_numpy
-from repro_torch.fl.server import resolve_device
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import tree_leaves
 
 KW = dict(dataset="mnist", n_train=400, n_test=100, batches_per_epoch=1,
@@ -43,7 +43,7 @@ def _port_server(jsrv, **kw):
     params (jax.random streams cannot be reproduced in PyTorch)."""
     srv = tfl.HAPFLServer(tfl.FLEnvironment(tfl.FLSimConfig(**KW)),
                           device="cpu", **kw)
-    conv = lambda t: params_from_numpy(jax.device_get(t))
+    conv = lambda t: params_from_numpy(jax.device_get(t), "cpu")
     srv.lite_params = conv(jsrv.lite_params)
     srv.global_by_size = {s: conv(p) for s, p in jsrv.global_by_size.items()}
     for mine, ref in ((srv.allocator.agent, jsrv.allocator.agent),
@@ -80,7 +80,8 @@ def test_pad_invariance_is_exact():
                           device="cpu", engine="sequential")
     runs = []
     for pad in (True, False):
-        eng = tfl.BatchedClientEngine(tfl.FLEnvironment(tfl.FLSimConfig(**KW)))
+        eng = tfl.BatchedClientEngine(tfl.FLEnvironment(tfl.FLSimConfig(**KW)),
+                                      device="cpu")
         runs.append(eng.train_cohort([1, 4], ["small", "small"], [1, 3],
                                      srv.global_by_size, srv.lite_params,
                                      pad_pow2=pad, pad_clients=pad))
