@@ -10,33 +10,56 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   2. build    — compile every kernel source under
                 src/repro_torch/kernels/csrc with nvcc (one process per
                 source, all at once) and print ptxas' register/spill report.
-  3. kernels  — hold kd_loss_fwd / kd_loss_bwd against their plain PyTorch
-                versions at the main path's row counts (4 and 8 padded
-                clients x batch 32), a ragged N, a ragged V and a vocabulary
-                shape in fp32 and bf16 (tolerances of
-                tests/test_kernels.py: fp32 1e-4, bf16 5e-2).
-  4. main path— HAPFL Algorithm 1 on the paper's cifar10 pool at full width
+  3. kernels  — hold each kernel against its plain PyTorch version:
+                kd_loss_fwd / kd_loss_bwd at the HAPFL path's row counts (4
+                and 8 padded clients x batch 32), a ragged N, a ragged V and
+                a vocabulary shape in fp32 and bf16 (tolerances of
+                tests/test_kernels.py: fp32 1e-4, bf16 5e-2); rmsnorm at the
+                serve path's (2048, 3072) and (4, 3072), a ragged N and an
+                odd d; flash_attention at the serve path's prefill shape,
+                a ragged S, a sliding window, hd 64 and H = KV. rmsnorm and
+                flash hold fp32 to 1e-5 and 2e-5: tests/test_kernels.py's
+                2e-6 assumes the CPU's order of summation, and the kernels
+                sum in another. bf16 2e-2, as there.
+  4. HAPFL    — Algorithm 1 on the paper's cifar10 pool at full width
                 (small + large CNNs, 10 clients, 6 per round): 10
                 latency-only PPO pretraining rounds, then 3 training rounds
                 through the batched engine. Launch counters are zeroed just
-                before and read just after; each kernel must have launched
+                before and read just after; kd_loss must have launched
                 exactly once per padded step of every size group. A shape
-                the main path gave the kernels that phase 3 did not check is
+                the path gave the kernels that phase 3 did not check is
                 checked now.
-  5. timing   — each kernel and its plain version at every shape the main
-                path gave it and at the vocabulary shape. `ms` is device
-                time: the calls are captured into one CUDA graph and its
-                replay is timed with CUDA events, so the host's issue cost
-                is left out. `eager_ms` is the wall time per call of
-                back-to-back eager calls, the wrapper's host cost included.
-  6. parity   — with PPO off and the same starting globals, one ragged
+  5. serve    — llama3.2-3b at full width (28 layers, d 3072, 24 heads, 8
+                KV heads, vocab 128256) in bf16, random weights from a
+                seeded generator on the card: ServeEngine(max_len=1024)
+                .generate on 4 prompts x 512 tokens for 32 new tokens.
+                Counters are zeroed just before the counted generate and
+                read just after: rmsnorm (2 * 28 + 1) * (1 + 32) = 1881,
+                flash_attention 28, kd_loss 0. Prefill and decode times,
+                tokens/s and peak memory are printed.
+  6. timing   — each kernel, its plain version and, where one PyTorch call
+                computes the same function, that call (F.rms_norm,
+                F.scaled_dot_product_attention), at every shape its path
+                gave it. `ms` is device time: the calls are captured into
+                one CUDA graph and its replay is timed with CUDA events, so
+                the host's issue cost is left out. For rmsnorm and flash the
+                calls cycle over copies of their inputs that together spill
+                the 50 MB L2, so that each call reads device memory, as the
+                bound assumes; `warm_ms` reuses one copy. `eager_ms` is the
+                wall time per call of back-to-back eager calls, the
+                wrapper's host cost included.
+  7. parity   — with PPO off and the same starting globals, one ragged
                 cohort trained on the card (through the kernels) equals the
-                same cohort trained on the CPU (plain versions).
-  7. profile  — one more training round under torch.profiler: device time
-                by kernel and the device's busy share of the round.
+                same cohort trained on the CPU (plain versions); a 2-layer
+                cut of the full-width llama in fp32 gives the same prefill
+                logits and 4 decode steps' logits on the card and on the
+                CPU (atol and rtol 1e-3).
+  8. profile  — one more HAPFL training round and one more generate under
+                torch.profiler: device time by kernel and the device's busy
+                share.
 
-The parity phases (3 and 6) turn TF32 off for cuDNN and matmuls, so that
-both sides compute in full float32, and restore the defaults afterwards.
+The parity phases turn TF32 off for cuDNN and matmuls, so that both sides
+compute in full float32, and restore the defaults afterwards.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without CUDA, or run outside a checkout of
 the repository, the script exits non-zero and prints no result.
@@ -44,7 +67,9 @@ the repository, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -53,7 +78,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_OPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
+PEAK_BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
+L2_BYTES = 50e6                 # H100 L2 cache
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+TOL_NORM = {"float32": 1e-5, "bfloat16": 2e-2}
+TOL_FLASH = {"float32": 2e-5, "bfloat16": 2e-2}
 TERMS = ("ce_x", "ce_y", "kl_xy", "kl_yx")
 # the main path calls kd_loss on C*B logit rows: C is a size group's client
 # count padded to a power of two, at least 4; 6 clients per round give
@@ -62,6 +91,24 @@ CHECK_SHAPES = [(128, 10, "float32"), (256, 10, "float32"),
                 (1000, 10, "float32"), (64, 777, "float32"),
                 (2048, 32000, "float32"), (2048, 32000, "bfloat16")]
 VOCAB_SHAPES = [(2048, 32000, "float32"), (2048, 32000, "bfloat16")]
+
+# the serve path: llama3.2-3b at full width, 4 prompts x 512 tokens, 32 new
+SERVE = {"arch": "llama3.2-3b", "batch": 4, "prompt": 512, "n_new": 32,
+         "max_len": 1024, "seed": 0}
+# rmsnorm (N, d, dtype) and flash (B, H, KV, S, hd, window, dtype) checks
+NORM_SHAPES = [(2048, 3072, "bfloat16"), (4, 3072, "bfloat16"),
+               (2048, 3072, "float32"), (4, 3072, "float32"),
+               (1000, 3072, "bfloat16"), (1000, 3072, "float32"),
+               (64, 777, "float32"), (64, 777, "bfloat16")]
+FLASH_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16"),
+                (4, 24, 8, 512, 128, 0, "float32"),
+                (2, 24, 8, 300, 128, 0, "bfloat16"),
+                (2, 24, 8, 300, 128, 0, "float32"),
+                (2, 8, 2, 512, 128, 64, "float32"),
+                (2, 8, 2, 512, 128, 64, "bfloat16"),
+                (2, 8, 4, 256, 64, 0, "float32"),
+                (2, 8, 8, 256, 128, 0, "float32"),
+                (2, 8, 8, 256, 128, 0, "bfloat16")]
 
 
 def log(*a):
@@ -275,7 +322,194 @@ def phase_timing(torch, shapes):
 
 
 # ---------------------------------------------------------------------- #
-# 4. the main path
+# 3 and 6. rmsnorm and flash attention against their plain versions, and
+# their times
+# ---------------------------------------------------------------------- #
+def _randn(torch, shape, dtype, g, scale=1.0):
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(
+        getattr(torch, dtype))
+
+
+def _norm_inputs(torch, N, d, dtype):
+    g = torch.Generator(device="cuda").manual_seed(N + d)
+    return (_randn(torch, (N, d), dtype, g),
+            (1 + _randn(torch, (d,), "float32", g, 0.1)).to(
+                getattr(torch, dtype)))
+
+
+def _flash_inputs(torch, B, H, KV, S, hd, dtype):
+    g = torch.Generator(device="cuda").manual_seed(B * S + hd)
+    return (_randn(torch, (B, H, S, hd), dtype, g),
+            _randn(torch, (B, KV, S, hd), dtype, g),
+            _randn(torch, (B, KV, S, hd), dtype, g))
+
+
+def phase_norm_flash_kernels(torch):
+    """{("rmsnorm", N, d, dtype) | ("flash_attention", B, H, KV, S, hd,
+    window, dtype): max|err|} against the plain versions."""
+    from repro_torch.kernels import flash_attention as fa, ref
+    from repro_torch.kernels import rmsnorm as rn
+    errs = {}
+    with full_fp32(torch):
+        for N, d, dtype in NORM_SHAPES:
+            x, sc = _norm_inputs(torch, N, d, dtype)
+            got = rn.rmsnorm(x, sc)
+            torch.cuda.synchronize()
+            exp = ref.rmsnorm_ref(x, sc)
+            tol = TOL_NORM[dtype]
+            _close(torch, (got,), (exp,), tol, f"rmsnorm {N}x{d} {dtype}")
+            errs[("rmsnorm", N, d, dtype)] = e = _max_err(torch, (got,), (exp,))
+            log(f"[kernels] rmsnorm {N}x{d} {dtype}: max|err| {e:.3e} "
+                f"(tol {tol})")
+        for B, H, KV, S, hd, window, dtype in FLASH_SHAPES:
+            q, k, v = _flash_inputs(torch, B, H, KV, S, hd, dtype)
+            got = fa.flash_attention(q, k, v, causal=True,
+                                     sliding_window=window)
+            torch.cuda.synchronize()
+            exp = ref.flash_attention_ref(q, k, v, causal=True,
+                                          sliding_window=window)
+            tol = TOL_FLASH[dtype]
+            what = (f"flash_attention B{B} H{H} KV{KV} S{S} hd{hd} "
+                    f"window {window} {dtype}")
+            _close(torch, (got,), (exp,), tol, what)
+            key = ("flash_attention", B, H, KV, S, hd, window, dtype)
+            errs[key] = e = _max_err(torch, (got,), (exp,))
+            log(f"[kernels] {what}: max|err| {e:.3e} (tol {tol})")
+    return errs
+
+
+def _bound(nbytes, ops, ops_per_s):
+    t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_o = ops / ops_per_s * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def norm_bound(N, d, elt):
+    """rmsnorm: x read and y written once, scale read once; about 4 fp32
+    operations per element (square-add, two multiplies, the cast)."""
+    return _bound(2 * N * d * elt + d * elt, 4 * N * d, PEAK_FP32_OPS_PER_S)
+
+
+def visible_pairs(S, causal, window):
+    """(query, key) pairs the masks leave visible, for one head."""
+    total = 0
+    for i in range(S):
+        hi = i + 1 if causal else S
+        lo = max(0, i - window + 1) if window else 0
+        total += hi - lo
+    return total
+
+
+def flash_bound(B, H, KV, S, hd, window, dtype, elt):
+    """flash_attention: Q and O (B, H, S, hd) and K, V (B, KV, S, hd) moved
+    once; QK^T and PV over the visible pairs, 2 operations per
+    multiply-add, at the bf16 tensor-core rate for bf16 inputs and the fp32
+    rate for fp32 ones (the softmax's exps are not counted)."""
+    nbytes = (2 * B * H + 2 * B * KV) * S * hd * elt
+    ops = 4 * hd * B * H * visible_pairs(S, True, window)
+    rate = PEAK_BF16_OPS_PER_S if dtype == "bfloat16" else PEAK_FP32_OPS_PER_S
+    return _bound(nbytes, ops, rate)
+
+
+def _time_set(torch, name, shape, fns, bound, iters):
+    """fns: {"kernel", "plain", "library" (or None), "kernel_warm"} ->
+    times dict. kernel, plain and library cycle over enough copies of
+    their inputs to spill the L2 cache between two uses of one copy, so
+    that each call reads its inputs from device memory, as the bound
+    assumes; kernel_warm reuses one copy, which stays in L2 when it fits."""
+    # plain, kernel, kernel, plain: the two kernel and two plain timings are
+    # averaged, so drift in clocks hits both alike; the library call last
+    p1 = _graph_ms(torch, fns["plain"], iters)
+    k1 = _graph_ms(torch, fns["kernel"], iters)
+    k2 = _graph_ms(torch, fns["kernel"], iters)
+    p2 = _graph_ms(torch, fns["plain"], iters)
+    lib = (_graph_ms(torch, fns["library"], iters)
+           if fns["library"] is not None else None)
+    out = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+           "bound_ms": bound[0], "bound_by": bound[1],
+           "eager_ms": _eager_ms(torch, fns["kernel"], iters),
+           "plain_eager_ms": _eager_ms(torch, fns["plain"], iters),
+           "library_ms": lib,
+           "warm_ms": _graph_ms(torch, fns["kernel_warm"], iters)}
+    log(f"[timing] {name} {shape}: kernel device {out['ms']:.6f} ms ({k1:.6f}, "
+        f"{k2:.6f}; {out['warm_ms']:.6f} with its inputs in L2), plain "
+        f"device {out['plain_ms']:.6f} ms, library "
+        f"{'none' if lib is None else f'{lib:.6f} ms'}, bound "
+        f"{bound[0]:.7f} ms by {bound[1]}; eager wall per call: kernel "
+        f"{out['eager_ms']:.6f} ms, plain {out['plain_eager_ms']:.6f} ms")
+    return out
+
+
+def _cold_copies(tensors, nbytes):
+    """Clones of `tensors` (a call's inputs; the call moves `nbytes` in
+    all), enough that cycling through them moves twice the L2 between two
+    uses of one set, at most 64; returns a function giving the next set."""
+    n = max(1, min(64, math.ceil(2 * L2_BYTES / nbytes)))
+    sets = [tensors] + [tuple(t.clone() for t in tensors)
+                        for _ in range(n - 1)]
+    order = itertools.cycle(range(n))
+    return lambda: sets[next(order)]
+
+
+def _sdpa(torch):
+    """F.scaled_dot_product_attention with grouped KV heads: the library
+    yardstick for flash_attention (timed only, never called by the port)."""
+    import torch.nn.functional as F
+
+    def call(q, k, v, window):
+        if window:
+            S = q.shape[2]
+            i = torch.arange(S, device=q.device)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    return call
+
+
+def phase_norm_flash_timing(torch, norm_shapes, flash_shapes):
+    """Times of rmsnorm at each (N, d, dtype) and of flash_attention at each
+    (B, H, KV, S, hd, window, dtype)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa, ref
+    from repro_torch.kernels import rmsnorm as rn
+
+    def rms_norm(x, scale):
+        return F.rms_norm(x, (x.shape[-1],), scale, 1e-5)
+
+    times = {}
+    for N, d, dtype in norm_shapes:
+        x, sc = _norm_inputs(torch, N, d, dtype)
+        nxt = _cold_copies((x, sc), 2 * x.numel() * x.element_size())
+        fns = {"kernel": lambda: rn.rmsnorm(*nxt()),
+               "plain": lambda: ref.rmsnorm_ref(*nxt()),
+               "library": lambda: rms_norm(*nxt()),
+               "kernel_warm": lambda: rn.rmsnorm(x, sc)}
+        times[("rmsnorm", N, d, dtype)] = _time_set(
+            torch, "rmsnorm", (N, d, dtype), fns,
+            norm_bound(N, d, x.element_size()), 200 if N * d < 1e6 else 50)
+    sdpa = _sdpa(torch)
+    for B, H, KV, S, hd, window, dtype in flash_shapes:
+        q, k, v = _flash_inputs(torch, B, H, KV, S, hd, dtype)
+        nxt = _cold_copies((q, k, v), (2 * q.numel() + k.numel()
+                                       + v.numel()) * q.element_size())
+        fns = {"kernel": lambda: fa.flash_attention(
+                   *nxt(), causal=True, sliding_window=window),
+               "plain": lambda: ref.flash_attention_ref(
+                   *nxt(), causal=True, sliding_window=window),
+               "library": lambda: sdpa(*nxt(), window),
+               "kernel_warm": lambda: fa.flash_attention(
+                   q, k, v, causal=True, sliding_window=window)}
+        key = ("flash_attention", B, H, KV, S, hd, window, dtype)
+        times[key] = _time_set(
+            torch, "flash_attention", key[1:], fns,
+            flash_bound(B, H, KV, S, hd, window, dtype, q.element_size()), 10)
+    return times
+
+
+# ---------------------------------------------------------------------- #
+# 4. the HAPFL path
 # ---------------------------------------------------------------------- #
 def main_path_config():
     from repro_torch.fl import FLSimConfig
@@ -316,7 +550,7 @@ def phase_main_path(torch):
     env = FLEnvironment(main_path_config())
     server = HAPFLServer(env, engine="batched", device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    kd.reset_launches()
+    reset_all_launches()
     pre = server.pretrain_rl(10)
     log(f"[main] pretrain_rl(10): straggling {pre[0]['straggling']:.3f} -> "
         f"{pre[-1]['straggling']:.3f}")
@@ -335,6 +569,7 @@ def phase_main_path(torch):
             f"(rows, V) {steps}, straggling {rec.straggling:.3f}, acc_lite "
             f"{rec.acc_lite:.4f}, acc_by_size {rec.acc_by_size}")
     launches = dict(kd.launches)
+    log(f"[main] other kernels' launches {all_launches()}")
     expected = sum(shapes.values())
     log(f"[main] launches {launches}, expected {expected} each, by (rows, "
         f"V) {shapes}")
@@ -349,8 +584,158 @@ def phase_main_path(torch):
     return server, launches, shapes
 
 
+def reset_all_launches():
+    from repro_torch.kernels import flash_attention, kd_loss, rmsnorm
+    for mod in (kd_loss, rmsnorm, flash_attention):
+        mod.reset_launches()
+
+
+def all_launches():
+    from repro_torch.kernels import flash_attention, kd_loss, rmsnorm
+    return {**kd_loss.launches, **rmsnorm.launches, **flash_attention.launches}
+
+
 # ---------------------------------------------------------------------- #
-# 6. the cohort on the card against the cohort on the CPU
+# 5. the serve path: llama3.2-3b at full width
+# ---------------------------------------------------------------------- #
+def serve_launch_shapes(cfg):
+    """{kernel: {shape: launches}} of one counted generate: every forward
+    runs rmsnorm twice per block and once before the unembedding, which
+    prefill applies to the last position only; prefill runs flash
+    attention once per block, decode never."""
+    B, S, n = SERVE["batch"], SERVE["prompt"], SERVE["n_new"]
+    L, d, H, KV = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    return {"rmsnorm": {(B * S, d, "bfloat16"): 2 * L,
+                        (B, d, "bfloat16"): 1 + (2 * L + 1) * n},
+            "flash_attention": {(B, H, KV, S, cfg.resolved_head_dim, 0,
+                                 "bfloat16"): L},
+            "kd_loss_fwd": {}, "kd_loss_bwd": {}}
+
+
+def phase_serve(torch):
+    """Serve 4 x 512-token prompts for 32 new tokens; returns the engine,
+    its batch, the counted launches and the expected shapes."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import init_model, prefill
+    from repro_torch.serve import ServeEngine
+    from repro_torch.utils.pytree import tree_leaves
+    cfg = get_config(SERVE["arch"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator("cuda").manual_seed(SERVE["seed"]),
+                        cfg, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, {cfg.dtype}; {n_params} parameters "
+        f"(num_params() {cfg.num_params()} + norm scales), "
+        f"{sum(t.numel() * t.element_size() for t in tree_leaves(params))} "
+        f"B, initialised in {time.perf_counter() - t0:.2f} s")
+    B, S, n_new = SERVE["batch"], SERVE["prompt"], SERVE["n_new"]
+    tokens = np.random.default_rng(SERVE["seed"]).integers(
+        0, cfg.vocab_size, (B, S))
+    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    engine = ServeEngine(cfg, params, max_len=SERVE["max_len"], device="cuda")
+    engine.generate(batch, n_new=2)          # cuBLAS and kernel warm-up
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    out = engine.generate(batch, n_new=n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    shapes = serve_launch_shapes(cfg)
+    expected = {k: sum(v.values()) for k, v in shapes.items()}
+    log(f"[serve] launches {launches}, expected {expected}")
+    if launches != expected:
+        raise SystemExit(f"chip_smoke: serve launches {launches} != "
+                         f"{expected}")
+    if out.shape != (B, n_new) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise SystemExit(f"chip_smoke: generate gave {out.shape} tokens in "
+                         f"[{out.min()}, {out.max()}]")
+    with torch.no_grad():
+        logits, _ = prefill(params, cfg, batch)
+    if logits.shape != (B, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise SystemExit("chip_smoke: prefill logits are not finite of "
+                         "shape (B, 1, vocab)")
+    # prefill + one decode step, and 31 more decode steps: the difference
+    # is the decode time per token
+    runs = {}
+    for n in (1, n_new, n_new, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.generate(batch, n_new=n)
+        torch.cuda.synchronize()
+        runs.setdefault(n, []).append(time.perf_counter() - t0)
+    t1, tn = (sum(runs[n]) / 2 for n in (1, n_new))
+    decode_ms = (tn - t1) / (n_new - 1) * 1e3
+    prefill_ms = t1 * 1e3 - decode_ms
+    log(f"[serve] counted generate {wall:.4f} s; generate(1) {runs[1]} s, "
+        f"generate({n_new}) {runs[n_new]} s -> prefill {prefill_ms:.3f} ms "
+        f"({B * S / prefill_ms * 1e3:.0f} prompt tokens/s), decode "
+        f"{decode_ms:.3f} ms per step of {B} tokens, {B * n_new / tn:.1f} "
+        f"generated tokens/s over generate({n_new}); "
+        f"max_memory_allocated {peak} B; first row {out[0][:8].tolist()}")
+    return engine, batch, launches, shapes
+
+
+def phase_serve_parity(torch):
+    """A 2-layer fp32 cut of the full-width config, the same weights on the
+    card and on the CPU: prefill logits and 4 decode steps' logits, each
+    step fed the CPU's greedy token on both sides."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models.api import (decode_step, init_model,
+                                        make_decode_cache, prefill)
+    cfg = dataclasses.replace(get_config(SERVE["arch"]), n_layers=2,
+                              dtype=torch.float32)
+    B, S, steps = 2, 128, 4
+    gpu = init_model(torch.Generator("cuda").manual_seed(1), cfg, "cuda")
+    sides = {"cuda": gpu,
+             "cpu": params_from_numpy(params_to_numpy(gpu), device="cpu")}
+    tok = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
+    err, agree = 0.0, 0
+    with full_fp32(torch), torch.no_grad():
+        logits, caches = {}, {}
+        for dev, params in sides.items():
+            logits[dev], pre = prefill(params, cfg, {
+                "tokens": torch.as_tensor(tok, device=dev)})
+            caches[dev] = make_decode_cache(cfg, B, S + steps, dev)
+            for key in ("k", "v"):
+                caches[dev]["blocks"][key][:, :, :S] = pre["blocks"][key]
+        for i in range(steps + 1):
+            a, b = logits["cuda"].cpu(), logits["cpu"]
+            # fp32 on both sides, summed in other orders over rows of
+            # 3072-8192: ten times the 1e-4 the CPU port keeps to the JAX
+            # reference at the smoke config's d 256
+            torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+            err = max(err, float((a - b).abs().max()))
+            nxt = b[:, -1].argmax(-1)
+            agree += int((a[:, -1].argmax(-1) == nxt).sum())
+            if i == steps:
+                break
+            for dev, params in sides.items():
+                logits[dev], caches[dev] = decode_step(
+                    params, cfg, {"tokens": nxt[:, None].to(dev)},
+                    caches[dev], S + i)
+    log(f"[parity] serve, 2-layer fp32 cut at full width, B {B}, S {S}: "
+        f"prefill + {steps} decode steps, max|diff| of logits {err:.3e} "
+        f"(atol 1e-3, rtol 1e-3); greedy tokens agree {agree} of "
+        f"{B * (steps + 1)}")
+
+
+# ---------------------------------------------------------------------- #
+# 7. the cohort on the card against the cohort on the CPU
 # ---------------------------------------------------------------------- #
 def phase_parity(torch):
     from repro_torch.fl import FLEnvironment, FLSimConfig, HAPFLServer
@@ -384,13 +769,15 @@ def phase_parity(torch):
 # ---------------------------------------------------------------------- #
 # 7. where a round's device time goes
 # ---------------------------------------------------------------------- #
-def phase_profile(torch, server):
+def phase_profile(torch, label, run, kernels):
+    """Run `run()` once under torch.profiler and print the device's busy
+    share of its wall time, the top kernels and the port's own `kernels`."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server.run_round()
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # rows of device-side events only (kernels, copies, memsets): an
@@ -402,17 +789,17 @@ def phase_profile(torch, server):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     if not rows:
-        log(f"[profile] round {wall:.3f} s; device time not measured (the "
+        log(f"[profile] {label} {wall:.3f} s; device time not measured (the "
             "profiler recorded no device events)")
         return
-    log(f"[profile] round {wall:.3f} s wall, device busy {busy:.3f} s "
-        f"({100 * busy / wall:.1f}% of the round; idle "
+    log(f"[profile] {label} {wall:.3f} s wall, device busy {busy:.3f} s "
+        f"({100 * busy / wall:.1f}% of the {label}; idle "
         f"{100 * (1 - busy / wall):.1f}%)")
     for dev_us, count, key in rows[:12]:
         log(f"[profile] {dev_us / 1e3:10.3f} ms {count:7d}x  {key[:90]}")
     # the port's own kernels, wherever they rank: device time per launch
     for dev_us, count, key in rows:
-        for kernel in ("kd_fwd_kernel", "kd_bwd_kernel"):
+        for kernel in kernels:
             if kernel in key:
                 log(f"[profile] {kernel}: {count} launches, "
                     f"{dev_us / 1e3:.3f} ms on the device, "
@@ -420,16 +807,25 @@ def phase_profile(torch, server):
                     f"({100 * dev_us / 1e6 / busy:.2f}% of device time)")
 
 
-def main_path_times(times, name, shapes):
-    """One kernel's times over the main path, each the mean over the shapes
-    it ran at weighted by its launches there; bound_by is that of the shape
-    with the most launches."""
-    total = sum(shapes.values())
-    at = {s: times[(name, *s, "float32")] for s in shapes}
-    out = {k: sum(at[s][k] * n for s, n in shapes.items()) / total
+def path_times(times, launches_by_key):
+    """One kernel's times over a path, each the mean over the shapes it ran
+    at weighted by its launches there; bound_by is that of the shape with
+    the most launches. launches_by_key: {key of `times`: launches}."""
+    total = sum(launches_by_key.values())
+    out = {k: sum(times[key][k] * n for key, n in launches_by_key.items())
+           / total
            for k in ("ms", "plain_ms", "bound_ms", "eager_ms",
                      "plain_eager_ms")}
-    out["bound_by"] = at[max(shapes, key=shapes.get)]["bound_by"]
+    warm = [times[key].get("warm_ms") for key in launches_by_key]
+    if None not in warm:
+        out["warm_ms"] = sum(w * n for w, n in zip(
+            warm, launches_by_key.values())) / total
+    libs = [times[key].get("library_ms") for key in launches_by_key]
+    out["library_ms"] = (None if None in libs else
+                         sum(times[key]["library_ms"] * n for key, n in
+                             launches_by_key.items()) / total)
+    out["bound_by"] = times[max(launches_by_key,
+                                key=launches_by_key.get)]["bound_by"]
     return out
 
 
@@ -441,12 +837,32 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
     phase_build()
     errs = phase_kernels(torch, CHECK_SHAPES)
+    nf_errs = phase_norm_flash_kernels(torch)
     server, launches, shapes = phase_main_path(torch)
     main = [(N, V, "float32") for N, V in sorted(shapes)]
     errs.update(phase_kernels(torch, [s for s in main if s not in errs]))
     times = phase_timing(torch, main + VOCAB_SHAPES)
+
+    engine, batch, serve_launches, serve_shapes = phase_serve(torch)
+    serve_keys = {name: {(name, *shape): n for shape, n in by_shape.items()}
+                  for name, by_shape in serve_shapes.items() if by_shape}
+    for keys in serve_keys.values():
+        unchecked = [k for k in keys if k not in nf_errs]
+        if unchecked:
+            raise SystemExit(f"chip_smoke: the serve path ran shapes phase "
+                             f"3 did not check: {unchecked}")
+    nf_times = phase_norm_flash_timing(
+        torch, [k[1:] for k in serve_keys["rmsnorm"]],
+        [k[1:] for k in serve_keys["flash_attention"]])
+
     phase_parity(torch)
-    phase_profile(torch, server)
+    phase_serve_parity(torch)
+    phase_profile(torch, "HAPFL round", server.run_round,
+                  ("kd_fwd_kernel", "kd_bwd_kernel"))
+    phase_profile(torch, "generate",
+                  lambda: engine.generate(batch, n_new=SERVE["n_new"]),
+                  ("rmsnorm_kernel", "flash_kernel"))
+    del engine, batch
 
     from repro_torch.kernels import kd_loss as kd
     record = {"kernels": [
@@ -455,11 +871,25 @@ def main() -> int:
          "replaces": "src/repro/kernels/kd_loss.py:30",
          "launches": launches[name],
          "max_abs_err": max(errs[s][i] for s in main),
-         **main_path_times(times, name, shapes),
-         "library_ms": None,
+         **path_times(times, {(name, N, V, "float32"): n
+                              for (N, V), n in shapes.items()}),
          "shapes": [[N, V, n] for (N, V), n in sorted(shapes.items())],
-         "dtype": "float32"}
+         "dtype": "float32", "path": "HAPFL rounds"}
         for i, name in enumerate(kd.launches)]}
+    for name, source, replaces in (
+            ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+             "src/repro/kernels/rmsnorm.py:11"),
+            ("flash_attention",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:23")):
+        keys = serve_keys[name]
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": serve_launches[name],
+            "max_abs_err": max(nf_errs[k] for k in keys),
+            **path_times(nf_times, keys),
+            "shapes": [[*k[1:], n] for k, n in keys.items()],
+            "dtype": "bfloat16", "path": "serve llama3.2-3b"})
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

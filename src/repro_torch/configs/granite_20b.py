@@ -1,0 +1,10 @@
+"""granite-20b — llama-arch code model with MQA (kv=1). [arXiv:2405.04324]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-20b", family="dense",
+    n_layers=52, d_model=6144, n_heads=48, n_kv_heads=1,
+    d_ff=24576, vocab_size=49152,
+    norm="layernorm", act="gelu",
+    source="arXiv:2405.04324",
+)

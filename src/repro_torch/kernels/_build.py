@@ -20,11 +20,17 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = {"kd_loss": "kd_loss.cu"}
+SOURCES = {"kd_loss": "kd_loss.cu", "rmsnorm": "rmsnorm.cu",
+           "flash_attention": "flash_attention.cu"}
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: the `dtype` argument every kernel's C entry point takes
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: name -> nvcc's output (the ptxas register/spill report) of this process's
 #: build; empty for a library that was already on disk
@@ -86,3 +92,9 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")

@@ -20,7 +20,6 @@ from repro_torch.kernels import _build, ref
 #: kernel and nowhere else (CPU calls go to the plain version, uncounted)
 launches: Dict[str, int] = {"kd_loss_fwd": 0, "kd_loss_bwd": 0}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -46,7 +45,7 @@ def _check(x: torch.Tensor, y: torch.Tensor, labels: torch.Tensor) -> None:
     if labels.shape != (x.shape[0],):
         raise ValueError(f"labels must be ({x.shape[0]},), got "
                          f"{tuple(labels.shape)}")
-    if x.dtype != y.dtype or x.dtype not in _DTYPE_CODE:
+    if x.dtype != y.dtype or x.dtype not in _build.DTYPE_CODE:
         raise TypeError(f"logits must both be float32 or bfloat16, got "
                         f"{x.dtype} and {y.dtype}")
     if labels.dtype not in (torch.int32, torch.int64):
@@ -67,11 +66,6 @@ def _cuda_args(x, y, labels, *more):
     return labels if labels.dtype == torch.int32 else labels.to(torch.int32)
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-
-
 def kd_loss_fwd(x: torch.Tensor, y: torch.Tensor, labels: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(N, V) logits x, y and (N,) labels -> terms (4, N) fp32 = (ce_x,
@@ -85,8 +79,9 @@ def kd_loss_fwd(x: torch.Tensor, y: torch.Tensor, labels: torch.Tensor
     with torch.cuda.device(x.device):
         err = _lib().kd_loss_fwd(
             x.data_ptr(), y.data_ptr(), lab.data_ptr(), out.data_ptr(), N, V,
-            _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "kd_loss_fwd")
+            _build.DTYPE_CODE[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "kd_loss_fwd")
     launches["kd_loss_fwd"] += 1
     return out[:4], out[4:]
 
@@ -110,8 +105,9 @@ def kd_loss_bwd(x: torch.Tensor, y: torch.Tensor, labels: torch.Tensor,
         err = _lib().kd_loss_bwd(
             x.data_ptr(), y.data_ptr(), lab.data_ptr(), stats.data_ptr(),
             grads.data_ptr(), dx.data_ptr(), dy.data_ptr(), N, V,
-            _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "kd_loss_bwd")
+            _build.DTYPE_CODE[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "kd_loss_bwd")
     launches["kd_loss_bwd"] += 1
     return dx, dy
 

@@ -2,6 +2,7 @@
 and the oracle the CUDA kernels are held against on the card."""
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -64,3 +65,36 @@ def kd_loss_bwd_ref(x_logits: torch.Tensor, y_logits: torch.Tensor,
     dx = g_ce_x * (p_x - onehot) + g_kl_xy * p_x * ((x - y) - e_x)
     dy = g_ce_y * (p_y - onehot) + g_kl_yx * p_y * ((y - x) - e_y)
     return dx.to(x_logits.dtype), dy.to(y_logits.dtype)
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
+    """x (N, d), scale (d,) -> x * rsqrt(mean(x^2) + eps) * scale over each
+    row, computed in fp32 and cast back to x's dtype."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        sliding_window: int = 0) -> torch.Tensor:
+    """q (B, H, S, hd), k and v (B, KV, S, hd) with H % KV == 0 ->
+    (B, H, S, hd) in q's dtype. Naive attention, materialised in fp32 with
+    scale 1/sqrt(hd). Query head h reads KV head h // (H / KV), as
+    ``models.attention.gqa_attention`` groups them. Key j is visible to
+    query i when j <= i (causal) and j > i - sliding_window (when set)."""
+    B, H, S, hd = q.shape
+    G = H // k.shape[1]
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    scores = (q.float() @ kf.transpose(-1, -2)) / math.sqrt(hd)
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = j <= i
+    if sliding_window:
+        mask = mask & (j > i - sliding_window)
+    scores = scores.masked_fill(~mask, float("-inf"))
+    return (torch.softmax(scores, -1) @ vf).to(q.dtype)

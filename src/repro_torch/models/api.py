@@ -1,0 +1,67 @@
+"""Public model API: build and apply a dense decoder by config.
+
+Counterpart of ``repro.models.api``. Entry points that make tensors run on
+CUDA unless the caller passes a device.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import (apply_model, init_cache,
+                                            init_params, unembed)
+from repro_torch.utils.device import resolve_device
+
+
+def init_model(gen: torch.Generator, cfg: ModelConfig, device=None):
+    """Params of `cfg` drawn from `gen`, which must live on `device` (CUDA
+    when None)."""
+    return init_params(gen, cfg, resolve_device(device))
+
+
+def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """Training forward: logits (fp32), aux losses."""
+    logits, _, aux = apply_model(params, cfg, batch, cache=None)
+    return logits, aux
+
+
+def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """Prefill: consume a prompt, return (last-token logits, cache). Only the
+    last position is unembedded: rows are independent, so its logits are
+    those of the full unembedding, and the (B, S, vocab) fp32 logits are
+    never made."""
+    hidden, cache, _ = apply_model(params, cfg, batch, cache="init",
+                                   return_hidden=True)
+    return unembed(params["io"], cfg, hidden[:, -1:]), cache
+
+
+def decode_step(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                cache, cache_index: int):
+    """One decode step. batch holds the single new token (B, 1); the cache
+    is updated in place."""
+    logits, new_cache, _ = apply_model(params, cfg, batch, cache=cache,
+                                       cache_index=cache_index)
+    return logits, new_cache
+
+
+def make_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
+                      device=None):
+    return init_cache(cfg, batch, max_len, resolve_device(device))
+
+
+def dummy_batch(cfg: ModelConfig, batch: int, seq: int,
+                gen: Optional[torch.Generator] = None,
+                with_labels: bool = True,
+                device=None) -> Dict[str, torch.Tensor]:
+    """A batch of random tokens (and labels) of the right structure, drawn
+    from `gen` (seed 0 on `device` when None)."""
+    device = resolve_device(device)
+    gen = gen if gen is not None else torch.Generator(device).manual_seed(0)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                   generator=gen, device=device)}
+    if with_labels:
+        out["labels"] = torch.randint(0, cfg.vocab_size, (batch, seq),
+                                      generator=gen, device=device)
+    return out

@@ -1,5 +1,6 @@
-"""On the card: the port's CUDA kernels against their plain versions, and one
-cohort trained through them against the same cohort on the CPU. Every test
+"""On the card: the port's CUDA kernels against their plain versions, one
+cohort trained through them against the same cohort on the CPU, and the
+serving path on the card against the CPU. Every test
 here is marked gpu and skips inside its fixture on a machine without CUDA.
 The file imports no JAX, so it runs where only PyTorch is installed:
 
@@ -10,15 +11,25 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config
 from repro_torch.fl import BatchedClientEngine, FLEnvironment, FLSimConfig
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import kd_loss as tkd
-from repro_torch.kernels.ref import kd_loss_ref
+from repro_torch.kernels import rmsnorm as trms
+from repro_torch.kernels.ref import (flash_attention_ref, kd_loss_ref,
+                                     rmsnorm_ref)
+from repro_torch.models.api import init_model
 from repro_torch.models.cnn import init_cnn
+from repro_torch.serve import ServeEngine
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
 TERMS = ("ce_x", "ce_y", "kl_xy", "kl_yx")
 # the tolerances of tests/test_kernels.py
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# rmsnorm and flash attention: fp32 looser than tests/test_kernels.py's
+# 2e-6, which assumes the CPU's order of summation; bf16 as there
+TOL_NORM = {"float32": 1e-5, "bfloat16": 2e-2}
+TOL_FLASH = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 @pytest.fixture
@@ -116,3 +127,82 @@ def test_cuda_cohort_matches_cpu(cuda):
     for a, b in zip(out["cuda"], out["cpu"]):
         for la, lb in zip(tree_leaves(a), tree_leaves(b)):
             torch.testing.assert_close(la.cpu(), lb, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,d,dtype", [(2048, 3072, "bfloat16"),
+                                       (4, 3072, "bfloat16"),
+                                       (2048, 3072, "float32"),
+                                       (1000, 3072, "float32"),
+                                       (64, 777, "float32"),
+                                       (64, 777, "bfloat16")])
+def test_cuda_rmsnorm_matches_plain(cuda, N, d, dtype):
+    rng = np.random.default_rng(N + d)
+    tdt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((N, d)).astype(np.float32)
+                         ).to(cuda, tdt)
+    sc = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(
+        np.float32)).to(cuda, tdt)
+    before = trms.launches["rmsnorm"]
+    got = trms.rmsnorm(x, sc)
+    torch.cuda.synchronize()
+    assert trms.launches["rmsnorm"] == before + 1
+    assert got.dtype == tdt
+    torch.testing.assert_close(got.float(), rmsnorm_ref(x, sc).float(),
+                               atol=TOL_NORM[dtype], rtol=TOL_NORM[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KV,S,hd,window,dtype", [
+    (4, 24, 8, 512, 128, 0, "bfloat16"),
+    (4, 24, 8, 512, 128, 0, "float32"),
+    (2, 4, 2, 300, 128, 0, "float32"),
+    (1, 4, 4, 256, 128, 64, "float32"),
+    (2, 8, 2, 200, 64, 0, "bfloat16"),
+    (1, 2, 2, 130, 64, 16, "float32")])
+def test_cuda_flash_attention_matches_plain(cuda, B, H, KV, S, hd, window,
+                                            dtype):
+    rng = np.random.default_rng(S + hd)
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda, tdt) for shape in
+        ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd)))
+    before = tflash.launches["flash_attention"]
+    got = tflash.flash_attention(q, k, v, causal=True, sliding_window=window)
+    torch.cuda.synchronize()
+    assert tflash.launches["flash_attention"] == before + 1
+    exp = flash_attention_ref(q, k, v, causal=True, sliding_window=window)
+    torch.testing.assert_close(got.float(), exp.float(),
+                               atol=TOL_FLASH[dtype], rtol=TOL_FLASH[dtype])
+
+
+@pytest.mark.gpu
+def test_cuda_norm_and_attention_wrappers_raise_on_bad_layouts(cuda):
+    x = torch.zeros((8, 64), device=cuda)[:, ::2]
+    with pytest.raises(ValueError):
+        trms.rmsnorm(x, torch.ones(32, device=cuda))
+    q = torch.zeros((1, 16, 2, 128), device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError):
+        tflash.flash_attention(q, q, q)
+    q = torch.zeros((1, 2, 16, 32), device=cuda)
+    with pytest.raises(ValueError):     # hd 32 has no instantiation
+        tflash.flash_attention(q, q, q)
+
+
+@pytest.mark.gpu
+def test_cuda_generate_matches_cpu(cuda):
+    """The fp32 smoke llama (GQA) served on the card, through the kernels,
+    gives the CPU's greedy tokens."""
+    cfg = get_config("llama3.2-3b").smoke()
+    params = init_model(torch.Generator(cuda).manual_seed(0), cfg, cuda)
+    tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40))
+    before = dict(trms.launches, **tflash.launches)
+    got = ServeEngine(cfg, params, max_len=64, device=cuda).generate(
+        {"tokens": tok}, n_new=6)
+    assert trms.launches["rmsnorm"] == before["rmsnorm"] + 5 * 7
+    assert (tflash.launches["flash_attention"]
+            == before["flash_attention"] + 2)
+    cpu = tree_map(lambda t: t.cpu(), params)
+    exp = ServeEngine(cfg, cpu, max_len=64, device="cpu").generate(
+        {"tokens": tok}, n_new=6)
+    np.testing.assert_array_equal(got, exp)

@@ -64,8 +64,12 @@ def _default_device_cases():
     from repro_torch.core.intensity import IntensityAllocator
     from repro_torch.core.ppo import PPOAgent, PPOConfig
     from repro_torch.fl import BatchedClientEngine, FLEnvironment, FLSimConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import init_model
     from repro_torch.models.cnn import cnn_pool, init_cnn
+    from repro_torch.serve import ServeEngine
     gen = torch.Generator().manual_seed(0)
+    smoke = get_config("llama3.2-3b").smoke()
     return {
         "engine": lambda: BatchedClientEngine(FLEnvironment(FLSimConfig(
             n_train=100, n_test=20, n_clients=4, k_per_round=2))),
@@ -76,12 +80,16 @@ def _default_device_cases():
         "init_cnn": lambda: init_cnn(gen, cnn_pool("mnist")["lite"]),
         "params_from_numpy": lambda: params_from_numpy(
             {"w": np.zeros((2, 2), np.float32)}),
+        "init_model": lambda: init_model(gen, smoke),
+        "serve_engine": lambda: ServeEngine(
+            smoke, init_model(gen, smoke, device="cpu")),
     }
 
 
 @pytest.mark.parametrize("name", ["engine", "ppo_agent", "model_allocator",
                                   "intensity_allocator", "init_cnn",
-                                  "params_from_numpy"])
+                                  "params_from_numpy", "init_model",
+                                  "serve_engine"])
 def test_constructors_default_to_cuda(monkeypatch, name):
     """Left at its default, every entry point asks for the card, and
     without one it raises instead of running on the CPU."""
