@@ -40,10 +40,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   6. timing   — each kernel, its plain version and, where one PyTorch call
                 computes the same function, that call (F.rms_norm,
                 F.scaled_dot_product_attention), at every shape its path
-                gave it. `ms` is device time: the calls are captured into
-                one CUDA graph and its replay is timed with CUDA events, so
-                the host's issue cost is left out. For rmsnorm and flash the
-                calls cycle over copies of their inputs that together spill
+                gave it; and the four layout copies prefill makes around
+                the flash kernel in every block (q, k, v to (B, H, S, hd)
+                and the output back). `ms` is device time: the calls are
+                captured into one CUDA graph and its replay is timed with
+                CUDA events, so the host's issue cost is left out. For
+                rmsnorm and flash the calls cycle over copies of their
+                inputs that together spill
                 the 50 MB L2, so that each call reads device memory, as the
                 bound assumes; `warm_ms` reuses one copy. `eager_ms` is the
                 wall time per call of back-to-back eager calls, the
@@ -54,9 +57,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 cut of the full-width llama in fp32 gives the same prefill
                 logits and 4 decode steps' logits on the card and on the
                 CPU (atol and rtol 1e-3).
-  8. profile  — one more HAPFL training round and one more generate under
-                torch.profiler: device time by kernel and the device's busy
-                share.
+  8. profile  — one more HAPFL training round, one more generate and one
+                prefill alone under torch.profiler: device time by kernel
+                and the device's busy share.
 
 The parity phases turn TF32 off for cuDNN and matmuls, so that both sides
 compute in full float32, and restore the defaults afterwards.
@@ -508,6 +511,34 @@ def phase_norm_flash_timing(torch, norm_shapes, flash_shapes):
     return times
 
 
+def phase_layout_copies(torch, cfg):
+    """Device ms of the copies apply_attention makes in one block at the
+    prefill shape to give the flash kernel its (B, H, S, hd) layout: q, k
+    and v transposed and made contiguous, and the (B, H, S, hd) output
+    transposed back and reshaped to (B, S, H * hd). Each copy reads and
+    writes its tensor once; the bound is those bytes over 3.35 TB/s."""
+    B, S = SERVE["batch"], SERVE["prompt"]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = _randn(torch, (B, S, H, hd), "bfloat16", g)
+    k = _randn(torch, (B, S, KV, hd), "bfloat16", g)
+    v = _randn(torch, (B, S, KV, hd), "bfloat16", g)
+    o = _randn(torch, (B, H, S, hd), "bfloat16", g)
+
+    def copies():
+        for t in (q, k, v):
+            t.transpose(1, 2).contiguous()
+        o.transpose(1, 2).reshape(B, S, H * hd)
+
+    ms = _graph_ms(torch, copies, 20)
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in (q, k, v, o))
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    log(f"[timing] prefill layout copies (q, k, v, out) per block: device "
+        f"{ms:.6f} ms, bound {bound:.6f} ms ({nbytes} B); "
+        f"x {cfg.n_layers} blocks = {ms * cfg.n_layers:.4f} ms per prefill")
+    return ms
+
+
 # ---------------------------------------------------------------------- #
 # 4. the HAPFL path
 # ---------------------------------------------------------------------- #
@@ -854,6 +885,7 @@ def main() -> int:
     nf_times = phase_norm_flash_timing(
         torch, [k[1:] for k in serve_keys["rmsnorm"]],
         [k[1:] for k in serve_keys["flash_attention"]])
+    phase_layout_copies(torch, engine.cfg)
 
     phase_parity(torch)
     phase_serve_parity(torch)
@@ -862,6 +894,10 @@ def main() -> int:
     phase_profile(torch, "generate",
                   lambda: engine.generate(batch, n_new=SERVE["n_new"]),
                   ("rmsnorm_kernel", "flash_kernel"))
+    with torch.no_grad():
+        phase_profile(torch, "prefill",
+                      lambda: engine._prefill(engine.params, batch),
+                      ("rmsnorm_kernel", "flash_kernel"))
     del engine, batch
 
     from repro_torch.kernels import kd_loss as kd

@@ -4,7 +4,7 @@ Every client trains two models on the same batch:
   local model : L1 = lambda1 * CE + lambda2 * KL(local || sg(lite))
   LiteModel   : L2 = lambda3 * CE + lambda4 * KL(lite || sg(local))
 The four per-row terms and their gradients come from the kd_loss kernel
-(`repro_torch.kernels.kd_loss.KDLoss`), whose backward routes L1 to the
+(`repro_torch.kernels.ops.kd_loss_op`, through `kernels.kd_loss.KDLoss`), whose backward routes L1 to the
 local logits only and L2 to the lite logits only.
 
 Logits may carry a leading client axis, (C, B, V): each client's loss is its
@@ -17,7 +17,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.kd_loss import kd_loss
+from repro_torch.kernels.ops import kd_loss_op
 from repro_torch.optim import sgd
 from repro_torch.utils.pytree import tree_add, tree_leaves, tree_unflatten
 
@@ -34,8 +34,8 @@ def mutual_losses(local_logits: torch.Tensor, lite_logits: torch.Tensor,
     l1, l2, l3, l4 = lambdas
     lead = labels.shape
     V = local_logits.shape[-1]
-    t = kd_loss(local_logits.reshape(-1, V), lite_logits.reshape(-1, V),
-                labels.reshape(-1))
+    t = kd_loss_op(local_logits.reshape(-1, V), lite_logits.reshape(-1, V),
+                   labels.reshape(-1))
     mean = {k: v.view(lead).mean(-1) for k, v in t.items()}
     per_client = (l1 * mean["ce_x"] + l2 * mean["kl_xy"]
                   + l3 * mean["ce_y"] + l4 * mean["kl_yx"])

@@ -5,7 +5,8 @@
   rmsnorm          — row RMSNorm (the transformer's norms)
   flash_attention  — causal / sliding-window attention with grouped KV heads
                      (the transformer's training and prefill attention)
-  ops              — the wrappers under tracer annotations, mutual_kd_loss
+  ops              — the kernels under tracer annotations: the model's and
+                     the HAPFL step's entry points
   ref              — plain PyTorch versions (the CPU path and the on-card oracle)
   _build           — builds csrc/*.cu with nvcc at first use, loads them via ctypes
 """

@@ -236,19 +236,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int KV, int S, int causal, int window, float sm_scale,
            cudaStream_t s) {
   constexpr int kSmem = smem_floats<HD>() * sizeof(float);
-  // the attribute is per device; set it once for each device this process
-  // launches on (at most 32 tracked, the rest set it on every launch)
-  static unsigned int set_on = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  // above 48 KB of dynamic shared memory needs the attribute, which is per
+  // device: set it before every launch (a host call, 28 per prefill)
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 32 || !(set_on & (1u << dev))) {
-    err = cudaFuncSetAttribute(flash_kernel<T, HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < 32) set_on |= 1u << dev;
-  }
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
   flash_kernel<T, HD><<<grid, kThreads, kSmem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

@@ -1,24 +1,19 @@
-"""Public wrappers around the port's kernels, each under a tracer
-annotation, and the paper's mutual-KD loss.
+"""The port's kernels, each under a tracer annotation: the entry points the
+model and the HAPFL step call.
 
 Counterpart of ``repro.kernels.ops``. Where the reference runs its Pallas
 kernels in interpret mode off the TPU, here each wrapper dispatches on its
 tensors' device: the CUDA kernel for CUDA tensors, the plain version
-(`repro_torch.kernels.ref`) for CPU tensors.
+(`repro_torch.kernels.ref`) for CPU tensors. With tracing on
+(`repro_torch.obs.trace.enable`), every call lands as a wall span and, under
+`torch.profiler`, as a `record_function` range.
 """
 from __future__ import annotations
 
-import torch
-
-from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.kd_loss import kd_loss as _kd
 from repro_torch.kernels.rmsnorm import rmsnorm as _rms
 from repro_torch.obs.trace import current as _tracer
-
-
-def on_cuda() -> bool:
-    return torch.cuda.is_available()
 
 
 def flash_attention_op(q, k, v, *, causal=True, sliding_window=0):
@@ -37,32 +32,3 @@ def kd_loss_op(x_logits, y_logits, labels):
 def rmsnorm_op(x, scale, *, eps=1e-5):
     with _tracer().annotation("cuda.rmsnorm"):
         return _rms(x, scale, eps)
-
-
-def mutual_kd_loss(x_logits, y_logits, labels, lambdas=(0.4, 0.6, 0.5, 0.5),
-                   use_kernel: bool = False):
-    """Paper Eqs. 33-34: L1 = l1*CE_x + l2*KL(x||sg(y)); L2 = l3*CE_y +
-    l4*KL(y||sg(x)).
-
-    The plain path by default; use_kernel=True goes through the kd_loss
-    kernels, whose backward carries the same stop-gradients. Logits may be
-    (..., V); labels (...). Returns (L1 + L2 scalar, metrics)."""
-    l1, l2, l3, l4 = lambdas
-    V = x_logits.shape[-1]
-    x = x_logits.reshape(-1, V)
-    y = y_logits.reshape(-1, V)
-    lab = labels.reshape(-1)
-    if use_kernel:
-        t = kd_loss_op(x, y, lab)
-        ce_x, ce_y = t["ce_x"], t["ce_y"]
-        kl_xy, kl_yx = t["kl_xy"], t["kl_yx"]
-    else:
-        tx = ref.kd_loss_ref(x, y.detach(), lab)   # grads flow to x only
-        ty = ref.kd_loss_ref(x.detach(), y, lab)
-        ce_x, kl_xy = tx["ce_x"], tx["kl_xy"]
-        ce_y, kl_yx = ty["ce_y"], ty["kl_yx"]
-    L1 = l1 * ce_x.mean() + l2 * kl_xy.mean()
-    L2 = l3 * ce_y.mean() + l4 * kl_yx.mean()
-    metrics = {"ce_local": ce_x.mean(), "ce_lite": ce_y.mean(),
-               "kl_local_lite": kl_xy.mean(), "kl_lite_local": kl_yx.mean()}
-    return L1 + L2, metrics

@@ -2,7 +2,7 @@
 
 Counterpart of ``repro.models.attention``. Training and prefill (more than
 one new token, or building the cache) go through the port's flash-attention
-wrapper (`repro_torch.kernels.flash_attention`): the CUDA kernel on the
+wrapper (`repro_torch.kernels.ops.flash_attention_op`): the CUDA kernel on the
 card, its plain version on the CPU. Decode (one new token against a cache)
 writes the token's k/v into the ring-buffer cache and attends with
 `gqa_attention`, plain PyTorch, as the reference does.
@@ -20,7 +20,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ops import flash_attention_op
 from repro_torch.models.layers import apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -112,10 +112,10 @@ def apply_attention(params, cfg: ModelConfig, x, positions,
                             q_start=cache_index)
         new_cache = cache
     else:
-        out = flash_attention(q.transpose(1, 2).contiguous(),
-                              k.transpose(1, 2).contiguous(),
-                              v.transpose(1, 2).contiguous(), causal=True,
-                              sliding_window=cfg.sliding_window)
+        out = flash_attention_op(q.transpose(1, 2).contiguous(),
+                                 k.transpose(1, 2).contiguous(),
+                                 v.transpose(1, 2).contiguous(), causal=True,
+                                 sliding_window=cfg.sliding_window)
         out = out.transpose(1, 2)
         if cache is not None:  # prefill ("init" marker): emit cache
             new_cache = {"k": k, "v": v}

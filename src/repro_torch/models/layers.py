@@ -1,7 +1,7 @@
 """Core layers: initialisers, norms, rotary embeddings, MLPs.
 
 Counterpart of ``repro.models.layers``. RMSNorm goes through the port's
-kernel wrapper (`repro_torch.kernels.rmsnorm`): the CUDA kernel on the card,
+kernel wrapper (`repro_torch.kernels.ops.rmsnorm_op`): the CUDA kernel on the card,
 its plain version on the CPU. The reference's ``shard(...)`` annotations are
 dropped: they do nothing without a device mesh, and the mesh is ROADMAP §1
 item 13. M-RoPE (qwen2-vl) is not ported yet.
@@ -14,7 +14,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.ops import rmsnorm_op
 
 
 # --------------------------------------------------------------------- #
@@ -53,7 +53,7 @@ def apply_norm(params, x: torch.Tensor, kind: str,
     if kind == "rmsnorm":
         d = x.shape[-1]
         rows = x.reshape(-1, d).contiguous()
-        return rmsnorm(rows, params["scale"], eps).view(x.shape)
+        return rmsnorm_op(rows, params["scale"], eps=eps).view(x.shape)
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)

@@ -1,7 +1,8 @@
 """rmsnorm and flash attention in the port: the plain versions against the
 reference's Pallas kernels (interpret mode) and model functions, the
-wrappers' CPU path and checks, the port's gqa_attention, and
-kernels/ops.py::mutual_kd_loss against the reference's. The CUDA kernels
+wrappers' CPU path and checks, the port's gqa_attention, the port's
+mutual-KD loss against the reference's ops.mutual_kd_loss, and the
+kernels/ops.py annotations on the model path. The CUDA kernels
 are held against the plain versions on a card by tests/test_torch_gpu.py.
 
 Tolerance 1e-5 in fp32 unless noted; bf16 2e-2, as in tests/test_kernels.py.
@@ -18,12 +19,15 @@ from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
+from repro_torch.configs import get_config
+from repro_torch.core import distill as tdistill
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import rmsnorm as trms
 from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
+from repro_torch.obs import trace
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -159,38 +163,72 @@ def test_gqa_attention_matches_reference(mode):
 
 
 # ---------------------------------------------------------------------- #
-# kernels/ops.py
+# kernels/ops.py and the reference's mutual_kd_loss
 # ---------------------------------------------------------------------- #
-@pytest.mark.parametrize("use_kernel", [False, True])
-def test_mutual_kd_loss_matches_reference(use_kernel):
-    """Loss, metrics and the gradients of (B, T, V) logits against the
-    reference's ops.mutual_kd_loss (its plain path for the gradients: the
-    Pallas kernel has no backward)."""
-    x, y = _normal((2, 6, 50), 50, 3.0), _normal((2, 6, 50), 51, 3.0)
-    lab = np.random.default_rng(52).integers(0, 50, (2, 6)).astype(np.int32)
-    exp, exp_m = jops.mutual_kd_loss(jnp.asarray(x), jnp.asarray(y),
-                                     jnp.asarray(lab), use_kernel=use_kernel)
+@pytest.mark.parametrize("reference_path", ["plain", "kernel"])
+def test_mutual_losses_match_reference_mutual_kd_loss(reference_path):
+    """The port's mutual-KD loss (core.distill.mutual_losses, through the
+    kd_loss wrapper) on (N, V) logits against the reference's
+    ops.mutual_kd_loss: its value by either of the reference's paths, its
+    metrics, and its gradients by the reference's plain path (the Pallas
+    kernel has no backward)."""
+    x, y = _normal((12, 50), 50, 3.0), _normal((12, 50), 51, 3.0)
+    lab = np.random.default_rng(52).integers(0, 50, (12,)).astype(np.int32)
+    exp, exp_m = jops.mutual_kd_loss(
+        jnp.asarray(x), jnp.asarray(y), jnp.asarray(lab),
+        use_kernel=reference_path == "kernel")
     exp_gx, exp_gy = jax.grad(
         lambda a, b: jops.mutual_kd_loss(a, b, jnp.asarray(lab))[0],
         argnums=(0, 1))(jnp.asarray(x), jnp.asarray(y))
     tx = torch.from_numpy(x).requires_grad_(True)
     ty = torch.from_numpy(y).requires_grad_(True)
-    got, got_m = tops.mutual_kd_loss(tx, ty, torch.from_numpy(lab),
-                                     use_kernel=use_kernel)
+    got, got_m = tdistill.mutual_losses(tx, ty, torch.from_numpy(lab))
     gx, gy = torch.autograd.grad(got, (tx, ty))
     _close(got.detach(), exp, 1e-5)
-    assert set(got_m) == set(exp_m)
-    for key in exp_m:
-        _close(got_m[key].detach(), exp_m[key], 1e-5)
+    for key in ("ce_local", "ce_lite", "kl_local_lite"):
+        _close(got_m[key], exp_m[key], 1e-5)
     _close(gx, exp_gx, 1e-5)
     _close(gy, exp_gy, 1e-5)
 
 
 def test_ops_wrappers_match_plain_versions():
-    assert tops.on_cuda() == torch.cuda.is_available()
     x = torch.from_numpy(_normal((6, 64), 60))
     sc = torch.from_numpy(1 + _normal((64,), 61))
     assert torch.equal(tops.rmsnorm_op(x, sc), rmsnorm_ref(x, sc))
     q = torch.from_numpy(_normal((1, 2, 9, 8), 62))
     assert torch.equal(tops.flash_attention_op(q, q, q, sliding_window=3),
                        flash_attention_ref(q, q, q, sliding_window=3))
+
+
+def _call_apply_norm():
+    x = torch.from_numpy(_normal((2, 3, 16), 70))
+    tlayers.apply_norm({"scale": torch.ones(16)}, x, "rmsnorm")
+
+
+def _call_apply_attention():
+    cfg = get_config("llama3.2-3b").smoke()
+    params = tattn.init_attention(torch.Generator().manual_seed(0), cfg,
+                                  "cpu")
+    x = torch.from_numpy(_normal((1, 5, cfg.d_model), 71))
+    tattn.apply_attention(params, cfg, x, torch.arange(5)[None],
+                          cache="init")
+
+
+def _call_mutual_losses():
+    x, y = (torch.from_numpy(_normal((4, 10), s)) for s in (72, 73))
+    tdistill.mutual_losses(x, y, torch.zeros(4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("call,name", [
+    (_call_apply_norm, "cuda.rmsnorm"),
+    (_call_apply_attention, "cuda.flash_attention"),
+    (_call_mutual_losses, "cuda.kd_loss")])
+def test_model_path_calls_land_under_kernel_annotations(call, name):
+    """apply_norm, apply_attention's prefill and mutual_losses reach their
+    kernels through kernels/ops.py, so a trace shows each call's span."""
+    tracer = trace.enable(trace.Tracer())
+    try:
+        call()
+    finally:
+        trace.disable()
+    assert name in [ev["name"] for ev in tracer.events]
