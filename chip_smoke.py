@@ -9,7 +9,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 (nvidia-smi), torch and CUDA versions.
   2. build    — compile every kernel source under
                 src/repro_torch/kernels/csrc with nvcc (one process per
-                source, all at once) and print ptxas' register/spill report.
+                source, all at once), print ptxas' register/spill report,
+                and require HGMMA (wgmma) in the SASS of the bf16 flash
+                kernel (cuobjdump -sass of the built library).
   3. kernels  — hold each kernel against its plain PyTorch version:
                 kd_loss_fwd / kd_loss_bwd at the HAPFL path's row counts (4
                 and 8 padded clients x batch 32), a ragged N, a ragged V and
@@ -17,10 +19,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 tests/test_kernels.py: fp32 1e-4, bf16 5e-2); rmsnorm at the
                 serve path's (2048, 3072) and (4, 3072), a ragged N and an
                 odd d; flash_attention at the serve path's prefill shape,
-                a ragged S, a sliding window, hd 64 and H = KV. rmsnorm and
-                flash hold fp32 to 1e-5 and 2e-5: tests/test_kernels.py's
-                2e-6 assumes the CPU's order of summation, and the kernels
-                sum in another. bf16 2e-2, as there.
+                both as contiguous (B, H, S, hd) tensors and as the
+                transposed views of (B, S, H, hd) tensors that the path
+                gives it, a ragged S, sliding windows, hd 64 and H = KV,
+                in bf16 (the wgmma kernel) and fp32 (the SIMT kernel).
+                rmsnorm and flash hold fp32 to 1e-5 and 2e-5:
+                tests/test_kernels.py's 2e-6 assumes the CPU's order of
+                summation, and the kernels sum in another. bf16 2e-2, as
+                there. Then a training forward (models/api.py::forward)
+                on the card must refuse its backward (NotImplementedError:
+                the CUDA rmsnorm and flash have no backward kernel yet),
+                while the same forward on the CPU gives gradients.
   4. HAPFL    — Algorithm 1 on the paper's cifar10 pool at full width
                 (small + large CNNs, 10 clients, 6 per round): 10
                 latency-only PPO pretraining rounds, then 3 training rounds
@@ -39,10 +48,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 tokens/s and peak memory are printed.
   6. timing   — each kernel, its plain version and, where one PyTorch call
                 computes the same function, that call (F.rms_norm,
-                F.scaled_dot_product_attention), at every shape its path
-                gave it; and the four layout copies prefill makes around
-                the flash kernel in every block (q, k, v to (B, H, S, hd)
-                and the output back). `ms` is device time: the calls are
+                F.scaled_dot_product_attention), at every shape and layout
+                its path gave it. `ms` is device time: the calls are
                 captured into one CUDA graph and its replay is timed with
                 CUDA events, so the host's issue cost is left out. For
                 rmsnorm and flash the calls cycle over copies of their
@@ -59,7 +66,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 CPU (atol and rtol 1e-3).
   8. profile  — one more HAPFL training round, one more generate and one
                 prefill alone under torch.profiler: device time by kernel
-                and the device's busy share.
+                and the device's busy share. The prefill must make no
+                layout copy (aten::clone) of q, k, v or the attention
+                output around the flash kernel.
 
 The parity phases turn TF32 off for cuDNN and matmuls, so that both sides
 compute in full float32, and restore the defaults afterwards.
@@ -87,6 +96,7 @@ TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 TOL_NORM = {"float32": 1e-5, "bfloat16": 2e-2}
 TOL_FLASH = {"float32": 2e-5, "bfloat16": 2e-2}
 TERMS = ("ce_x", "ce_y", "kl_xy", "kl_yx")
+HEAD_DIMS = (64, 128)           # the flash kernels' instantiations
 # the main path calls kd_loss on C*B logit rows: C is a size group's client
 # count padded to a power of two, at least 4; 6 clients per round give
 # groups of 4 or 8 padded clients, at batch 32
@@ -98,21 +108,27 @@ VOCAB_SHAPES = [(2048, 32000, "float32"), (2048, 32000, "bfloat16")]
 # the serve path: llama3.2-3b at full width, 4 prompts x 512 tokens, 32 new
 SERVE = {"arch": "llama3.2-3b", "batch": 4, "prompt": 512, "n_new": 32,
          "max_len": 1024, "seed": 0}
-# rmsnorm (N, d, dtype) and flash (B, H, KV, S, hd, window, dtype) checks
+# rmsnorm (N, d, dtype) and flash (B, H, KV, S, hd, window, dtype, layout)
+# checks; layout "bshd" is the transposed view of (B, S, H, hd) tensors that
+# the model passes, "bhsd" contiguous (B, H, S, hd) tensors
 NORM_SHAPES = [(2048, 3072, "bfloat16"), (4, 3072, "bfloat16"),
                (2048, 3072, "float32"), (4, 3072, "float32"),
                (1000, 3072, "bfloat16"), (1000, 3072, "float32"),
                (64, 777, "float32"), (64, 777, "bfloat16")]
-FLASH_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16"),
-                (4, 24, 8, 512, 128, 0, "float32"),
-                (2, 24, 8, 300, 128, 0, "bfloat16"),
-                (2, 24, 8, 300, 128, 0, "float32"),
-                (2, 8, 2, 512, 128, 64, "float32"),
-                (2, 8, 2, 512, 128, 64, "bfloat16"),
-                (2, 8, 4, 256, 64, 0, "float32"),
-                (2, 8, 8, 256, 128, 0, "float32"),
-                (2, 8, 8, 256, 128, 0, "bfloat16")]
-
+FLASH_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16", "bshd"),
+                (4, 24, 8, 512, 128, 0, "float32", "bshd"),
+                (4, 24, 8, 512, 128, 0, "bfloat16", "bhsd"),
+                (4, 24, 8, 512, 128, 0, "float32", "bhsd"),
+                (2, 24, 8, 300, 128, 0, "bfloat16", "bshd"),
+                (2, 24, 8, 300, 128, 0, "float32", "bhsd"),
+                (2, 8, 2, 512, 128, 64, "float32", "bhsd"),
+                (2, 8, 2, 512, 128, 64, "bfloat16", "bshd"),
+                (1, 4, 2, 300, 128, 100, "bfloat16", "bhsd"),
+                (2, 8, 4, 256, 64, 0, "float32", "bhsd"),
+                (2, 8, 4, 256, 64, 0, "bfloat16", "bshd"),
+                (2, 8, 4, 300, 64, 48, "bfloat16", "bhsd"),
+                (2, 8, 8, 256, 128, 0, "float32", "bhsd"),
+                (2, 8, 8, 256, 128, 0, "bfloat16", "bhsd")]
 
 def log(*a):
     print(*a, flush=True)
@@ -158,6 +174,26 @@ def phase_build():
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 log(f"[build] {name}: {line.strip()}")
+    check_hgmma(_build)
+
+
+def check_hgmma(_build):
+    """The bf16 flash kernel must run on the tensor cores through wgmma:
+    every instantiation of flash_wgmma_kernel has HGMMA in its SASS."""
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(tool), "-sass", str(_build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    counts = {}
+    for section in sass.split("Function : ")[1:]:
+        name = section.splitlines()[0].strip()
+        if "flash_wgmma_kernel" in name:
+            counts[name] = section.count("HGMMA")
+    log(f"[build] HGMMA instructions in the SASS of flash_wgmma_kernel: "
+        f"{counts}")
+    if len(counts) != len(HEAD_DIMS) or not all(counts.values()):
+        raise SystemExit("chip_smoke: the bf16 flash kernel's SASS has no "
+                         "HGMMA (wgmma) in some instantiation")
 
 
 # ---------------------------------------------------------------------- #
@@ -340,16 +376,21 @@ def _norm_inputs(torch, N, d, dtype):
                 getattr(torch, dtype)))
 
 
-def _flash_inputs(torch, B, H, KV, S, hd, dtype):
+def _flash_inputs(torch, B, H, KV, S, hd, dtype, layout):
+    """q (B, H, S, hd), k and v (B, KV, S, hd): contiguous for layout
+    "bhsd", the transposed views of (B, S, H, hd) tensors for "bshd"."""
     g = torch.Generator(device="cuda").manual_seed(B * S + hd)
-    return (_randn(torch, (B, H, S, hd), dtype, g),
-            _randn(torch, (B, KV, S, hd), dtype, g),
-            _randn(torch, (B, KV, S, hd), dtype, g))
+    if layout == "bhsd":
+        return (_randn(torch, (B, H, S, hd), dtype, g),
+                _randn(torch, (B, KV, S, hd), dtype, g),
+                _randn(torch, (B, KV, S, hd), dtype, g))
+    return tuple(_randn(torch, (B, S, n, hd), dtype, g).transpose(1, 2)
+                 for n in (H, KV, KV))
 
 
 def phase_norm_flash_kernels(torch):
     """{("rmsnorm", N, d, dtype) | ("flash_attention", B, H, KV, S, hd,
-    window, dtype): max|err|} against the plain versions."""
+    window, dtype, layout): max|err|} against the plain versions."""
     from repro_torch.kernels import flash_attention as fa, ref
     from repro_torch.kernels import rmsnorm as rn
     errs = {}
@@ -364,8 +405,8 @@ def phase_norm_flash_kernels(torch):
             errs[("rmsnorm", N, d, dtype)] = e = _max_err(torch, (got,), (exp,))
             log(f"[kernels] rmsnorm {N}x{d} {dtype}: max|err| {e:.3e} "
                 f"(tol {tol})")
-        for B, H, KV, S, hd, window, dtype in FLASH_SHAPES:
-            q, k, v = _flash_inputs(torch, B, H, KV, S, hd, dtype)
+        for B, H, KV, S, hd, window, dtype, layout in FLASH_SHAPES:
+            q, k, v = _flash_inputs(torch, B, H, KV, S, hd, dtype, layout)
             got = fa.flash_attention(q, k, v, causal=True,
                                      sliding_window=window)
             torch.cuda.synchronize()
@@ -373,12 +414,54 @@ def phase_norm_flash_kernels(torch):
                                           sliding_window=window)
             tol = TOL_FLASH[dtype]
             what = (f"flash_attention B{B} H{H} KV{KV} S{S} hd{hd} "
-                    f"window {window} {dtype}")
+                    f"window {window} {dtype} {layout}")
             _close(torch, (got,), (exp,), tol, what)
-            key = ("flash_attention", B, H, KV, S, hd, window, dtype)
+            key = ("flash_attention", B, H, KV, S, hd, window, dtype, layout)
             errs[key] = e = _max_err(torch, (got,), (exp,))
             log(f"[kernels] {what}: max|err| {e:.3e} (tol {tol})")
     return errs
+
+
+def phase_grad_guard(torch):
+    """A training forward (models/api.py::forward) under grad: on the card
+    its backward must raise NotImplementedError naming the training slice,
+    since the CUDA rmsnorm and flash have no backward kernel yet (without
+    the guard a loss would reach the tied unembedding only); on the CPU the
+    same forward gives every parameter a finite gradient."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import forward, init_model
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+    cfg = get_config(SERVE["arch"]).smoke()
+    gpu = init_model(torch.Generator("cuda").manual_seed(2), cfg, "cuda")
+    tok = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 24))
+    for dev in ("cuda", "cpu"):
+        params = tree_map(lambda t: t.detach().to(dev).requires_grad_(True),
+                          gpu)
+        before = all_launches()
+        logits, _ = forward(params, cfg,
+                            {"tokens": torch.as_tensor(tok, device=dev)})
+        if dev == "cuda":
+            ran = {k: all_launches()[k] - before[k]
+                   for k in ("rmsnorm", "flash_attention")}
+            try:
+                logits.sum().backward()
+            except NotImplementedError as err:
+                if "item 16" not in str(err):
+                    raise
+                log(f"[grad] forward on the card ({ran} launches): backward "
+                    f"raises NotImplementedError: {err}")
+            else:
+                raise SystemExit("chip_smoke: a backward through the CUDA "
+                                 "kernels returned without raising")
+            continue
+        logits.sum().backward()
+        grads = [t.grad for t in tree_leaves(params)]
+        if any(g is None or not bool(torch.isfinite(g).all()) for g in grads):
+            raise SystemExit("chip_smoke: the CPU forward left a parameter "
+                             "without a finite gradient")
+        log(f"[grad] the same forward on the CPU: finite gradients for all "
+            f"{len(grads)} parameter tensors")
 
 
 def _bound(nbytes, ops, ops_per_s):
@@ -473,7 +556,7 @@ def _sdpa(torch):
 
 def phase_norm_flash_timing(torch, norm_shapes, flash_shapes):
     """Times of rmsnorm at each (N, d, dtype) and of flash_attention at each
-    (B, H, KV, S, hd, window, dtype)."""
+    (B, H, KV, S, hd, window, dtype, layout)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa, ref
     from repro_torch.kernels import rmsnorm as rn
@@ -493,8 +576,8 @@ def phase_norm_flash_timing(torch, norm_shapes, flash_shapes):
             torch, "rmsnorm", (N, d, dtype), fns,
             norm_bound(N, d, x.element_size()), 200 if N * d < 1e6 else 50)
     sdpa = _sdpa(torch)
-    for B, H, KV, S, hd, window, dtype in flash_shapes:
-        q, k, v = _flash_inputs(torch, B, H, KV, S, hd, dtype)
+    for B, H, KV, S, hd, window, dtype, layout in flash_shapes:
+        q, k, v = _flash_inputs(torch, B, H, KV, S, hd, dtype, layout)
         nxt = _cold_copies((q, k, v), (2 * q.numel() + k.numel()
                                        + v.numel()) * q.element_size())
         fns = {"kernel": lambda: fa.flash_attention(
@@ -504,39 +587,11 @@ def phase_norm_flash_timing(torch, norm_shapes, flash_shapes):
                "library": lambda: sdpa(*nxt(), window),
                "kernel_warm": lambda: fa.flash_attention(
                    q, k, v, causal=True, sliding_window=window)}
-        key = ("flash_attention", B, H, KV, S, hd, window, dtype)
+        key = ("flash_attention", B, H, KV, S, hd, window, dtype, layout)
         times[key] = _time_set(
             torch, "flash_attention", key[1:], fns,
             flash_bound(B, H, KV, S, hd, window, dtype, q.element_size()), 10)
     return times
-
-
-def phase_layout_copies(torch, cfg):
-    """Device ms of the copies apply_attention makes in one block at the
-    prefill shape to give the flash kernel its (B, H, S, hd) layout: q, k
-    and v transposed and made contiguous, and the (B, H, S, hd) output
-    transposed back and reshaped to (B, S, H * hd). Each copy reads and
-    writes its tensor once; the bound is those bytes over 3.35 TB/s."""
-    B, S = SERVE["batch"], SERVE["prompt"]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    g = torch.Generator(device="cuda").manual_seed(3)
-    q = _randn(torch, (B, S, H, hd), "bfloat16", g)
-    k = _randn(torch, (B, S, KV, hd), "bfloat16", g)
-    v = _randn(torch, (B, S, KV, hd), "bfloat16", g)
-    o = _randn(torch, (B, H, S, hd), "bfloat16", g)
-
-    def copies():
-        for t in (q, k, v):
-            t.transpose(1, 2).contiguous()
-        o.transpose(1, 2).reshape(B, S, H * hd)
-
-    ms = _graph_ms(torch, copies, 20)
-    nbytes = 2 * sum(t.numel() * t.element_size() for t in (q, k, v, o))
-    bound = nbytes / PEAK_BYTES_PER_S * 1e3
-    log(f"[timing] prefill layout copies (q, k, v, out) per block: device "
-        f"{ms:.6f} ms, bound {bound:.6f} ms ({nbytes} B); "
-        f"x {cfg.n_layers} blocks = {ms * cfg.n_layers:.4f} ms per prefill")
-    return ms
 
 
 # ---------------------------------------------------------------------- #
@@ -639,7 +694,7 @@ def serve_launch_shapes(cfg):
     return {"rmsnorm": {(B * S, d, "bfloat16"): 2 * L,
                         (B, d, "bfloat16"): 1 + (2 * L + 1) * n},
             "flash_attention": {(B, H, KV, S, cfg.resolved_head_dim, 0,
-                                 "bfloat16"): L},
+                                 "bfloat16", "bshd"): L},
             "kd_loss_fwd": {}, "kd_loss_bwd": {}}
 
 
@@ -800,13 +855,14 @@ def phase_parity(torch):
 # ---------------------------------------------------------------------- #
 # 7. where a round's device time goes
 # ---------------------------------------------------------------------- #
-def phase_profile(torch, label, run, kernels):
+def phase_profile(torch, label, run, kernels, record_shapes=False):
     """Run `run()` once under torch.profiler and print the device's busy
-    share of its wall time, the top kernels and the port's own `kernels`."""
+    share of its wall time, the top kernels and the port's own `kernels`;
+    returns the profile."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -822,7 +878,7 @@ def phase_profile(torch, label, run, kernels):
     if not rows:
         log(f"[profile] {label} {wall:.3f} s; device time not measured (the "
             "profiler recorded no device events)")
-        return
+        return prof
     log(f"[profile] {label} {wall:.3f} s wall, device busy {busy:.3f} s "
         f"({100 * busy / wall:.1f}% of the {label}; idle "
         f"{100 * (1 - busy / wall):.1f}%)")
@@ -836,6 +892,32 @@ def phase_profile(torch, label, run, kernels):
                     f"{dev_us / 1e3:.3f} ms on the device, "
                     f"{dev_us / count:.2f} us per launch "
                     f"({100 * dev_us / 1e6 / busy:.2f}% of device time)")
+    return prof
+
+
+def check_no_layout_copies(torch, prof, cfg):
+    """The prefill must hand the flash kernel its q, k, v as views and take
+    its output as one: no aten::clone (what .contiguous() and a reshape
+    that cannot be a view call) of a tensor of the attention's shapes,
+    (B, H, S, hd), (B, KV, S, hd) or (B, S, H, hd)."""
+    B, S = SERVE["batch"], SERVE["prompt"]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    layouts = {(B, H, S, hd), (B, KV, S, hd), (B, S, H, hd)}
+    clones = [(ev.count, ev.input_shapes)
+              for ev in prof.key_averages(group_by_input_shape=True)
+              if ev.key == "aten::clone" and ev.input_shapes
+              and tuple(ev.input_shapes[0]) in layouts]
+    copies = [(ev.count, ev.self_device_time_total, ev.key)
+              for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA
+              and "copy" in ev.key.lower()]
+    log(f"[profile] prefill: layout copies around flash (aten::clone at "
+        f"{sorted(layouts)}): {clones or 'none'}; copy kernels in all: "
+        f"{sum(c[0] for c in copies)} launches, "
+        f"{sum(c[1] for c in copies) / 1e3:.3f} ms of device time")
+    if clones:
+        raise SystemExit(f"chip_smoke: prefill copies attention tensors "
+                         f"around the flash kernel: {clones}")
 
 
 def path_times(times, launches_by_key):
@@ -864,11 +946,14 @@ def path_times(times, launches_by_key):
 def main() -> int:
     import torch
     card = phase_device(torch)
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        raise SystemExit("chip_smoke: src/repro_torch not found beside the "
+                         "script: run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
-    import repro_torch  # noqa: F401  (fails outside a checkout)
     phase_build()
     errs = phase_kernels(torch, CHECK_SHAPES)
     nf_errs = phase_norm_flash_kernels(torch)
+    phase_grad_guard(torch)
     server, launches, shapes = phase_main_path(torch)
     main = [(N, V, "float32") for N, V in sorted(shapes)]
     errs.update(phase_kernels(torch, [s for s in main if s not in errs]))
@@ -885,7 +970,6 @@ def main() -> int:
     nf_times = phase_norm_flash_timing(
         torch, [k[1:] for k in serve_keys["rmsnorm"]],
         [k[1:] for k in serve_keys["flash_attention"]])
-    phase_layout_copies(torch, engine.cfg)
 
     phase_parity(torch)
     phase_serve_parity(torch)
@@ -893,11 +977,13 @@ def main() -> int:
                   ("kd_fwd_kernel", "kd_bwd_kernel"))
     phase_profile(torch, "generate",
                   lambda: engine.generate(batch, n_new=SERVE["n_new"]),
-                  ("rmsnorm_kernel", "flash_kernel"))
+                  ("rmsnorm_kernel", "flash_wgmma_kernel"))
     with torch.no_grad():
-        phase_profile(torch, "prefill",
-                      lambda: engine._prefill(engine.params, batch),
-                      ("rmsnorm_kernel", "flash_kernel"))
+        prof = phase_profile(torch, "prefill",
+                             lambda: engine._prefill(engine.params, batch),
+                             ("rmsnorm_kernel", "flash_wgmma_kernel"),
+                             record_shapes=True)
+    check_no_layout_copies(torch, prof, engine.cfg)
     del engine, batch
 
     from repro_torch.kernels import kd_loss as kd

@@ -1,9 +1,12 @@
 // Causal / sliding-window attention forward with grouped KV heads, for
 // Hopper (sm_90a): q (B, H, S, hd), k and v (B, KV, S, hd), H % KV == 0,
-// -> o (B, H, S, hd) in q's type. Query head h reads KV head h / (H / KV),
-// the grouping of src/repro/models/attention.py::gqa_attention, without
-// copying K and V per query head. At KV = H it is the Pallas kernel's
-// function exactly.
+// -> o (B, H, S, hd) in q's type. Each of q, k, v and o is taken as a view
+// with its own batch, head and row strides (in elements) and a unit stride
+// on hd, so the transposed views of the model's (B, S, H, hd) tensors are
+// read and written where they lie, with no copy. Query head h reads KV head
+// h / (H / KV), the grouping of src/repro/models/attention.py::gqa_attention,
+// without copying K and V per query head. At KV = H it is the Pallas
+// kernel's function exactly.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py::_flash_kernel. Its rules are kept:
@@ -14,55 +17,77 @@
 //
 // What bounds it: at the serve path's prefill shape, q (4, 24, 512, 128) and
 // k, v (4, 8, 512, 128) bf16, Q + K + V + O are 33.6 MB, 10.0 us at 3.35
-// TB/s, and the causal QK^T and PV are 6.4 GFLOP, 6.5 us at 989 TFLOP/s on
-// the bf16 tensor cores. This first version does its products on the fp32
-// SIMT units instead (67 TFLOP/s peak), so it is bound by its own
-// arithmetic and shared-memory traffic, far above both bounds; wgmma and TMA
-// are left for later work.
+// TB/s, and the causal QK^T and PV are 6.45 GFLOP, 6.5 us at 989 TFLOP/s on
+// the bf16 tensor cores: bytes bound it, by a little.
 //
-// Design: one block of 8 warps per (query tile of 64 rows, batch x head),
-// query tiles of the longest causal extent first. The query tile, pre-scaled,
-// stays in shared memory as fp32; K and V tiles of 32 keys are staged there
-// as fp32 through 16-byte loads (K rows padded by 4 floats, so that the 32
-// lanes reading 32 different K rows hit different banks). Each warp owns 8
-// query rows. For scores each lane owns one key of the tile (8 dot products
-// of length hd); the row max is a warp-shuffle reduction, the row sum l is
-// kept per lane and reduced once at the end. The probabilities go through
-// a per-warp slice of shared memory, and for P V each lane owns hd/32
-// output columns of the 8 rows, so the accumulator is 8 x hd/32 registers.
-// Shared memory: 74,240 bytes at hd = 128 (the dynamic-shared-memory
-// attribute is set above 48 KB), 41,472 at hd = 64.
+// Two designs, one per type:
+//
+// * bfloat16: tensor cores through wgmma, fed by TMA (flash_wgmma_kernel).
+//   A block is two consumer warpgroups and one producer warp (288
+//   threads) over 128 query rows; each consumer warpgroup owns 64 rows, the
+//   m64 of one wgmma. The producer warp's lane 0 loads the block's Q once
+//   and keeps K and V tiles of 64 keys in flight in a ring of three stages
+//   (full and empty mbarriers per stage; K and V have separate full
+//   barriers, so that Q K^T starts while V still arrives). Tiles land in
+//   shared memory with the 128-byte swizzle, in panels of 64 columns (one
+//   swizzle row is 64 bf16 values, so hd 128 is two panels); the wgmma
+//   descriptors use the same swizzle. S = Q K^T is an m64n64k16 wgmma with
+//   both operands in shared memory, K [key][hd] being K-major already. P is
+//   rounded to bf16 in registers: the fp32 accumulator fragment of S is,
+//   pair for pair, the A-register fragment of the next wgmma, so O += P V
+//   is an m64n{hd}k16 wgmma with A from registers and V read MN-major
+//   ("transposed"), as it lies. The tensor maps carry the caller's strides
+//   and do the addressing; their out-of-bounds zero fill and clipped stores
+//   handle ragged S, and the kpos < S mask keeps the zero-filled keys out of
+//   the softmax. O is normalised in registers, written over the warpgroup's
+//   Q rows in the same swizzled layout and stored by TMA. Shared memory:
+//   1024 (alignment) + 32 KB Q + 3 x (16 + 16) KB K/V + 80 bytes of
+//   barriers = 132,176 bytes at hd 128, 66,640 at hd 64: one block per SM.
+//   Registers (ptxas of CUDA 12.9): 143 at hd 128, 106 at hd 64, no spills.
+//
+// * float32: the SIMT kernel (flash_simt_kernel). wgmma takes fp32 inputs
+//   only as TF32, which keeps about three decimal digits; the fp32 path is
+//   held to the plain version at 2e-5 and to the CPU at 1e-3, which TF32
+//   would break. One block of 8 warps per (query tile of 64 rows, batch x
+//   head). The query tile, pre-scaled, stays in shared memory; K and V tiles
+//   of 32 keys are staged there through 16-byte loads (K rows padded by 4
+//   floats, so that the 32 lanes reading 32 different K rows hit different
+//   banks). Each warp owns 8 query rows. For scores each lane owns one key of
+//   the tile; the row max is a warp-shuffle reduction, the row sum l is kept
+//   per lane and reduced once at the end. The probabilities go through a
+//   per-warp slice of shared memory, and for P V each lane owns hd/32 output
+//   columns of the 8 rows. Shared memory: 74,240 bytes at hd 128, 41,472 at
+//   hd 64.
+//
+// Both grids are (batch x head, query tiles) with the query tiles of the
+// longest causal extent scheduled first, so that the short tiles fill the
+// last wave.
 
+#include <cuda.h>          // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace {
+
+constexpr float kNegInf = -1e30f;          // running max before any key
+
+// element strides of one (batch, head, row, hd) view; hd's stride is 1
+struct Strides {
+  long long b, h, s;
+};
+
+// ------------------------------------------------------------------------
+// float32: the SIMT kernel
+// ------------------------------------------------------------------------
+namespace simt {
 
 constexpr int kBlockQ = 64;                // query rows per block
 constexpr int kBlockK = 32;                // keys per tile, one per lane
 constexpr int kWarps = 8;
 constexpr int kRows = kBlockQ / kWarps;    // query rows per warp
 constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;          // running max before any key
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
 
 template <int HD>
 constexpr int smem_floats() {
@@ -84,40 +109,35 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Rows [row0, row0 + nrows) of an (S, HD) matrix into shared memory as fp32
-// times `mul`, `stride` floats apart; rows at or past S become zeros.
-template <typename T, int HD>
+// Rows [row0, row0 + nrows) of an (S, HD) matrix whose rows lie `row_stride`
+// floats apart into shared memory times `mul`, `stride` floats apart; rows
+// at or past S become zeros. The row stride is 32-bit (the entry point
+// checks it fits) and the row offset is widened to 64 bits, so that the
+// strides held across the key loop cost one register each.
+template <int HD>
 __device__ __forceinline__ void load_tile(float* dst, int stride,
-                                          const T* __restrict__ src,
-                                          int row0, int nrows, int S,
-                                          float mul) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = HD / kVec;
+                                          const float* __restrict__ src,
+                                          int row_stride, int row0,
+                                          int nrows, int S, float mul) {
+  constexpr int kPerRow = HD / 4;
   for (int i = threadIdx.x; i < nrows * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
-    float f[kVec];
+    const int r = i / kPerRow, c = (i % kPerRow) * 4;
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < S) {
-      const Pack<T, kVec> p = *reinterpret_cast<const Pack<T, kVec>*>(
-          src + static_cast<size_t>(row0 + r) * HD + c);
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) f[e] = to_f32(p.v[e]) * mul;
-    } else {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) f[e] = 0.f;
+      f = *reinterpret_cast<const float4*>(
+          src + static_cast<long long>(row0 + r) * row_stride + c);
+      f.x *= mul; f.y *= mul; f.z *= mul; f.w *= mul;
     }
-    float* d = dst + r * stride + c;
-#pragma unroll
-    for (int e = 0; e < kVec; e += 4)
-      *reinterpret_cast<float4*>(d + e) =
-          make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
+    *reinterpret_cast<float4*>(dst + r * stride + c) = f;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int KV,
-                 int S, int causal, int window, float sm_scale) {
+    flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      Strides sq, Strides sk, Strides sv, Strides so, int H,
+                      int KV, int S, int causal, int window, float sm_scale) {
   constexpr int kStride = HD + 4;          // padded K row
   constexpr int kCols = HD / 32;           // output columns per lane
   extern __shared__ float4 smem4[];
@@ -126,21 +146,21 @@ __global__ void __launch_bounds__(kThreads)
   float* vs = ks + kBlockK * kStride;
   float* ps = vs + kBlockK * HD;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;   // longest causal rows first
-  const int bh = blockIdx.y;
-  const int b = bh / H, kvh = (bh % H) / (H / KV);
-  const size_t kv_off = (static_cast<size_t>(b) * KV + kvh) * S * HD;
-  const T* qb = q + static_cast<size_t>(bh) * S * HD;
-  const T* kb = k + kv_off;
-  const T* vb = v + kv_off;
-  T* ob = o + static_cast<size_t>(bh) * S * HD;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // longest causal rows first
+  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + kvh * sk.h;
+  const float* vb = v + b * sv.b + kvh * sv.h;
+  const int k_row = static_cast<int>(sk.s), v_row = static_cast<int>(sv.s);
   const int q0 = qt * kBlockQ;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row0 = q0 + warp * kRows;      // this warp's first query row
   const float* qw = qs + warp * kRows * HD;
   float* pw = ps + warp * kBlockK * kRows;  // [key][row] probabilities
 
-  load_tile<T, HD>(qs, HD, qb, q0, kBlockQ, S, sm_scale);
+  load_tile<HD>(qs, HD, qb, static_cast<int>(sq.s), q0, kBlockQ, S,
+                sm_scale);
 
   // the keys some row of this tile can see: [k_begin, k_end)
   const int k_end = causal ? min(S, q0 + kBlockQ) : S;
@@ -157,8 +177,8 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int k0 = (k_begin / kBlockK) * kBlockK; k0 < k_end; k0 += kBlockK) {
     __syncthreads();   // the last tile's K, V and P are read (and Q loaded)
-    load_tile<T, HD>(ks, kStride, kb, k0, kBlockK, S, 1.f);
-    load_tile<T, HD>(vs, HD, vb, k0, kBlockK, S, 1.f);
+    load_tile<HD>(ks, kStride, kb, k_row, k0, kBlockK, S, 1.f);
+    load_tile<HD>(vs, HD, vb, v_row, k0, kBlockK, S, 1.f);
     __syncthreads();
 
     float s[kRows];
@@ -219,60 +239,569 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
+  float* ob = o + b * so.b + h * so.h;     // not held across the loop
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const float denom = fmaxf(warp_sum(l[i]), 1e-30f);
     const int qpos = row0 + i;
     if (qpos < S) {
-      T* orow = ob + static_cast<size_t>(qpos) * HD + lane * kCols;
+      float* orow = ob + qpos * so.s + lane * kCols;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) orow[j] = from_f32<T>(acc[i][j] / denom);
+      for (int j = 0; j < kCols; ++j) orow[j] = acc[i][j] / denom;
     }
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int KV, int S, int causal, int window, float sm_scale,
-           cudaStream_t s) {
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o,
+           const Strides* st, int B, int H, int KV, int S, int causal,
+           int window, float sm_scale, cudaStream_t stream) {
   constexpr int kSmem = smem_floats<HD>() * sizeof(float);
   // above 48 KB of dynamic shared memory needs the attribute, which is per
   // device: set it before every launch (a host call, 28 per prefill)
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      flash_simt_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
-  flash_kernel<T, HD><<<grid, kThreads, kSmem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KV, S, causal, window,
-      sm_scale);
+  const dim3 grid(B * H, (S + kBlockQ - 1) / kBlockQ);
+  flash_simt_kernel<HD><<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1],
+      st[2], st[3], H, KV, S, causal, window, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace simt
+
+// ------------------------------------------------------------------------
+// bfloat16: wgmma and TMA
+// ------------------------------------------------------------------------
+namespace hopper {
+
+constexpr int kBM = 128;                   // query rows per block
+constexpr int kBN = 64;                    // keys per K/V tile
+constexpr int kStages = 3;                 // K/V tiles in flight
+constexpr int kConsumers = 2;              // warpgroups of 64 query rows
+constexpr int kConsumerWarps = 4 * kConsumers;
+constexpr int kThreads = 32 * kConsumerWarps + 32;   // + the producer warp
+constexpr int kPanel = 64;                 // bf16 columns per 128-byte row
+constexpr int kRowBytes = 128;             // one swizzled row of a panel
+constexpr int kTensorMapError = 10000;     // + the CUresult of a refused map
+
+// shared-memory layout, in bytes from a 1024-aligned base
+template <int HD>
+struct Layout {
+  static constexpr int kQ = kBM * HD * 2;            // Q, later O
+  static constexpr int kTile = kBN * HD * 2;         // one K or V tile
+  static constexpr int kK = kQ;                      // K ring
+  static constexpr int kV = kK + kStages * kTile;    // V ring
+  static constexpr int kBar = kV + kStages * kTile;  // mbarriers
+  // q_full, then per stage k_full, v_full and empty
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages);
+  static constexpr int kAlloc = kBytes + 1024;       // room to align the base
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// box at coordinates (hd, row, head, batch) of `map` into shared memory at
+// `dst`, completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keeps the compiler from touching wgmma registers across the async window
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// wgmma shared-memory descriptor of an operand laid out with the 128-byte
+// swizzle: start address, leading and stride byte offsets (16-byte units),
+// layout type 1 (128B) in bits 62-63; base offset 0, since every swizzle
+// atom (8 rows of 128 bytes) starts 1024-aligned
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&t);
+}
+
+// S[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// O[64 x 64] += P[64 x 16] V[16 x 64], P in registers, V MN-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// O[64 x 128] += P[64 x 16] V[16 x 128], P in registers, V MN-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
+                                         const uint32_t (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  wgmma_rs_n64(o, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  wgmma_rs_n128(o, a, b);
+}
+
+// Fragment layouts (PTX ISA, wgmma m64nNk16): in a consumer warpgroup, warp
+// w holds rows 16w + lane/4 and 16w + lane/4 + 8 of its 64; accumulator
+// register i is at row + 8 * ((i / 2) % 2), column 8 * (i / 4) + 2 * (lane
+// % 4) + i % 2. The bf16 A fragment of k-step kk (columns 16kk..16kk+15) is
+// {i, i + 1} packed for i = 8kk, 8kk + 2, 8kk + 4, 8kk + 6: the S fragment
+// itself, so P needs no shuffle.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap to, int H, int KV,
+                       int S, int causal, int window, float scale_log2) {
+  using L = Layout<HD>;
+  constexpr int kPanels = HD / kPanel;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t sq = base, sk = base + L::kK, sv = base + L::kV;
+  const uint32_t q_full = base + L::kBar;
+  auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8 * (1 + kStages + s); };
+  auto empty = [&](int s) { return q_full + 8 * (1 + 2 * kStages + s); };
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;   // longest rows first
+  // the key tiles some row of the block can see: [t_lo, t_hi)
+  const int t_lo = (window > 0 ? max(0, q0 - window + 1) : 0) / kBN;
+  const int t_hi = ((causal ? min(S, q0 + kBM) : S) + kBN - 1) / kBN;
+  const int n_tiles = t_hi - t_lo;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), kConsumerWarps);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {
+    // ---- producer: Q once, then K and V tiles through the ring ----
+    if (lane == 0) {
+      mbar_expect_tx(q_full, L::kQ);
+      for (int p = 0; p < kPanels; ++p)
+        tma_load(sq + p * kBM * kRowBytes, &tq, q_full, p * kPanel, q0, h, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        const int k0 = (t_lo + it) * kBN;
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(k_full(s), L::kTile);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(sk + s * L::kTile + p * kBN * kRowBytes, &tk, k_full(s),
+                   p * kPanel, k0, kvh, b);
+        mbar_expect_tx(v_full(s), L::kTile);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(sv + s * L::kTile + p * kBN * kRowBytes, &tv, v_full(s),
+                   p * kPanel, k0, kvh, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns query rows [r0, r0 + 64) ----
+  const int wg = warp / 4;
+  const int r0 = q0 + 64 * wg;
+  const int row = r0 + 16 * (warp % 4) + lane / 4;   // and row + 8
+  const bool live = r0 < S;
+  // the keys this warpgroup's rows can see: [wk_lo, wk_hi)
+  const int wk_lo = window > 0 ? max(0, r0 - window + 1) : 0;
+  const int wk_hi = causal ? min(S, r0 + 64) : S;
+  const uint32_t q_wg = sq + 64 * wg * kRowBytes;
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    const uint32_t parity = (it / kStages) & 1;
+    const int k0 = (t_lo + it) * kBN;
+    // waiting for the tile even when it is skipped keeps this warp's
+    // arrival on `empty` in the tile's own phase
+    mbar_wait(k_full(s), parity);
+    __syncwarp();
+    if (live && k0 < wk_hi && k0 + kBN > wk_lo) {
+      float sc[kBN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;   // 16 columns: 32 bytes
+        wgmma_ss_n64(
+            sc,
+            desc_sw128(q_wg + (kk / 4) * kBM * kRowBytes + col, 16, 1024),
+            desc_sw128(sk + s * L::kTile + (kk / 4) * kBN * kRowBytes + col,
+                       16, 1024),
+            kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // scores in log2 units; masks where a key of the tile may be hidden
+      // from a row of the warpgroup, or lie past S
+      const bool masked = k0 + kBN > S || (causal && k0 + kBN - 1 > r0) ||
+                          (window > 0 && k0 <= r0 + 63 - window);
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        sc[i] *= scale_log2;
+        if (masked) {
+          const int qpos = row + 8 * ((i / 2) % 2);
+          const int kpos = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+          const bool ok = kpos < S && (!causal || kpos <= qpos) &&
+                          (window <= 0 || kpos > qpos - window);
+          if (!ok) sc[i] = -INFINITY;
+        }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i)
+        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {   // the 4 lanes of a row: one quad
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = exp2f(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= alpha[r];              // this lane's keys only
+      }
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        sc[i] = exp2f(sc[i] - mx[(i / 2) % 2]);   // masked: exp2(-inf) = 0
+        l[(i / 2) % 2] += sc[i];
+      }
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+      uint32_t pa[kBN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+
+      mbar_wait(v_full(s), parity);
+      __syncwarp();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        // V MN-major: 16 key rows per k-step; LBO steps between the hd
+        // panels, SBO between groups of 8 key rows
+        wgmma_pv<HD>(o, pa[kk],
+                     desc_sw128(sv + s * L::kTile + kk * 16 * kRowBytes,
+                                kBN * kRowBytes, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_regs(pa);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+  if (!live) return;
+
+  // ---- epilogue: O / l in bf16 over this warpgroup's Q rows, then TMA ----
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  uint8_t* ow = smem + 64 * wg * kRowBytes;
+#pragma unroll
+  for (int i = 0; i < HD / 2; i += 2) {
+    const int rr = 16 * (warp % 4) + lane / 4 + 8 * ((i / 2) % 2);
+    const int c = 8 * (i / 4) + 2 * (lane % 4);
+    const int cc = c % kPanel;
+    const int off = (c / kPanel) * kBM * kRowBytes + rr * kRowBytes +
+                    (((cc / 8) ^ (rr % 8)) * 16) + (cc % 8) * 2;
+    const float f = inv[(i / 2) % 2];
+    *reinterpret_cast<uint32_t*>(ow + off) = pack_bf16(o[i] * f, o[i + 1] * f);
+  }
+  // the generic-proxy writes above, visible to the TMA store
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+  if (threadIdx.x % 128 == 0) {
+    for (int p = 0; p < kPanels; ++p)
+      tma_store(&to, q_wg + p * kBM * kRowBytes, p * kPanel, r0, h, b);
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver the runtime has loaded
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A map of the (B, N, S, hd) view at `ptr` with element strides `st`, cut
+// into boxes of 64 hd columns (one 128-byte swizzle row) by `rows` rows.
+// Returns 0 or the CUresult of the refusal.
+int make_map(CUtensorMap* map, const void* ptr, const Strides& st, int B,
+             int N, int S, int hd, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {kPanel, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return static_cast<int>(encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o,
+           const Strides* st, int B, int H, int KV, int S, int causal,
+           int window, float sm_scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mo;
+  int res = make_map(&mq, q, st[0], B, H, S, HD, kBM);
+  if (res == 0) res = make_map(&mk, k, st[1], B, KV, S, HD, kBN);
+  if (res == 0) res = make_map(&mv, v, st[2], B, KV, S, HD, kBN);
+  if (res == 0) res = make_map(&mo, o, st[3], B, H, S, HD, 64);
+  if (res != 0) return kTensorMapError + res;
+  constexpr int kSmem = Layout<HD>::kAlloc;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + kBM - 1) / kBM);
+  flash_wgmma_kernel<HD><<<grid, kThreads, kSmem, stream>>>(
+      mq, mk, mv, mo, H, KV, S, causal, window,
+      sm_scale * 1.4426950408889634f);   // exp(x) = exp2(x log2(e))
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace hopper
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o all of it); hd 64 or 128;
-// every pointer 16-byte aligned. Returns cudaGetLastError() after the
-// launch (0 on success); the launch runs on `stream` and does not sync.
+// dtype: 0 = float32 (the SIMT kernel), 1 = bfloat16 (the wgmma kernel); q,
+// k, v and o all of it; hd 64 or 128. `strides` holds 12 element strides,
+// (batch, head, row) of q, k, v and o in turn; hd's stride is 1. Every
+// pointer and every stride is a multiple of 16 bytes; row strides fit in
+// int32. Returns
+// cudaGetLastError() after the launch (0 on success), or, where the driver
+// refuses a tensor map, 10000 + its CUresult; the launch runs on `stream`
+// and does not sync.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int H,
-                                   int KV, int S, int hd, int causal,
+                                   int KV, int S, int hd,
+                                   const long long* strides, int causal,
                                    int window, float sm_scale, int dtype,
                                    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || B * H > 65535)
+  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 ||
+      (S + simt::kBlockQ - 1) / simt::kBlockQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  Strides st[4];
+  for (int i = 0; i < 4; ++i) {
+    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+    if (st[i].s > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == 0 && hd == 64)
-    return launch<float, 64>(q, k, v, o, B, H, KV, S, causal, window,
-                             sm_scale, s);
+    return simt::launch<64>(q, k, v, o, st, B, H, KV, S, causal, window,
+                            sm_scale, s);
   if (dtype == 0 && hd == 128)
-    return launch<float, 128>(q, k, v, o, B, H, KV, S, causal, window,
-                              sm_scale, s);
+    return simt::launch<128>(q, k, v, o, st, B, H, KV, S, causal, window,
+                             sm_scale, s);
   if (dtype == 1 && hd == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, B, H, KV, S, causal, window,
-                                     sm_scale, s);
+    return hopper::launch<64>(q, k, v, o, st, B, H, KV, S, causal, window,
+                              sm_scale, s);
   if (dtype == 1 && hd == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, B, H, KV, S, causal,
-                                      window, sm_scale, s);
+    return hopper::launch<128>(q, k, v, o, st, B, H, KV, S, causal, window,
+                               sm_scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

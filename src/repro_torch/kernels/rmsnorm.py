@@ -4,7 +4,8 @@ The CUDA kernel in ``csrc/rmsnorm.cu`` replaces the Pallas TPU kernel
 ``src/repro/kernels/rmsnorm.py::_rmsnorm_kernel``; that file's header says
 what bounds it and how it is laid out. The wrapper takes the plain version
 (`repro_torch.kernels.ref.rmsnorm_ref`) only for tensors on the CPU. For
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches the kernel or raises; there is no backward kernel
+yet, so a backward through a CUDA call raises.
 """
 from __future__ import annotations
 
@@ -56,6 +57,10 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
         raise ValueError("the rmsnorm kernel needs contiguous tensors")
     if max(x.shape) >= 2 ** 31:
         raise ValueError(f"N and d must fit in int32, got {tuple(x.shape)}")
+    return _build.forward_only("rmsnorm", _launch, x, scale, eps)
+
+
+def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     N, d = x.shape
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):

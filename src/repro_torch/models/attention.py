@@ -3,7 +3,8 @@
 Counterpart of ``repro.models.attention``. Training and prefill (more than
 one new token, or building the cache) go through the port's flash-attention
 wrapper (`repro_torch.kernels.ops.flash_attention_op`): the CUDA kernel on the
-card, its plain version on the CPU. Decode (one new token against a cache)
+card, which takes the (B, S, H, hd) projections as transposed views with no
+copy, and its plain version on the CPU. Decode (one new token against a cache)
 writes the token's k/v into the ring-buffer cache and attends with
 `gqa_attention`, plain PyTorch, as the reference does.
 
@@ -112,9 +113,11 @@ def apply_attention(params, cfg: ModelConfig, x, positions,
                             q_start=cache_index)
         new_cache = cache
     else:
-        out = flash_attention_op(q.transpose(1, 2).contiguous(),
-                                 k.transpose(1, 2).contiguous(),
-                                 v.transpose(1, 2).contiguous(), causal=True,
+        # (B, H, S, hd) views: the kernel reads them through their strides,
+        # and its output transposed back is (B, S, H, hd) contiguous on the
+        # card, so the reshape below is a view there
+        out = flash_attention_op(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=True,
                                  sliding_window=cfg.sliding_window)
         out = out.transpose(1, 2)
         if cache is not None:  # prefill ("init" marker): emit cache

@@ -1,8 +1,10 @@
 """rmsnorm and flash attention in the port: the plain versions against the
 reference's Pallas kernels (interpret mode) and model functions, the
-wrappers' CPU path and checks, the port's gqa_attention, the port's
-mutual-KD loss against the reference's ops.mutual_kd_loss, and the
-kernels/ops.py annotations on the model path. The CUDA kernels
+wrappers' CPU path and checks (strided views included), the views prefill
+hands the flash wrapper, the guard that refuses a backward through the CUDA
+launches, the port's gqa_attention, the port's mutual-KD loss against the
+reference's ops.mutual_kd_loss, and the kernels/ops.py annotations on the
+model path. The CUDA kernels
 are held against the plain versions on a card by tests/test_torch_gpu.py.
 
 Tolerance 1e-5 in fp32 unless noted; bf16 2e-2, as in tests/test_kernels.py.
@@ -21,13 +23,16 @@ from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro_torch.configs import get_config
 from repro_torch.core import distill as tdistill
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import rmsnorm as trms
 from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref
+from repro_torch.models import api as tapi
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.obs import trace
+from repro_torch.utils.pytree import tree_map
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -142,6 +147,93 @@ def test_flash_wrapper_cpu_path_and_checks():
         tflash.flash_attention(q, kv, kv, sliding_window=-1)
     with pytest.raises(TypeError):
         tflash.flash_attention(q, kv.bfloat16(), kv.bfloat16())
+
+
+@pytest.mark.parametrize("H,KV,S,window", [(4, 4, 37, 0), (6, 2, 37, 7),
+                                           (6, 2, 40, 0)])
+def test_flash_wrapper_takes_strided_views(H, KV, S, window):
+    """The transposed views of (B, S, H, hd) tensors, which apply_attention
+    passes, give exactly what contiguous copies give: a ragged S, a window
+    and grouped KV heads (H / KV = 3)."""
+    B, hd = 2, 16
+    q = torch.from_numpy(_normal((B, S, H, hd), 80)).transpose(1, 2)
+    k = torch.from_numpy(_normal((B, S, KV, hd), 81)).transpose(1, 2)
+    v = torch.from_numpy(_normal((B, S, KV, hd), 82)).transpose(1, 2)
+    assert not q.is_contiguous()
+    got = tflash.flash_attention(q, k, v, sliding_window=window)
+    exp = tflash.flash_attention(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), sliding_window=window)
+    assert torch.equal(got, exp)
+
+
+def test_apply_attention_hands_flash_views(monkeypatch):
+    """Prefill hands the flash wrapper the (B, H, S, hd) views of its
+    (B, S, H, hd) q, k, v projections: no .contiguous() copy around it."""
+    cfg = get_config("llama3.2-3b").smoke()
+    params = tattn.init_attention(torch.Generator().manual_seed(0), cfg,
+                                  "cpu")
+    seen = []
+
+    def record(q, k, v, **kw):
+        seen.append((q, k, v))
+        return flash_attention_ref(q, k, v, **kw)
+
+    monkeypatch.setattr(tattn, "flash_attention_op", record)
+    x = torch.from_numpy(_normal((2, 5, cfg.d_model), 83))
+    tattn.apply_attention(params, cfg, x, torch.arange(5)[None].expand(2, 5),
+                          cache="init")
+    (q, k, v), = seen
+    for t, n in ((q, cfg.n_heads), (k, cfg.n_kv_heads), (v, cfg.n_kv_heads)):
+        hd = cfg.resolved_head_dim
+        assert t.shape == (2, n, 5, hd)
+        assert t.stride() == (5 * n * hd, hd, n * hd, 1)
+        assert t.transpose(1, 2).is_contiguous()
+
+
+class _Launch:
+    """A stand-in for a kernel launch on CPU tensors, counting its calls."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, x, scale):
+        self.calls += 1
+        return x * scale
+
+
+def test_forward_only_refuses_backward_and_stays_out_of_no_grad():
+    """The guard the CUDA rmsnorm and flash launches go through: where
+    autograd records, the output has a grad_fn whose backward raises,
+    naming the training slice; under no_grad, or with no input that needs
+    a gradient, it is the launch alone. Either way one launch per call."""
+    launch = _Launch()
+    x = torch.from_numpy(_normal((3, 4), 84)).requires_grad_(True)
+    y = _build.forward_only("rmsnorm", launch, x, 2.0)
+    assert y.grad_fn is not None and launch.calls == 1
+    with pytest.raises(NotImplementedError, match="item 16"):
+        y.sum().backward()
+    with torch.no_grad():
+        y = _build.forward_only("rmsnorm", launch, x, 2.0)
+    assert y.grad_fn is None and launch.calls == 2
+    y = _build.forward_only("rmsnorm", launch, x.detach(), 2.0)
+    assert y.grad_fn is None and launch.calls == 3
+
+
+def test_forward_on_cpu_gives_gradients_to_attention_and_norms():
+    """On the CPU the kernels' plain versions are differentiable: a training
+    forward's backward reaches wq and every norm scale."""
+    cfg = get_config("llama3.2-3b").smoke()
+    params = tapi.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
+    params = tree_map(lambda t: t.requires_grad_(True), params)
+    tok = np.random.default_rng(85).integers(0, cfg.vocab_size, (2, 12))
+    logits, _ = tapi.forward(params, cfg, {"tokens": torch.from_numpy(tok)})
+    logits.sum().backward()
+    for g in (params["blocks"]["attn"]["wq"].grad,
+              params["blocks"]["norm1"]["scale"].grad,
+              params["blocks"]["norm2"]["scale"].grad,
+              params["io"]["norm_f"]["scale"].grad):
+        assert g is not None and bool(torch.isfinite(g).all())
+        assert float(g.abs().max()) > 0
 
 
 @pytest.mark.parametrize("mode", ["causal_chunked", "decode"])

@@ -18,7 +18,7 @@ from repro_torch.kernels import kd_loss as tkd
 from repro_torch.kernels import rmsnorm as trms
 from repro_torch.kernels.ref import (flash_attention_ref, kd_loss_ref,
                                      rmsnorm_ref)
-from repro_torch.models.api import init_model
+from repro_torch.models.api import forward, init_model
 from repro_torch.models.cnn import init_cnn
 from repro_torch.serve import ServeEngine
 from repro_torch.utils.pytree import tree_leaves, tree_map
@@ -152,41 +152,98 @@ def test_cuda_rmsnorm_matches_plain(cuda, N, d, dtype):
                                atol=TOL_NORM[dtype], rtol=TOL_NORM[dtype])
 
 
+def _flash_inputs(B, H, KV, S, hd, dtype, layout, device):
+    """q (B, H, S, hd), k and v (B, KV, S, hd) from numpy: contiguous for
+    layout "bhsd", the transposed views of (B, S, H, hd) tensors (what the
+    model passes) for "bshd"."""
+    rng = np.random.default_rng(S + hd)
+    tdt = getattr(torch, dtype)
+    out = []
+    for n in (H, KV, KV):
+        shape = (B, n, S, hd) if layout == "bhsd" else (B, S, n, hd)
+        t = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device, tdt)
+        out.append(t if layout == "bhsd" else t.transpose(1, 2))
+    return out
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 @pytest.mark.parametrize("B,H,KV,S,hd,window,dtype", [
     (4, 24, 8, 512, 128, 0, "bfloat16"),
     (4, 24, 8, 512, 128, 0, "float32"),
     (2, 4, 2, 300, 128, 0, "float32"),
+    (2, 4, 2, 300, 128, 0, "bfloat16"),
     (1, 4, 4, 256, 128, 64, "float32"),
+    (1, 4, 4, 256, 128, 64, "bfloat16"),
     (2, 8, 2, 200, 64, 0, "bfloat16"),
-    (1, 2, 2, 130, 64, 16, "float32")])
+    (1, 2, 2, 130, 64, 16, "float32"),
+    (1, 2, 2, 130, 64, 16, "bfloat16")])
 def test_cuda_flash_attention_matches_plain(cuda, B, H, KV, S, hd, window,
-                                            dtype):
-    rng = np.random.default_rng(S + hd)
-    tdt = getattr(torch, dtype)
-    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
-        np.float32)).to(cuda, tdt) for shape in
-        ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd)))
+                                            dtype, layout):
+    """bf16 runs the wgmma kernel, fp32 the SIMT kernel; both read strided
+    views where they lie and give the (B, H, S, hd) view of a (B, S, H, hd)
+    tensor."""
+    q, k, v = _flash_inputs(B, H, KV, S, hd, dtype, layout, cuda)
     before = tflash.launches["flash_attention"]
     got = tflash.flash_attention(q, k, v, causal=True, sliding_window=window)
     torch.cuda.synchronize()
     assert tflash.launches["flash_attention"] == before + 1
     exp = flash_attention_ref(q, k, v, causal=True, sliding_window=window)
+    assert got.transpose(1, 2).is_contiguous()
     torch.testing.assert_close(got.float(), exp.float(),
                                atol=TOL_FLASH[dtype], rtol=TOL_FLASH[dtype])
 
 
 @pytest.mark.gpu
 def test_cuda_norm_and_attention_wrappers_raise_on_bad_layouts(cuda):
+    """The flash kernels take strided views: a transposed q is read where it
+    lies and matches the plain version. What they cannot take raises: a
+    stride on hd other than 1, and an hd with no instantiation."""
     x = torch.zeros((8, 64), device=cuda)[:, ::2]
     with pytest.raises(ValueError):
         trms.rmsnorm(x, torch.ones(32, device=cuda))
-    q = torch.zeros((1, 16, 2, 128), device=cuda).transpose(1, 2)
-    with pytest.raises(ValueError):
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.standard_normal((1, 16, 2, 128)).astype(
+        np.float32)).to(cuda).transpose(1, 2)
+    torch.testing.assert_close(tflash.flash_attention(q, q, q),
+                               flash_attention_ref(q, q, q),
+                               atol=TOL_FLASH["float32"],
+                               rtol=TOL_FLASH["float32"])
+    q = torch.zeros((1, 2, 16, 256), device=cuda)[..., ::2]
+    with pytest.raises(ValueError):     # hd's stride is 2
         tflash.flash_attention(q, q, q)
     q = torch.zeros((1, 2, 16, 32), device=cuda)
     with pytest.raises(ValueError):     # hd 32 has no instantiation
         tflash.flash_attention(q, q, q)
+
+
+@pytest.mark.gpu
+def test_cuda_training_forward_refuses_backward(cuda):
+    """The CUDA rmsnorm and flash have no backward kernel yet: a backward
+    through models/api.py::forward on the card raises, naming the training
+    slice, instead of leaving everything below the unembedding without
+    gradient. The same forward on the CPU gives gradients to wq and the
+    norm scales."""
+    cfg = get_config("llama3.2-3b").smoke()
+    params = init_model(torch.Generator(cuda).manual_seed(0), cfg, cuda)
+    tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24))
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_map(lambda t: t.detach().to(dev).requires_grad_(True),
+                     params)
+        logits, _ = forward(p, cfg, {"tokens": torch.as_tensor(tok,
+                                                                device=dev)})
+        if dev.type == "cuda":
+            with pytest.raises(NotImplementedError, match="item 16"):
+                logits.sum().backward()
+            continue
+        logits.sum().backward()
+        for g in (p["blocks"]["attn"]["wq"].grad,
+                  p["blocks"]["norm1"]["scale"].grad,
+                  p["blocks"]["norm2"]["scale"].grad,
+                  p["io"]["norm_f"]["scale"].grad):
+            assert g is not None and bool(torch.isfinite(g).all())
+            assert float(g.abs().max()) > 0
 
 
 @pytest.mark.gpu
