@@ -23,27 +23,35 @@
 // Two designs, one per type:
 //
 // * bfloat16: tensor cores through wgmma, fed by TMA (flash_wgmma_kernel).
-//   A block is two consumer warpgroups and one producer warp (288
-//   threads) over 128 query rows; each consumer warpgroup owns 64 rows, the
-//   m64 of one wgmma. The producer warp's lane 0 loads the block's Q once
-//   and keeps K and V tiles of 64 keys in flight in a ring of three stages
-//   (full and empty mbarriers per stage; K and V have separate full
-//   barriers, so that Q K^T starts while V still arrives). Tiles land in
-//   shared memory with the 128-byte swizzle, in panels of 64 columns (one
-//   swizzle row is 64 bf16 values, so hd 128 is two panels); the wgmma
-//   descriptors use the same swizzle. S = Q K^T is an m64n64k16 wgmma with
-//   both operands in shared memory, K [key][hd] being K-major already. P is
-//   rounded to bf16 in registers: the fp32 accumulator fragment of S is,
-//   pair for pair, the A-register fragment of the next wgmma, so O += P V
-//   is an m64n{hd}k16 wgmma with A from registers and V read MN-major
-//   ("transposed"), as it lies. The tensor maps carry the caller's strides
-//   and do the addressing; their out-of-bounds zero fill and clipped stores
-//   handle ragged S, and the kpos < S mask keeps the zero-filled keys out of
-//   the softmax. O is normalised in registers, written over the warpgroup's
-//   Q rows in the same swizzled layout and stored by TMA. Shared memory:
-//   1024 (alignment) + 32 KB Q + 3 x (16 + 16) KB K/V + 80 bytes of
-//   barriers = 132,176 bytes at hd 128, 66,640 at hd 64: one block per SM.
-//   Registers (ptxas of CUDA 12.9): 143 at hd 128, 106 at hd 64, no spills.
+//   A block is one consumer warpgroup and one producer warp (160 threads)
+//   over 64 query rows, the m64 of one wgmma. The producer warp's lane 0
+//   loads the block's Q once and keeps K and V tiles of 64 keys in flight
+//   in a ring of two stages (full and empty mbarriers per stage; K and V
+//   have separate full barriers, so that Q K^T starts while V still
+//   arrives). Tiles land in shared memory with the 128-byte swizzle, in
+//   panels of 64 columns (one swizzle row is 64 bf16 values, so hd 128 is
+//   two panels); the wgmma descriptors use the same swizzle. S = Q K^T is
+//   an m64n64k16 wgmma with both operands in shared memory, K [key][hd]
+//   being K-major already. P is rounded to bf16 in registers: the fp32
+//   accumulator fragment of S is, pair for pair, the A-register fragment of
+//   the next wgmma, so O += P V is an m64n{hd}k16 wgmma with A from
+//   registers and V read MN-major ("transposed"), as it lies. Tile t's
+//   Q K^T and tile t-1's P V are issued together, and the softmax of tile t
+//   runs while P V is still on the tensor cores. The tensor maps carry the
+//   caller's strides and do the addressing; their out-of-bounds zero fill
+//   and clipped stores handle ragged S, and the kpos < S mask keeps the
+//   zero-filled keys out of the softmax. O is normalised in registers,
+//   written over the Q tile in the same swizzled layout and stored by TMA.
+//   Shared memory: 1024 (alignment) + 16 KB Q + 2 x (16 + 16) KB K/V + 56
+//   bytes of barriers = 83,000 bytes at hd 128, 42,040 at hd 64, so two
+//   blocks share an SM. Registers (ptxas of CUDA 12.9): REGS.
+//   Why one consumer warpgroup a block and not two over 128 rows: with two
+//   (288 threads, 143-151 registers) only one block fits an SM, and each
+//   block's Q load and O store stall its SM; two independent 64-row blocks
+//   per SM overlap one's prologue and epilogue with the other's main loop,
+//   and 64-row tiles balance the causal waves more finely. The K/V tiles
+//   are then read twice as often, from L2. Measured at the prefill shape
+//   and three others, the 64-row block was the faster (PERF.md, PR 13).
 //
 // * float32: the SIMT kernel (flash_simt_kernel). wgmma takes fp32 inputs
 //   only as TF32, which keeps about three decimal digits; the fp32 path is
@@ -109,26 +117,31 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Rows [row0, row0 + nrows) of an (S, HD) matrix whose rows lie `row_stride`
-// floats apart into shared memory times `mul`, `stride` floats apart; rows
-// at or past S become zeros. The row stride is 32-bit (the entry point
-// checks it fits) and the row offset is widened to 64 bits, so that the
-// strides held across the key loop cost one register each.
-template <int HD>
+// Rows [row0, row0 + NROWS) of an (S, HD) matrix whose rows lie
+// `row_stride` floats apart into shared memory times `mul`, `stride` floats
+// apart; rows at or past S become zeros. Each thread keeps one 16-byte
+// column and steps its one pointer by whole passes of the block, so that
+// what it holds across the key loop does not grow with the row stride.
+template <int HD, int NROWS>
 __device__ __forceinline__ void load_tile(float* dst, int stride,
                                           const float* __restrict__ src,
-                                          int row_stride, int row0,
-                                          int nrows, int S, float mul) {
-  constexpr int kPerRow = HD / 4;
-  for (int i = threadIdx.x; i < nrows * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * 4;
+                                          int row_stride, int row0, int S,
+                                          float mul) {
+  constexpr int kPerRow = HD / 4;                  // float4s per row
+  constexpr int kPass = kThreads / kPerRow;        // rows per pass
+  const int r0 = threadIdx.x / kPerRow, c = (threadIdx.x % kPerRow) * 4;
+  static_assert(NROWS % kPass == 0, "whole passes");
+  const float* p = src + static_cast<long long>(row0 + r0) * row_stride + c;
+#pragma unroll
+  for (int j = 0; j < NROWS / kPass; ++j) {
+    const int r = r0 + j * kPass;
     float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < S) {
-      f = *reinterpret_cast<const float4*>(
-          src + static_cast<long long>(row0 + r) * row_stride + c);
+      f = *reinterpret_cast<const float4*>(p);
       f.x *= mul; f.y *= mul; f.z *= mul; f.w *= mul;
     }
     *reinterpret_cast<float4*>(dst + r * stride + c) = f;
+    p += static_cast<long long>(kPass) * row_stride;
   }
 }
 
@@ -159,8 +172,8 @@ __global__ void __launch_bounds__(kThreads)
   const float* qw = qs + warp * kRows * HD;
   float* pw = ps + warp * kBlockK * kRows;  // [key][row] probabilities
 
-  load_tile<HD>(qs, HD, qb, static_cast<int>(sq.s), q0, kBlockQ, S,
-                sm_scale);
+  load_tile<HD, kBlockQ>(qs, HD, qb, static_cast<int>(sq.s), q0, S,
+                         sm_scale);
 
   // the keys some row of this tile can see: [k_begin, k_end)
   const int k_end = causal ? min(S, q0 + kBlockQ) : S;
@@ -177,8 +190,8 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int k0 = (k_begin / kBlockK) * kBlockK; k0 < k_end; k0 += kBlockK) {
     __syncthreads();   // the last tile's K, V and P are read (and Q loaded)
-    load_tile<HD>(ks, kStride, kb, k_row, k0, kBlockK, S, 1.f);
-    load_tile<HD>(vs, HD, vb, v_row, k0, kBlockK, S, 1.f);
+    load_tile<HD, kBlockK>(ks, kStride, kb, k_row, k0, S, 1.f);
+    load_tile<HD, kBlockK>(vs, HD, vb, v_row, k0, S, 1.f);
     __syncthreads();
 
     float s[kRows];
@@ -278,10 +291,10 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // ------------------------------------------------------------------------
 namespace hopper {
 
-constexpr int kBM = 128;                   // query rows per block
+constexpr int kConsumers = 1;              // warpgroups of 64 query rows
+constexpr int kBM = 64 * kConsumers;       // query rows per block
 constexpr int kBN = 64;                    // keys per K/V tile
-constexpr int kStages = 3;                 // K/V tiles in flight
-constexpr int kConsumers = 2;              // warpgroups of 64 query rows
+constexpr int kStages = 2;                 // K/V tiles in flight
 constexpr int kConsumerWarps = 4 * kConsumers;
 constexpr int kThreads = 32 * kConsumerWarps + 32;   // + the producer warp
 constexpr int kPanel = 64;                 // bf16 columns per 128-byte row
@@ -364,9 +377,6 @@ __device__ __forceinline__ void wgmma_fence() {
 }
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
 
 // keeps the compiler from touching wgmma registers across the async window
@@ -492,6 +502,92 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
   wgmma_rs_n128(o, a, b);
 }
 
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// issues S = Q K^T for one K tile: hd / 16 k-steps, each advancing 32 bytes
+// along a swizzled row and to the next panel every 4 steps
+template <int HD>
+__device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint32_t q_wg,
+                                         uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;   // 16 columns: 32 bytes
+    wgmma_ss_n64(sc,
+                 desc_sw128(q_wg + (kk / 4) * kBM * kRowBytes + col, 16, 1024),
+                 desc_sw128(k_tile + (kk / 4) * kBN * kRowBytes + col, 16,
+                            1024),
+                 kk > 0);
+  }
+  wgmma_commit();
+}
+
+// issues O += P V for one V tile; V MN-major: 16 key rows per k-step, LBO
+// steps between the hd panels, SBO between groups of 8 key rows
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+                                         const uint32_t (&pa)[kBN / 16][4],
+                                         uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk)
+    wgmma_pv<HD>(o, pa[kk], desc_sw128(v_tile + kk * 16 * kRowBytes,
+                                       kBN * kRowBytes, 1024));
+  wgmma_commit();
+}
+
+// One tile's scores, in place, to unnormalised probabilities in log2 units:
+// masks (where a key of the tile may be hidden from a row of the
+// warpgroup, or lie past S), the new row max m, the factor alpha that
+// rescales what was summed under the old max, and l, this lane's part of
+// the row sums. Rows: `row` and row + 8; keys from k0.
+__device__ __forceinline__ void online_softmax(
+    float (&sc)[kBN / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    int k0, int row, int r0, int lane, int S, int causal, int window,
+    float scale_log2) {
+  const bool masked = k0 + kBN > S || (causal && k0 + kBN - 1 > r0) ||
+                      (window > 0 && k0 <= r0 + 63 - window);
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) {
+    sc[i] *= scale_log2;
+    if (masked) {
+      const int qpos = row + 8 * ((i / 2) % 2);
+      const int kpos = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+      const bool ok = kpos < S && (!causal || kpos <= qpos) &&
+                      (window <= 0 || kpos > qpos - window);
+      if (!ok) sc[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i)
+    mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {   // the 4 lanes of a row: one quad
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = exp2f(m[r] - mx[r]);
+    m[r] = mx[r];
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) {
+    sc[i] = exp2f(sc[i] - mx[(i / 2) % 2]);   // masked: exp2(-inf) = 0
+    l[(i / 2) % 2] += sc[i];
+  }
+}
+
+// P in bf16 as the A fragments of the P V wgmma
+__device__ __forceinline__ void to_a_fragments(const float (&sc)[kBN / 2],
+                                               uint32_t (&pa)[kBN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+}
+
 // Fragment layouts (PTX ISA, wgmma m64nNk16): in a consumer warpgroup, warp
 // w holds rows 16w + lane/4 and 16w + lane/4 + 8 of its 64; accumulator
 // register i is at row + 8 * ((i / 2) % 2), column 8 * (i / 4) + 2 * (lane
@@ -523,7 +619,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   // the key tiles some row of the block can see: [t_lo, t_hi)
   const int t_lo = (window > 0 ? max(0, q0 - window + 1) : 0) / kBN;
   const int t_hi = ((causal ? min(S, q0 + kBM) : S) + kBN - 1) / kBN;
-  const int n_tiles = t_hi - t_lo;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -543,7 +638,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_expect_tx(q_full, L::kQ);
       for (int p = 0; p < kPanels; ++p)
         tma_load(sq + p * kBM * kRowBytes, &tq, q_full, p * kPanel, q0, h, b);
-      for (int it = 0; it < n_tiles; ++it) {
+      for (int it = 0; it < t_hi - t_lo; ++it) {
         const int s = it % kStages;
         const int k0 = (t_lo + it) * kBN;
         mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
@@ -565,101 +660,84 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int r0 = q0 + 64 * wg;
   const int row = r0 + 16 * (warp % 4) + lane / 4;   // and row + 8
   const bool live = r0 < S;
-  // the keys this warpgroup's rows can see: [wk_lo, wk_hi)
-  const int wk_lo = window > 0 ? max(0, r0 - window + 1) : 0;
-  const int wk_hi = causal ? min(S, r0 + 64) : S;
   const uint32_t q_wg = sq + 64 * wg * kRowBytes;
+  // the block's tiles this warpgroup's rows can see: [w_lo, w_hi), empty
+  // when its rows all lie past S
+  const int w_lo = max(t_lo, (window > 0 ? max(0, r0 - window + 1) : 0) / kBN);
+  const int w_hi = live ? min(t_hi, ((causal ? min(S, r0 + 64) : S) + kBN - 1)
+                                        / kBN)
+                        : w_lo;
+  // tile t sits in stage (t - t_lo) % kStages, filled for the
+  // ((t - t_lo) / kStages)-th time; every consumer warp waits for every
+  // tile, seen or not, and releases it after its last read, in tile order,
+  // so that its arrival on `empty` counts in that tile's own phase
+  auto stage = [&](int t) { return (t - t_lo) % kStages; };
+  auto parity = [&](int t) { return ((t - t_lo) / kStages) & 1; };
+  auto wait_k = [&](int t) {
+    mbar_wait(k_full(stage(t)), parity(t));
+    __syncwarp();
+  };
+  auto wait_v = [&](int t) {
+    mbar_wait(v_full(stage(t)), parity(t));
+    __syncwarp();
+  };
+  auto release = [&](int t) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(stage(t)));
+  };
 
   float o[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+  float sc[kBN / 2];
+  uint32_t pa[kBN / 16][4];
 
   mbar_wait(q_full, 0);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int s = it % kStages;
-    const uint32_t parity = (it / kStages) & 1;
-    const int k0 = (t_lo + it) * kBN;
-    // waiting for the tile even when it is skipped keeps this warp's
-    // arrival on `empty` in the tile's own phase
-    mbar_wait(k_full(s), parity);
-    __syncwarp();
-    if (live && k0 < wk_hi && k0 + kBN > wk_lo) {
-      float sc[kBN / 2];
+  for (int t = t_lo; t < w_lo; ++t) {
+    wait_k(t);
+    release(t);
+  }
+  if (w_lo < w_hi) {
+    wait_k(w_lo);
+    wgmma_fence();
+    issue_qk<HD>(sc, q_wg, sk + stage(w_lo) * L::kTile);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    online_softmax(sc, m, l, alpha, w_lo * kBN, row, r0, lane, S, causal,
+                   window, scale_log2);
+    to_a_fragments(sc, pa);
+    // Tile t's Q K^T and tile t - 1's P V run on the tensor cores while
+    // this warpgroup's softmax of tile t waits only for the first of them.
+    for (int t = w_lo + 1; t < w_hi; ++t) {
+      wait_k(t);
+      wait_v(t - 1);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const uint32_t col = (kk % 4) * 32;   // 16 columns: 32 bytes
-        wgmma_ss_n64(
-            sc,
-            desc_sw128(q_wg + (kk / 4) * kBM * kRowBytes + col, 16, 1024),
-            desc_sw128(sk + s * L::kTile + (kk / 4) * kBN * kRowBytes + col,
-                       16, 1024),
-            kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait_all();
+      issue_qk<HD>(sc, q_wg, sk + stage(t) * L::kTile);
+      issue_pv<HD>(o, pa, sv + stage(t - 1) * L::kTile);
+      wgmma_wait<1>();                 // groups retire in order: S is done
       fence_regs(sc);
-
-      // scores in log2 units; masks where a key of the tile may be hidden
-      // from a row of the warpgroup, or lie past S
-      const bool masked = k0 + kBN > S || (causal && k0 + kBN - 1 > r0) ||
-                          (window > 0 && k0 <= r0 + 63 - window);
-#pragma unroll
-      for (int i = 0; i < kBN / 2; ++i) {
-        sc[i] *= scale_log2;
-        if (masked) {
-          const int qpos = row + 8 * ((i / 2) % 2);
-          const int kpos = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
-          const bool ok = kpos < S && (!causal || kpos <= qpos) &&
-                          (window <= 0 || kpos > qpos - window);
-          if (!ok) sc[i] = -INFINITY;
-        }
-      }
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int i = 0; i < kBN / 2; ++i)
-        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {   // the 4 lanes of a row: one quad
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        alpha[r] = exp2f(m[r] - mx[r]);
-        m[r] = mx[r];
-        l[r] *= alpha[r];              // this lane's keys only
-      }
-#pragma unroll
-      for (int i = 0; i < kBN / 2; ++i) {
-        sc[i] = exp2f(sc[i] - mx[(i / 2) % 2]);   // masked: exp2(-inf) = 0
-        l[(i / 2) % 2] += sc[i];
-      }
-#pragma unroll
-      for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i / 2) % 2];
-      uint32_t pa[kBN / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
-
-      mbar_wait(v_full(s), parity);
-      __syncwarp();
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)
-        // V MN-major: 16 key rows per k-step; LBO steps between the hd
-        // panels, SBO between groups of 8 key rows
-        wgmma_pv<HD>(o, pa[kk],
-                     desc_sw128(sv + s * L::kTile + kk * 16 * kRowBytes,
-                                kBN * kRowBytes, 1024));
-      wgmma_commit();
-      wgmma_wait_all();
+      online_softmax(sc, m, l, alpha, t * kBN, row, r0, lane, S, causal,
+                     window, scale_log2);
+      wgmma_wait<0>();                 // O += P V of tile t - 1 is done
       fence_regs(o);
       fence_regs(pa);
+      release(t - 1);
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+      to_a_fragments(sc, pa);
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty(s));
+    wait_v(w_hi - 1);
+    wgmma_fence();
+    issue_pv<HD>(o, pa, sv + stage(w_hi - 1) * L::kTile);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    release(w_hi - 1);
+  }
+  for (int t = w_hi; t < t_hi; ++t) {
+    wait_k(t);
+    release(t);
   }
   if (!live) return;
 
