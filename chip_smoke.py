@@ -96,7 +96,6 @@ TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 TOL_NORM = {"float32": 1e-5, "bfloat16": 2e-2}
 TOL_FLASH = {"float32": 2e-5, "bfloat16": 2e-2}
 TERMS = ("ce_x", "ce_y", "kl_xy", "kl_yx")
-HEAD_DIMS = (64, 128)           # the flash kernels' instantiations
 # the main path calls kd_loss on C*B logit rows: C is a size group's client
 # count padded to a power of two, at least 4; 6 clients per round give
 # groups of 4 or 8 padded clients, at batch 32
@@ -180,6 +179,7 @@ def phase_build():
 def check_hgmma(_build):
     """The bf16 flash kernel must run on the tensor cores through wgmma:
     every instantiation of flash_wgmma_kernel has HGMMA in its SASS."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
     tool = Path(_build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run(
         [str(tool), "-sass", str(_build.library_path("flash_attention"))],

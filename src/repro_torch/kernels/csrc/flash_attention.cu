@@ -26,11 +26,12 @@
 //   A block is one consumer warpgroup and one producer warp (160 threads)
 //   over 64 query rows, the m64 of one wgmma. The producer warp's lane 0
 //   loads the block's Q once and keeps K and V tiles of 64 keys in flight
-//   in a ring of two stages (full and empty mbarriers per stage; K and V
-//   have separate full barriers, so that Q K^T starts while V still
-//   arrives). Tiles land in shared memory with the 128-byte swizzle, in
-//   panels of 64 columns (one swizzle row is 64 bf16 values, so hd 128 is
-//   two panels); the wgmma descriptors use the same swizzle. S = Q K^T is
+//   in two rings of two stages, each stage with a full and an empty
+//   mbarrier: Q K^T starts while V still arrives, and a K stage is freed
+//   as soon as its Q K^T is done, before the P V of its tile. Tiles land in
+//   shared memory with the 128-byte swizzle, in panels of 64 columns (one
+//   swizzle row is 64 bf16 values, so hd 128 is two panels); the wgmma
+//   descriptors use the same swizzle. S = Q K^T is
 //   an m64n64k16 wgmma with both operands in shared memory, K [key][hd]
 //   being K-major already. P is rounded to bf16 in registers: the fp32
 //   accumulator fragment of S is, pair for pair, the A-register fragment of
@@ -42,16 +43,17 @@
 //   and clipped stores handle ragged S, and the kpos < S mask keeps the
 //   zero-filled keys out of the softmax. O is normalised in registers,
 //   written over the Q tile in the same swizzled layout and stored by TMA.
-//   Shared memory: 1024 (alignment) + 16 KB Q + 2 x (16 + 16) KB K/V + 56
-//   bytes of barriers = 83,000 bytes at hd 128, 42,040 at hd 64, so two
-//   blocks share an SM. Registers (ptxas of CUDA 12.9): REGS.
+//   Shared memory: 1024 (alignment) + 16 KB Q + 2 x (16 + 16) KB K/V + 72
+//   bytes of barriers = 83,016 bytes at hd 128, 42,056 at hd 64, so two
+//   blocks share an SM. Registers (ptxas of CUDA 12.9): 149 at hd 128, 117
+//   at hd 64, no spills.
 //   Why one consumer warpgroup a block and not two over 128 rows: with two
-//   (288 threads, 143-151 registers) only one block fits an SM, and each
+//   (288 threads, about 150 registers) only one block fits an SM, and each
 //   block's Q load and O store stall its SM; two independent 64-row blocks
 //   per SM overlap one's prologue and epilogue with the other's main loop,
 //   and 64-row tiles balance the causal waves more finely. The K/V tiles
 //   are then read twice as often, from L2. Measured at the prefill shape
-//   and three others, the 64-row block was the faster (PERF.md, PR 13).
+//   and three others, the 64-row block was the faster (PERF.md, Findings).
 //
 // * float32: the SIMT kernel (flash_simt_kernel). wgmma takes fp32 inputs
 //   only as TF32, which keeps about three decimal digits; the fp32 path is
@@ -291,11 +293,10 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // ------------------------------------------------------------------------
 namespace hopper {
 
-constexpr int kConsumers = 1;              // warpgroups of 64 query rows
-constexpr int kBM = 64 * kConsumers;       // query rows per block
+constexpr int kBM = 64;                    // query rows per block: one m64
 constexpr int kBN = 64;                    // keys per K/V tile
-constexpr int kStages = 2;                 // K/V tiles in flight
-constexpr int kConsumerWarps = 4 * kConsumers;
+constexpr int kStages = 2;                 // K tiles, and V tiles, in flight
+constexpr int kConsumerWarps = 4;          // one warpgroup
 constexpr int kThreads = 32 * kConsumerWarps + 32;   // + the producer warp
 constexpr int kPanel = 64;                 // bf16 columns per 128-byte row
 constexpr int kRowBytes = 128;             // one swizzled row of a panel
@@ -309,8 +310,8 @@ struct Layout {
   static constexpr int kK = kQ;                      // K ring
   static constexpr int kV = kK + kStages * kTile;    // V ring
   static constexpr int kBar = kV + kStages * kTile;  // mbarriers
-  // q_full, then per stage k_full, v_full and empty
-  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages);
+  // q_full, then per stage k_full, k_empty, v_full and v_empty
+  static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages);
   static constexpr int kAlloc = kBytes + 1024;       // room to align the base
 };
 
@@ -422,11 +423,12 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
       "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
 }
@@ -445,11 +447,12 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
@@ -472,16 +475,18 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
@@ -510,13 +515,13 @@ __device__ __forceinline__ void wgmma_wait() {
 // issues S = Q K^T for one K tile: hd / 16 k-steps, each advancing 32 bytes
 // along a swizzled row and to the next panel every 4 steps
 template <int HD>
-__device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint32_t q_wg,
+__device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint32_t q,
                                          uint32_t k_tile) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const uint32_t col = (kk % 4) * 32;   // 16 columns: 32 bytes
     wgmma_ss_n64(sc,
-                 desc_sw128(q_wg + (kk / 4) * kBM * kRowBytes + col, 16, 1024),
+                 desc_sw128(q + (kk / 4) * kBM * kRowBytes + col, 16, 1024),
                  desc_sw128(k_tile + (kk / 4) * kBN * kRowBytes + col, 16,
                             1024),
                  kk > 0);
@@ -610,8 +615,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t sq = base, sk = base + L::kK, sv = base + L::kV;
   const uint32_t q_full = base + L::kBar;
   auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
-  auto v_full = [&](int s) { return q_full + 8 * (1 + kStages + s); };
-  auto empty = [&](int s) { return q_full + 8 * (1 + 2 * kStages + s); };
+  auto k_empty = [&](int s) { return q_full + 8 * (1 + kStages + s); };
+  auto v_full = [&](int s) { return q_full + 8 * (1 + 2 * kStages + s); };
+  auto v_empty = [&](int s) { return q_full + 8 * (1 + 3 * kStages + s); };
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H, kvh = h / (H / KV);
@@ -626,7 +632,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int s = 0; s < kStages; ++s) {
       mbar_init(k_full(s), 1);
       mbar_init(v_full(s), 1);
-      mbar_init(empty(s), kConsumerWarps);   // lane 0 of each consumer warp
+      // an empty barrier takes lane 0 of each consumer warp
+      mbar_init(k_empty(s), kConsumerWarps);
+      mbar_init(v_empty(s), kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -639,13 +647,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int p = 0; p < kPanels; ++p)
         tma_load(sq + p * kBM * kRowBytes, &tq, q_full, p * kPanel, q0, h, b);
       for (int it = 0; it < t_hi - t_lo; ++it) {
-        const int s = it % kStages;
         const int k0 = (t_lo + it) * kBN;
-        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        const int s = it % kStages;
+        const uint32_t drained = ((it / kStages) & 1) ^ 1;
+        mbar_wait(k_empty(s), drained);
         mbar_expect_tx(k_full(s), L::kTile);
         for (int p = 0; p < kPanels; ++p)
           tma_load(sk + s * L::kTile + p * kBN * kRowBytes, &tk, k_full(s),
                    p * kPanel, k0, kvh, b);
+        mbar_wait(v_empty(s), drained);
         mbar_expect_tx(v_full(s), L::kTile);
         for (int p = 0; p < kPanels; ++p)
           tma_load(sv + s * L::kTile + p * kBN * kRowBytes, &tv, v_full(s),
@@ -655,22 +665,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     return;
   }
 
-  // ---- consumers: warpgroup wg owns query rows [r0, r0 + 64) ----
-  const int wg = warp / 4;
-  const int r0 = q0 + 64 * wg;
-  const int row = r0 + 16 * (warp % 4) + lane / 4;   // and row + 8
-  const bool live = r0 < S;
-  const uint32_t q_wg = sq + 64 * wg * kRowBytes;
-  // the block's tiles this warpgroup's rows can see: [w_lo, w_hi), empty
-  // when its rows all lie past S
-  const int w_lo = max(t_lo, (window > 0 ? max(0, r0 - window + 1) : 0) / kBN);
-  const int w_hi = live ? min(t_hi, ((causal ? min(S, r0 + 64) : S) + kBN - 1)
-                                        / kBN)
-                        : w_lo;
-  // tile t sits in stage (t - t_lo) % kStages, filled for the
-  // ((t - t_lo) / kStages)-th time; every consumer warp waits for every
-  // tile, seen or not, and releases it after its last read, in tile order,
-  // so that its arrival on `empty` counts in that tile's own phase
+  // ---- consumer: the warpgroup over query rows [q0, q0 + 64) ----
+  const int row = q0 + 16 * warp + lane / 4;   // and row + 8
+  // K and V tile t sit in stage (t - t_lo) % kStages of their rings,
+  // filled for the ((t - t_lo) / kStages)-th time; lane 0 of each consumer
+  // warp releases a stage after the warp's last read of it. K is released
+  // as soon as its Q K^T is done, V after its P V, so the next K tile is
+  // loaded a whole tile earlier.
   auto stage = [&](int t) { return (t - t_lo) % kStages; };
   auto parity = [&](int t) { return ((t - t_lo) / kStages) & 1; };
   auto wait_k = [&](int t) {
@@ -681,9 +682,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(v_full(stage(t)), parity(t));
     __syncwarp();
   };
-  auto release = [&](int t) {
+  auto release_k = [&](int t) {
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty(stage(t)));
+    if (lane == 0) mbar_arrive(k_empty(stage(t)));
+  };
+  auto release_v = [&](int t) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(v_empty(stage(t)));
   };
 
   float o[HD / 2];
@@ -694,54 +699,44 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint32_t pa[kBN / 16][4];
 
   mbar_wait(q_full, 0);
-  for (int t = t_lo; t < w_lo; ++t) {
+  wait_k(t_lo);
+  wgmma_fence();
+  issue_qk<HD>(sc, sq, sk + stage(t_lo) * L::kTile);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  release_k(t_lo);
+  online_softmax(sc, m, l, alpha, t_lo * kBN, row, q0, lane, S, causal,
+                 window, scale_log2);
+  to_a_fragments(sc, pa);
+  // Tile t's Q K^T and tile t - 1's P V run on the tensor cores while the
+  // softmax of tile t waits only for the first of them.
+  for (int t = t_lo + 1; t < t_hi; ++t) {
     wait_k(t);
-    release(t);
-  }
-  if (w_lo < w_hi) {
-    wait_k(w_lo);
+    wait_v(t - 1);
     wgmma_fence();
-    issue_qk<HD>(sc, q_wg, sk + stage(w_lo) * L::kTile);
-    wgmma_wait<0>();
+    issue_qk<HD>(sc, sq, sk + stage(t) * L::kTile);
+    issue_pv<HD>(o, pa, sv + stage(t - 1) * L::kTile);
+    wgmma_wait<1>();                   // groups retire in order: S is done
     fence_regs(sc);
-    online_softmax(sc, m, l, alpha, w_lo * kBN, row, r0, lane, S, causal,
+    release_k(t);
+    online_softmax(sc, m, l, alpha, t * kBN, row, q0, lane, S, causal,
                    window, scale_log2);
-    to_a_fragments(sc, pa);
-    // Tile t's Q K^T and tile t - 1's P V run on the tensor cores while
-    // this warpgroup's softmax of tile t waits only for the first of them.
-    for (int t = w_lo + 1; t < w_hi; ++t) {
-      wait_k(t);
-      wait_v(t - 1);
-      wgmma_fence();
-      issue_qk<HD>(sc, q_wg, sk + stage(t) * L::kTile);
-      issue_pv<HD>(o, pa, sv + stage(t - 1) * L::kTile);
-      wgmma_wait<1>();                 // groups retire in order: S is done
-      fence_regs(sc);
-      online_softmax(sc, m, l, alpha, t * kBN, row, r0, lane, S, causal,
-                     window, scale_log2);
-      wgmma_wait<0>();                 // O += P V of tile t - 1 is done
-      fence_regs(o);
-      fence_regs(pa);
-      release(t - 1);
-#pragma unroll
-      for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i / 2) % 2];
-      to_a_fragments(sc, pa);
-    }
-    wait_v(w_hi - 1);
-    wgmma_fence();
-    issue_pv<HD>(o, pa, sv + stage(w_hi - 1) * L::kTile);
-    wgmma_wait<0>();
+    wgmma_wait<0>();                   // O += P V of tile t - 1 is done
     fence_regs(o);
     fence_regs(pa);
-    release(w_hi - 1);
+    release_v(t - 1);
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+    to_a_fragments(sc, pa);
   }
-  for (int t = w_hi; t < t_hi; ++t) {
-    wait_k(t);
-    release(t);
-  }
-  if (!live) return;
+  wait_v(t_hi - 1);
+  wgmma_fence();
+  issue_pv<HD>(o, pa, sv + stage(t_hi - 1) * L::kTile);
+  wgmma_wait<0>();
+  fence_regs(o);
+  fence_regs(pa);
 
-  // ---- epilogue: O / l in bf16 over this warpgroup's Q rows, then TMA ----
+  // ---- epilogue: O / l in bf16 over the Q tile, then a TMA store ----
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -749,29 +744,30 @@ __global__ void __launch_bounds__(kThreads, 1)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
-  uint8_t* ow = smem + 64 * wg * kRowBytes;
 #pragma unroll
   for (int i = 0; i < HD / 2; i += 2) {
-    const int rr = 16 * (warp % 4) + lane / 4 + 8 * ((i / 2) % 2);
+    const int rr = 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
     const int c = 8 * (i / 4) + 2 * (lane % 4);
     const int cc = c % kPanel;
     const int off = (c / kPanel) * kBM * kRowBytes + rr * kRowBytes +
                     (((cc / 8) ^ (rr % 8)) * 16) + (cc % 8) * 2;
     const float f = inv[(i / 2) % 2];
-    *reinterpret_cast<uint32_t*>(ow + off) = pack_bf16(o[i] * f, o[i + 1] * f);
+    *reinterpret_cast<uint32_t*>(smem + off) =
+        pack_bf16(o[i] * f, o[i + 1] * f);
   }
   // the generic-proxy writes above, visible to the TMA store
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
-  if (threadIdx.x % 128 == 0) {
+  asm volatile("bar.sync 1, 128;" ::: "memory");   // the consumer warps
+  if (threadIdx.x == 0) {
     for (int p = 0; p < kPanels; ++p)
-      tma_store(&to, q_wg + p * kBM * kRowBytes, p * kPanel, r0, h, b);
+      tma_store(&to, sq + p * kBM * kRowBytes, p * kPanel, q0, h, b);
     asm volatile("cp.async.bulk.commit_group;" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver the runtime has loaded
+// cuTensorMapEncodeTiled, fetched through the runtime (libcuda is not
+// linked)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,
@@ -851,8 +847,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // (batch, head, row) of q, k, v and o in turn; hd's stride is 1. Every
 // pointer and every stride is a multiple of 16 bytes; row strides fit in
 // int32. Returns
-// cudaGetLastError() after the launch (0 on success), or, where the driver
-// refuses a tensor map, 10000 + its CUresult; the launch runs on `stream`
+// cudaGetLastError() after the launch (0 on success), or, where a tensor
+// map is refused, 10000 + its CUresult; the launch runs on `stream`
 // and does not sync.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int H,
