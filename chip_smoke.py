@@ -16,9 +16,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 kd_loss_fwd / kd_loss_bwd at the HAPFL path's row counts (4
                 and 8 padded clients x batch 32), a ragged N, a ragged V and
                 a vocabulary shape in fp32 and bf16 (tolerances of
-                tests/test_kernels.py: fp32 1e-4, bf16 5e-2); rmsnorm at the
-                serve path's (2048, 3072) and (4, 3072), a ragged N and an
-                odd d; flash_attention at the serve path's prefill shape,
+                tests/test_kernels.py: fp32 1e-4, bf16 5e-2); kd_loss_grad
+                at (8, 32, 10), (4, 32, 10), V = 777 and the vocabulary
+                shape (4, 512, 32000) in fp32 and bf16 at the same
+                tolerances, its accuracies exact and two launches bitwise
+                equal; rmsnorm at the serve path's (2048, 3072) and (4,
+                3072), a ragged N and an odd d; add_rmsnorm at the same
+                shapes bitwise equal to `x + delta` followed by the rmsnorm
+                kernel; flash_attention at the serve path's prefill shape,
                 both as contiguous (B, H, S, hd) tensors and as the
                 transposed views of (B, S, H, hd) tensors that the path
                 gives it, a ragged S, sliding windows, hd 64 and H = KV,
@@ -28,32 +33,39 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 summation, and the kernels sum in another. bf16 2e-2, as
                 there. Then a training forward (models/api.py::forward)
                 on the card must refuse its backward (NotImplementedError:
-                the CUDA rmsnorm and flash have no backward kernel yet),
+                the CUDA norms and flash have no backward kernel yet),
                 while the same forward on the CPU gives gradients.
   4. HAPFL    — Algorithm 1 on the paper's cifar10 pool at full width
                 (small + large CNNs, 10 clients, 6 per round): 10
                 latency-only PPO pretraining rounds, then 3 training rounds
                 through the batched engine. Launch counters are zeroed just
-                before and read just after; kd_loss must have launched
-                exactly once per padded step of every size group. A shape
-                the path gave the kernels that phase 3 did not check is
-                checked now.
+                before and read just after: kd_loss_grad must have launched
+                exactly once per padded step of every size group, and
+                kd_loss_fwd / kd_loss_bwd never. A shape the path gave the
+                kernel that phase 3 did not check is checked now.
   5. serve    — llama3.2-3b at full width (28 layers, d 3072, 24 heads, 8
                 KV heads, vocab 128256) in bf16, random weights from a
                 seeded generator on the card: ServeEngine(max_len=1024)
-                .generate on 4 prompts x 512 tokens for 32 new tokens.
-                Counters are zeroed just before the counted generate and
-                read just after: rmsnorm (2 * 28 + 1) * (1 + 32) = 1881,
-                flash_attention 28, kd_loss 0. Prefill and decode times,
-                tokens/s and peak memory are printed.
+                .generate on 4 prompts x 512 tokens for 32 new tokens; the
+                decode step is captured into a CUDA graph at the engine's
+                first generate and replayed. Counters are zeroed just
+                before the counted generate and read just after: rmsnorm
+                1 + 32 = 33, add_rmsnorm (2 * 28) * (1 + 32) = 1848,
+                flash_attention 28, kd 0. The graphed generate's tokens
+                and each step's logits must equal, bit for bit, an eager
+                loop of make_decode_step on the card from the same
+                prefill; so must a 2-layer sliding-window cut whose ring
+                buffer wraps under the graph. Prefill ms, decode ms per
+                step graphed and eager, the graph replay's device ms per
+                step, tokens/s and peak memory are printed.
   6. timing   — each kernel, its plain version and, where one PyTorch call
                 computes the same function, that call (F.rms_norm,
-                F.scaled_dot_product_attention), at every shape and layout
-                its path gave it. `ms` is device time: the calls are
-                captured into one CUDA graph and its replay is timed with
-                CUDA events, so the host's issue cost is left out. For
-                rmsnorm and flash the calls cycle over copies of their
-                inputs that together spill
+                x + delta then F.rms_norm, F.scaled_dot_product_attention),
+                at every shape and layout its path gave it. `ms` is device
+                time: the calls are captured into one CUDA graph and its
+                replay is timed with CUDA events, so the host's issue cost
+                is left out. For the norms and flash the calls cycle over
+                copies of their inputs that together spill
                 the 50 MB L2, so that each call reads device memory, as the
                 bound assumes; `warm_ms` reuses one copy. `eager_ms` is the
                 wall time per call of back-to-back eager calls, the
@@ -64,11 +76,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 cut of the full-width llama in fp32 gives the same prefill
                 logits and 4 decode steps' logits on the card and on the
                 CPU (atol and rtol 1e-3).
-  8. profile  — one more HAPFL training round, one more generate and one
-                prefill alone under torch.profiler: device time by kernel
-                and the device's busy share. The prefill must make no
-                layout copy (aten::clone) of q, k, v or the attention
-                output around the flash kernel.
+  8. profile  — one more HAPFL training round, one more generate, its
+                graphed decode loop alone and one prefill under
+                torch.profiler: device time by kernel, the device's busy
+                share, and the idle gaps between the decode loop's device
+                work. The prefill must make no layout copy (aten::clone)
+                of q, k, v or the attention output around the flash
+                kernel.
 
 The parity phases turn TF32 off for cuDNN and matmuls, so that both sides
 compute in full float32, and restore the defaults afterwards.
@@ -99,6 +113,13 @@ TERMS = ("ce_x", "ce_y", "kl_xy", "kl_yx")
 # the main path calls kd_loss on C*B logit rows: C is a size group's client
 # count padded to a power of two, at least 4; 6 clients per round give
 # groups of 4 or 8 padded clients, at batch 32
+# kd_loss_grad (C, B, V, dtype): the path's two group shapes, a ragged V
+# and the vocabulary shape the LLM training slice will give it
+GRAD_SHAPES = [(8, 32, 10, "float32"), (4, 32, 10, "float32"),
+               (2, 32, 777, "float32"), (2, 32, 777, "bfloat16"),
+               (4, 512, 32000, "float32"), (4, 512, 32000, "bfloat16")]
+GRAD_VOCAB = [(4, 512, 32000, "float32"), (4, 512, 32000, "bfloat16")]
+LAMBDAS = (0.4, 0.6, 0.5, 0.5)
 CHECK_SHAPES = [(128, 10, "float32"), (256, 10, "float32"),
                 (1000, 10, "float32"), (64, 777, "float32"),
                 (2048, 32000, "float32"), (2048, 32000, "bfloat16")]
@@ -107,6 +128,9 @@ VOCAB_SHAPES = [(2048, 32000, "float32"), (2048, 32000, "bfloat16")]
 # the serve path: llama3.2-3b at full width, 4 prompts x 512 tokens, 32 new
 SERVE = {"arch": "llama3.2-3b", "batch": 4, "prompt": 512, "n_new": 32,
          "max_len": 1024, "seed": 0}
+# its sliding-window cut: 2 layers, a 64-slot ring buffer that 40 decode
+# steps after a 48-token prompt wrap around
+WRAP = {"n_layers": 2, "window": 64, "prompt": 48, "n_new": 40}
 # rmsnorm (N, d, dtype) and flash (B, H, KV, S, hd, window, dtype, layout)
 # checks; layout "bshd" is the transposed view of (B, S, H, hd) tensors that
 # the model passes, "bhsd" contiguous (B, H, S, hd) tensors
@@ -267,6 +291,42 @@ def phase_kernels(torch, shapes):
     return errs
 
 
+def _grad_inputs(torch, C, B, V, dtype, seed):
+    x, y, lab, _ = _inputs(torch, C * B, V, dtype, seed)
+    return x.view(C, B, V), y.view(C, B, V), lab.view(C, B)
+
+
+def phase_kd_grad(torch, shapes):
+    """{(C, B, V, dtype): max|err|} of kd_loss_grad against its plain
+    version: dx, dy and the four loss means within the kd tolerances, the
+    two accuracies exact, and two launches bitwise equal (its sums take a
+    fixed order; no float atomics)."""
+    from repro_torch.kernels import kd_loss as kd, ref
+    errs = {}
+    with full_fp32(torch):
+        for C, B, V, dtype in shapes:
+            x, y, lab = _grad_inputs(torch, C, B, V, dtype, seed=C * B + V)
+            got = kd.kd_loss_grad(x, y, lab, LAMBDAS)
+            again = kd.kd_loss_grad(x, y, lab, LAMBDAS)
+            torch.cuda.synchronize()
+            exp = ref.kd_loss_grad_ref(x, y, lab, LAMBDAS)
+            what = f"kd_loss_grad {C}x{B}x{V} {dtype}"
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise SystemExit(f"chip_smoke: {what}: two launches on the "
+                                 f"same inputs differ")
+            if not torch.equal(got[2][4:], exp[2][4:]):
+                raise SystemExit(f"chip_smoke: {what}: accuracies "
+                                 f"{got[2][4:].tolist()} != "
+                                 f"{exp[2][4:].tolist()}")
+            tol = TOL[dtype]
+            pairs = ((got[0], got[1], got[2][:4]), (exp[0], exp[1], exp[2][:4]))
+            _close(torch, *pairs, tol, what)
+            errs[(C, B, V, dtype)] = e = _max_err(torch, *pairs)
+            log(f"[kernels] {what}: max|err| {e:.3e} (tol {tol}), "
+                f"accuracies exact, two launches bitwise equal")
+    return errs
+
+
 def _graph_ms(torch, fn, iters):
     """Device ms per call: `iters` calls captured into one CUDA graph, whose
     replay is timed with CUDA events. The host issues one replay, so its
@@ -360,6 +420,33 @@ def phase_timing(torch, shapes):
     return times
 
 
+def grad_bound(C, B, V, elt):
+    """kd_loss_grad: x, y read and dx, dy written once, labels read and the
+    (6, C) means written; about 28 fp32 operations and 4 exps per (x, y)
+    element pair (the forward's and the backward's, less what they
+    share)."""
+    N = C * B
+    return _bound(4 * N * V * elt + 4 * N + 24 * C, 28 * N * V,
+                  PEAK_FP32_OPS_PER_S)
+
+
+def phase_grad_timing(torch, shapes):
+    """Times of kd_loss_grad and its plain version at each (C, B, V,
+    dtype); no single PyTorch call computes the same function."""
+    from repro_torch.kernels import kd_loss as kd, ref
+    times = {}
+    for C, B, V, dtype in shapes:
+        x, y, lab = _grad_inputs(torch, C, B, V, dtype, seed=7)
+        fns = {"kernel": lambda: kd.kd_loss_grad(x, y, lab, LAMBDAS),
+               "plain": lambda: ref.kd_loss_grad_ref(x, y, lab, LAMBDAS),
+               "library": None, "kernel_warm": None}
+        times[("kd_loss_grad", C, B, V, dtype)] = _time_set(
+            torch, "kd_loss_grad", (C, B, V, dtype), fns,
+            grad_bound(C, B, V, x.element_size()),
+            200 if C * B * V < 1e6 else 20)
+    return times
+
+
 # ---------------------------------------------------------------------- #
 # 3 and 6. rmsnorm and flash attention against their plain versions, and
 # their times
@@ -374,6 +461,12 @@ def _norm_inputs(torch, N, d, dtype):
     return (_randn(torch, (N, d), dtype, g),
             (1 + _randn(torch, (d,), "float32", g, 0.1)).to(
                 getattr(torch, dtype)))
+
+
+def _add_norm_inputs(torch, N, d, dtype):
+    x, sc = _norm_inputs(torch, N, d, dtype)
+    g = torch.Generator(device="cuda").manual_seed(N * d)
+    return x, _randn(torch, (N, d), dtype, g), sc
 
 
 def _flash_inputs(torch, B, H, KV, S, hd, dtype, layout):
@@ -405,6 +498,23 @@ def phase_norm_flash_kernels(torch):
             errs[("rmsnorm", N, d, dtype)] = e = _max_err(torch, (got,), (exp,))
             log(f"[kernels] rmsnorm {N}x{d} {dtype}: max|err| {e:.3e} "
                 f"(tol {tol})")
+        for N, d, dtype in NORM_SHAPES:
+            x, delta, sc = _add_norm_inputs(torch, N, d, dtype)
+            s, y = rn.add_rmsnorm(x, delta, sc)
+            s2 = x + delta
+            y2 = rn.rmsnorm(s2, sc)
+            torch.cuda.synchronize()
+            what = f"add_rmsnorm {N}x{d} {dtype}"
+            if not (torch.equal(s, s2) and torch.equal(y, y2)):
+                raise SystemExit(f"chip_smoke: {what} is not bitwise equal "
+                                 f"to x + delta and the rmsnorm kernel")
+            exp = ref.add_rmsnorm_ref(x, delta, sc)
+            tol = TOL_NORM[dtype]
+            _close(torch, (s, y), exp, tol, what)
+            errs[("add_rmsnorm", N, d, dtype)] = e = _max_err(
+                torch, (s, y), exp)
+            log(f"[kernels] {what}: bitwise equal to x + delta and rmsnorm; "
+                f"max|err| against the plain version {e:.3e} (tol {tol})")
         for B, H, KV, S, hd, window, dtype, layout in FLASH_SHAPES:
             q, k, v = _flash_inputs(torch, B, H, KV, S, hd, dtype, layout)
             got = fa.flash_attention(q, k, v, causal=True,
@@ -443,7 +553,7 @@ def phase_grad_guard(torch):
                             {"tokens": torch.as_tensor(tok, device=dev)})
         if dev == "cuda":
             ran = {k: all_launches()[k] - before[k]
-                   for k in ("rmsnorm", "flash_attention")}
+                   for k in ("rmsnorm", "add_rmsnorm", "flash_attention")}
             try:
                 logits.sum().backward()
             except NotImplementedError as err:
@@ -474,6 +584,12 @@ def norm_bound(N, d, elt):
     """rmsnorm: x read and y written once, scale read once; about 4 fp32
     operations per element (square-add, two multiplies, the cast)."""
     return _bound(2 * N * d * elt + d * elt, 4 * N * d, PEAK_FP32_OPS_PER_S)
+
+
+def add_norm_bound(N, d, elt):
+    """add_rmsnorm: x and delta read, s and y written once, scale read
+    once; about 5 fp32 operations per element."""
+    return _bound(4 * N * d * elt + d * elt, 5 * N * d, PEAK_FP32_OPS_PER_S)
 
 
 def visible_pairs(S, causal, window):
@@ -516,9 +632,12 @@ def _time_set(torch, name, shape, fns, bound, iters):
            "eager_ms": _eager_ms(torch, fns["kernel"], iters),
            "plain_eager_ms": _eager_ms(torch, fns["plain"], iters),
            "library_ms": lib,
-           "warm_ms": _graph_ms(torch, fns["kernel_warm"], iters)}
+           "warm_ms": (_graph_ms(torch, fns["kernel_warm"], iters)
+                       if fns["kernel_warm"] is not None else None)}
+    warm = ("" if out["warm_ms"] is None else
+            f"; {out['warm_ms']:.6f} with its inputs in L2")
     log(f"[timing] {name} {shape}: kernel device {out['ms']:.6f} ms ({k1:.6f}, "
-        f"{k2:.6f}; {out['warm_ms']:.6f} with its inputs in L2), plain "
+        f"{k2:.6f}{warm}), plain "
         f"device {out['plain_ms']:.6f} ms, library "
         f"{'none' if lib is None else f'{lib:.6f} ms'}, bound "
         f"{bound[0]:.7f} ms by {bound[1]}; eager wall per call: kernel "
@@ -554,15 +673,19 @@ def _sdpa(torch):
     return call
 
 
-def phase_norm_flash_timing(torch, norm_shapes, flash_shapes):
-    """Times of rmsnorm at each (N, d, dtype) and of flash_attention at each
-    (B, H, KV, S, hd, window, dtype, layout)."""
+def phase_norm_flash_timing(torch, norm_shapes, add_shapes, flash_shapes):
+    """Times of rmsnorm and add_rmsnorm at each (N, d, dtype) and of
+    flash_attention at each (B, H, KV, S, hd, window, dtype, layout)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa, ref
     from repro_torch.kernels import rmsnorm as rn
 
     def rms_norm(x, scale):
         return F.rms_norm(x, (x.shape[-1],), scale, 1e-5)
+
+    def add_rms_norm(x, delta, scale):
+        s = x + delta
+        return s, rms_norm(s, scale)
 
     times = {}
     for N, d, dtype in norm_shapes:
@@ -575,6 +698,17 @@ def phase_norm_flash_timing(torch, norm_shapes, flash_shapes):
         times[("rmsnorm", N, d, dtype)] = _time_set(
             torch, "rmsnorm", (N, d, dtype), fns,
             norm_bound(N, d, x.element_size()), 200 if N * d < 1e6 else 50)
+    for N, d, dtype in add_shapes:
+        x, delta, sc = _add_norm_inputs(torch, N, d, dtype)
+        nxt = _cold_copies((x, delta, sc), 4 * x.numel() * x.element_size())
+        fns = {"kernel": lambda: rn.add_rmsnorm(*nxt()),
+               "plain": lambda: ref.add_rmsnorm_ref(*nxt()),
+               "library": lambda: add_rms_norm(*nxt()),
+               "kernel_warm": lambda: rn.add_rmsnorm(x, delta, sc)}
+        times[("add_rmsnorm", N, d, dtype)] = _time_set(
+            torch, "add_rmsnorm", (N, d, dtype), fns,
+            add_norm_bound(N, d, x.element_size()),
+            200 if N * d < 1e6 else 50)
     sdpa = _sdpa(torch)
     for B, H, KV, S, hd, window, dtype, layout in flash_shapes:
         q, k, v = _flash_inputs(torch, B, H, KV, S, hd, dtype, layout)
@@ -607,9 +741,9 @@ def main_path_config():
 
 
 def padded_steps(server, rec) -> dict:
-    """{(N, V): launches} of one round, per kernel: each size group of the
-    batched engine runs its padded step count S, one kd_loss call per step
-    on C_p * B rows (C_p its padded client count, B its batch size)."""
+    """{(C_p, B, V): launches} of one round: each size group of the batched
+    engine runs its padded step count S, one kd_loss_grad call per step on
+    (C_p, B, V) logits (C_p its padded client count, B its batch size)."""
     from repro_torch.fl.batched import BatchedClientEngine, next_pow2
     env = server.env
     bpe = env.cfg.batches_per_epoch
@@ -619,8 +753,8 @@ def padded_steps(server, rec) -> dict:
         groups.setdefault(key, []).append(tau * bpe)
     out = {}
     for (_, batch, _), steps in groups.items():
-        rows = BatchedClientEngine._client_pad(len(steps)) * batch
-        shape = (rows, env.n_classes)
+        shape = (BatchedClientEngine._client_pad(len(steps)), batch,
+                 env.n_classes)
         out[shape] = out.get(shape, 0) + next_pow2(max(steps))
     return out
 
@@ -652,16 +786,17 @@ def phase_main_path(torch):
             shapes[shape] = shapes.get(shape, 0) + n
         log(f"[main] round {rec.round_idx}: {seconds[-1]:.3f} s, sizes "
             f"{rec.sizes}, intensities {rec.intensities}, padded steps by "
-            f"(rows, V) {steps}, straggling {rec.straggling:.3f}, acc_lite "
+            f"(C, B, V) {steps}, straggling {rec.straggling:.3f}, acc_lite "
             f"{rec.acc_lite:.4f}, acc_by_size {rec.acc_by_size}")
     launches = dict(kd.launches)
     log(f"[main] other kernels' launches {all_launches()}")
-    expected = sum(shapes.values())
-    log(f"[main] launches {launches}, expected {expected} each, by (rows, "
-        f"V) {shapes}")
-    if launches != {"kd_loss_fwd": expected, "kd_loss_bwd": expected}:
-        raise SystemExit(f"chip_smoke: launches {launches} != padded steps "
-                         f"{expected} per kernel")
+    expected = {"kd_loss_fwd": 0, "kd_loss_bwd": 0,
+                "kd_loss_grad": sum(shapes.values())}
+    log(f"[main] launches {launches}, expected {expected}, by (C, B, V) "
+        f"{shapes}")
+    if launches != expected:
+        raise SystemExit(f"chip_smoke: launches {launches} != {expected}: "
+                         f"one kd_loss_grad per padded step")
     if not (_finite(torch, server.lite_params)
             and all(_finite(torch, p) for p in server.global_by_size.values())):
         raise SystemExit("chip_smoke: non-finite global params")
@@ -686,16 +821,73 @@ def all_launches():
 # ---------------------------------------------------------------------- #
 def serve_launch_shapes(cfg):
     """{kernel: {shape: launches}} of one counted generate: every forward
-    runs rmsnorm twice per block and once before the unembedding, which
-    prefill applies to the last position only; prefill runs flash
-    attention once per block, decode never."""
+    runs one rmsnorm (the first block's first norm) and 2 L add_rmsnorm
+    (every other norm, each with the residual add before it), the last of
+    which, before the unembedding, prefill applies to the last position
+    only; prefill runs flash attention once per block, decode never."""
     B, S, n = SERVE["batch"], SERVE["prompt"], SERVE["n_new"]
     L, d, H, KV = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads
-    return {"rmsnorm": {(B * S, d, "bfloat16"): 2 * L,
-                        (B, d, "bfloat16"): 1 + (2 * L + 1) * n},
+    return {"rmsnorm": {(B * S, d, "bfloat16"): 1, (B, d, "bfloat16"): n},
+            "add_rmsnorm": {(B * S, d, "bfloat16"): 2 * L - 1,
+                            (B, d, "bfloat16"): 1 + 2 * L * n},
             "flash_attention": {(B, H, KV, S, cfg.resolved_head_dim, 0,
                                  "bfloat16", "bshd"): L},
-            "kd_loss_fwd": {}, "kd_loss_bwd": {}}
+            "kd_loss_fwd": {}, "kd_loss_bwd": {}, "kd_loss_grad": {}}
+
+
+def eager_decode(torch, engine, batch, n_new):
+    """The engine's decode step run eagerly: the same prefill and cache set-up
+    as `generate`, then n_new calls of make_decode_step's function with a 0-d
+    position tensor. Returns the tokens (B, n_new) numpy, each step's logits
+    (B, n_new, vocab) and the wall seconds of the decode loop."""
+    from repro_torch.models.api import make_decode_cache
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    from repro_torch.serve.engine import _write_prefix
+    cfg, params = engine.cfg, engine.params
+    B, S = batch["tokens"].shape
+    step = make_decode_step(cfg)
+    with torch.no_grad():
+        logits, pre = make_prefill_step(cfg)(params, batch)
+        cache = make_decode_cache(cfg, B, engine.max_len, "cuda")
+        for key in ("k", "v"):
+            if cache["blocks"][key].shape != pre["blocks"][key].shape:
+                _write_prefix(cache["blocks"][key], pre["blocks"][key])
+        del pre
+        tok = logits[:, -1].argmax(-1)
+        index = torch.zeros((), dtype=torch.int64, device="cuda")
+        toks, kept = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_new):
+            index.fill_(S + i)
+            tok, lg, cache = step(params, {"tokens": tok[:, None]}, cache,
+                                  index)
+            toks.append(tok)
+            kept.append(lg[:, -1])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return torch.stack(toks, 1).cpu().numpy(), torch.stack(kept, 1), secs
+
+
+def check_graph_is_eager(torch, engine, batch, n_new, what):
+    """engine.generate (the captured decode step, replayed) against the
+    eager loop of the same step from the same prefill: identical tokens and
+    bitwise equal logits at every step. Returns the eager loop's seconds."""
+    import numpy as np
+    got, logits = engine.generate(batch, n_new=n_new, return_logits=True)
+    toks, kept, secs = eager_decode(torch, engine, batch, n_new)
+    same = [bool(torch.equal(logits[:, i], kept[:, i]))
+            for i in range(n_new)]
+    if not (np.array_equal(got, toks) and all(same)):
+        diffs = [float((logits[:, i] - kept[:, i]).abs().max())
+                 for i in range(n_new)]
+        raise SystemExit(f"chip_smoke: {what}: the graphed generate differs "
+                         f"from the eager decode loop: tokens equal "
+                         f"{np.array_equal(got, toks)}, max|diff| of logits "
+                         f"per step {diffs}")
+    log(f"[serve] {what}: graphed generate == eager decode loop: tokens "
+        f"identical, logits bitwise equal at all {n_new} steps")
+    return secs
 
 
 def phase_serve(torch):
@@ -724,8 +916,17 @@ def phase_serve(torch):
         0, cfg.vocab_size, (B, S))
     batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
     engine = ServeEngine(cfg, params, max_len=SERVE["max_len"], device="cuda")
-    engine.generate(batch, n_new=2)          # cuBLAS and kernel warm-up
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.generate(batch, n_new=2)   # captures the decode step; warm-up
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    step = engine.decode_step_for(B)
+    if step.graph is None:
+        raise SystemExit("chip_smoke: the engine's decode step on the card "
+                         "is not a CUDA graph")
+    log(f"[serve] first generate(2), the decode step's capture included: "
+        f"{first:.4f} s; launches per replay {step.launches}")
 
     torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
@@ -751,6 +952,8 @@ def phase_serve(torch):
             torch.isfinite(logits).all()):
         raise SystemExit("chip_smoke: prefill logits are not finite of "
                          "shape (B, 1, vocab)")
+    eager_s = check_graph_is_eager(torch, engine, batch, n_new,
+                                   f"{cfg.name} at full width")
     # prefill + one decode step, and 31 more decode steps: the difference
     # is the decode time per token
     runs = {}
@@ -763,13 +966,54 @@ def phase_serve(torch):
     t1, tn = (sum(runs[n]) / 2 for n in (1, n_new))
     decode_ms = (tn - t1) / (n_new - 1) * 1e3
     prefill_ms = t1 * 1e3 - decode_ms
+    eager_ms = [eager_s * 1e3 / n_new,
+                eager_decode(torch, engine, batch, n_new)[2] * 1e3 / n_new]
+    # the graph's own device time per step: replays timed by CUDA events
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(n_new):
+        step.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    replay_ms = start.elapsed_time(end) / n_new
     log(f"[serve] counted generate {wall:.4f} s; generate(1) {runs[1]} s, "
         f"generate({n_new}) {runs[n_new]} s -> prefill {prefill_ms:.3f} ms "
         f"({B * S / prefill_ms * 1e3:.0f} prompt tokens/s), decode "
-        f"{decode_ms:.3f} ms per step of {B} tokens, {B * n_new / tn:.1f} "
-        f"generated tokens/s over generate({n_new}); "
+        f"{decode_ms:.3f} ms per step of {B} tokens graphed (graph replay "
+        f"device time {replay_ms:.3f} ms per step), eager decode loop "
+        f"{eager_ms[0]:.3f} and {eager_ms[1]:.3f} ms per step; "
+        f"{B * n_new / tn:.1f} generated tokens/s over generate({n_new}); "
         f"max_memory_allocated {peak} B; first row {out[0][:8].tolist()}")
     return engine, batch, launches, shapes
+
+
+def phase_serve_wrap(torch):
+    """A 2-layer cut of the full-width config with a sliding window: the
+    graphed generate crosses the ring buffer's wrap and still equals the
+    eager decode loop bit for bit."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import init_model
+    from repro_torch.serve import ServeEngine
+    cfg = dataclasses.replace(get_config(SERVE["arch"]),
+                              n_layers=WRAP["n_layers"],
+                              sliding_window=WRAP["window"])
+    params = init_model(torch.Generator("cuda").manual_seed(3), cfg, "cuda")
+    tokens = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (SERVE["batch"], WRAP["prompt"]))
+    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    engine = ServeEngine(cfg, params, max_len=SERVE["max_len"], device="cuda")
+    ring = engine.decode_step_for(SERVE["batch"]).cache["blocks"]["k"]
+    last = WRAP["prompt"] + WRAP["n_new"] - 1
+    if not (ring.shape[2] == WRAP["window"] < last):
+        raise SystemExit(f"chip_smoke: the ring buffer {tuple(ring.shape)} "
+                         f"does not wrap before position {last}")
+    check_graph_is_eager(
+        torch, engine, batch, WRAP["n_new"],
+        f"{WRAP['n_layers']}-layer cut, window {WRAP['window']}, positions "
+        f"{WRAP['prompt']}..{last} (the ring wraps at {WRAP['window']})")
 
 
 def phase_serve_parity(torch):
@@ -895,6 +1139,46 @@ def phase_profile(torch, label, run, kernels, record_shapes=False):
     return prof
 
 
+def decode_loop(torch, engine, start, n):
+    """generate's decode loop alone, on the cache the engine's last
+    generate left: per step, set the position, replay, keep the token."""
+    step = engine.decode_step_for(SERVE["batch"])
+    out = torch.empty((SERVE["batch"], n), dtype=torch.int64, device="cuda")
+    for i in range(n):
+        step.index.fill_(start + i)
+        step.step()
+        out[:, i] = step.tokens[:, 0]
+    return out
+
+
+def report_device_gaps(torch, prof, label):
+    """The device's timeline in `prof`: the union of its events' intervals
+    from the first start to the last end, and the idle gaps between them."""
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and ev.time_range.end > ev.time_range.start)
+    if not spans:
+        log(f"[profile] {label}: idle gaps not measured (no device events)")
+        return
+    merged = [list(spans[0])]
+    for a, b in spans[1:]:
+        if a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    gaps = sorted(b[0] - a[1] for a, b in zip(merged, merged[1:]))
+    span = merged[-1][1] - merged[0][0]
+    busy = sum(b - a for a, b in merged)
+    big = [g for g in gaps if g > 5]
+    log(f"[profile] {label}: device timeline {span / 1e3:.3f} ms from the "
+        f"first to the last device event, busy {busy / 1e3:.3f} ms "
+        f"({100 * busy / span:.1f}%), {len(gaps)} idle gaps summing "
+        f"{sum(gaps) / 1e3:.3f} ms; {len(big)} above 5 us (sum "
+        f"{sum(big) / 1e3:.3f} ms, largest {gaps[-1] if gaps else 0:.1f} us, "
+        f"median {gaps[len(gaps) // 2] if gaps else 0:.1f} us)")
+
+
 def check_no_layout_copies(torch, prof, cfg):
     """The prefill must hand the flash kernel its q, k, v as views and take
     its output as one: no aten::clone (what .contiguous() and a reshape
@@ -952,14 +1236,21 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     phase_build()
     errs = phase_kernels(torch, CHECK_SHAPES)
+    grad_errs = phase_kd_grad(torch, GRAD_SHAPES)
     nf_errs = phase_norm_flash_kernels(torch)
     phase_grad_guard(torch)
     server, launches, shapes = phase_main_path(torch)
-    main = [(N, V, "float32") for N, V in sorted(shapes)]
-    errs.update(phase_kernels(torch, [s for s in main if s not in errs]))
-    times = phase_timing(torch, main + VOCAB_SHAPES)
+    grad_main = [(C, B, V, "float32") for C, B, V in sorted(shapes)]
+    grad_errs.update(phase_kd_grad(
+        torch, [s for s in grad_main if s not in grad_errs]))
+    # kd_loss_fwd / kd_loss_bwd, off the path now, at the path's rows
+    rows_main = [(C * B, V, "float32") for C, B, V, _ in grad_main]
+    errs.update(phase_kernels(torch, [s for s in rows_main if s not in errs]))
+    times = phase_timing(torch, rows_main + VOCAB_SHAPES)
+    grad_times = phase_grad_timing(torch, grad_main + GRAD_VOCAB)
 
     engine, batch, serve_launches, serve_shapes = phase_serve(torch)
+    phase_serve_wrap(torch)
     serve_keys = {name: {(name, *shape): n for shape, n in by_shape.items()}
                   for name, by_shape in serve_shapes.items() if by_shape}
     for keys in serve_keys.values():
@@ -969,37 +1260,60 @@ def main() -> int:
                              f"3 did not check: {unchecked}")
     nf_times = phase_norm_flash_timing(
         torch, [k[1:] for k in serve_keys["rmsnorm"]],
+        [k[1:] for k in serve_keys["add_rmsnorm"]],
         [k[1:] for k in serve_keys["flash_attention"]])
 
     phase_parity(torch)
     phase_serve_parity(torch)
     phase_profile(torch, "HAPFL round", server.run_round,
-                  ("kd_fwd_kernel", "kd_bwd_kernel"))
-    phase_profile(torch, "generate",
-                  lambda: engine.generate(batch, n_new=SERVE["n_new"]),
-                  ("rmsnorm_kernel", "flash_wgmma_kernel"))
+                  ("kd_grad_warp_kernel",))
+    prof = phase_profile(torch, "generate",
+                         lambda: engine.generate(batch, n_new=SERVE["n_new"]),
+                         ("norm_kernel", "flash_wgmma_kernel"))
+    report_device_gaps(torch, prof, "generate")
+    prof = phase_profile(
+        torch, "decode loop (graph replays)",
+        lambda: decode_loop(torch, engine, SERVE["prompt"], SERVE["n_new"]),
+        ("norm_kernel",))
+    report_device_gaps(torch, prof, "decode loop (graph replays)")
     with torch.no_grad():
         prof = phase_profile(torch, "prefill",
                              lambda: engine._prefill(engine.params, batch),
-                             ("rmsnorm_kernel", "flash_wgmma_kernel"),
+                             ("norm_kernel", "flash_wgmma_kernel"),
                              record_shapes=True)
     check_no_layout_copies(torch, prof, engine.cfg)
     del engine, batch
 
-    from repro_torch.kernels import kd_loss as kd
+    weights = {(name, C * B, V, "float32"): n
+               for name in ("kd_loss_fwd", "kd_loss_bwd")
+               for (C, B, V), n in shapes.items()}
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kd_loss.cu",
          "replaces": "src/repro/kernels/kd_loss.py:30",
          "launches": launches[name],
-         "max_abs_err": max(errs[s][i] for s in main),
-         **path_times(times, {(name, N, V, "float32"): n
-                              for (N, V), n in shapes.items()}),
-         "shapes": [[N, V, n] for (N, V), n in sorted(shapes.items())],
-         "dtype": "float32", "path": "HAPFL rounds"}
-        for i, name in enumerate(kd.launches)]}
+         "max_abs_err": max(errs[s][i] for s in rows_main),
+         **path_times(times, {k: n for k, n in weights.items()
+                              if k[0] == name}),
+         "shapes": [[C * B, V, n] for (C, B, V), n in sorted(shapes.items())],
+         "dtype": "float32",
+         "path": "core.distill.mutual_losses, off the HAPFL path (timed at "
+                 "its row counts)"}
+        for i, name in enumerate(("kd_loss_fwd", "kd_loss_bwd"))]}
+    record["kernels"].append({
+        "name": "kd_loss_grad", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/kd_loss.cu",
+        "replaces": "src/repro/kernels/kd_loss.py:30",
+        "launches": launches["kd_loss_grad"],
+        "max_abs_err": max(grad_errs[s] for s in grad_main),
+        **path_times(grad_times, {("kd_loss_grad", C, B, V, "float32"): n
+                                  for (C, B, V), n in shapes.items()}),
+        "shapes": [[C, B, V, n] for (C, B, V), n in sorted(shapes.items())],
+        "dtype": "float32", "path": "HAPFL rounds"})
     for name, source, replaces in (
             ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+             "src/repro/kernels/rmsnorm.py:11"),
+            ("add_rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm.py:11"),
             ("flash_attention",
              "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -124,7 +124,9 @@ class BatchedClientEngine:
             with _tracer().annotation(f"train_cohort[{s}]x{Cp}s{S}"):
                 trained = self._trainers[s](
                     stacked, torch.from_numpy(xs).to(self.device),
-                    torch.from_numpy(ys).to(self.device),
+                    # int32, the kernel's label type: no cast per step
+                    torch.from_numpy(ys.astype(np.int32, copy=False)).to(
+                        self.device),
                     torch.from_numpy(mask).to(self.device))
             for j, i in enumerate(idx):
                 out[i] = tree_map(lambda a, j=j: a[j], trained)

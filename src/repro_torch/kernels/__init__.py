@@ -1,8 +1,11 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
-  kd_loss          — fused CE + bidirectional KL (paper Eqs. 33-34), forward
-                     and backward, bound by one autograd.Function
-  rmsnorm          — row RMSNorm (the transformer's norms)
+  kd_loss          — fused CE + bidirectional KL (paper Eqs. 33-34): forward
+                     and backward under one autograd.Function, and
+                     kd_loss_grad, the HAPFL step's loss means and logit
+                     gradients in one launch
+  rmsnorm          — row RMSNorm, alone and fused with the residual add
+                     before it (the transformer's norms)
   flash_attention  — causal / sliding-window attention with grouped KV heads
                      (the transformer's training and prefill attention)
   ops              — the kernels under tracer annotations: the model's and

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.kd_loss import kd_loss as _kd
+from repro_torch.kernels.kd_loss import kd_loss_grad as _kd_grad
+from repro_torch.kernels.rmsnorm import add_rmsnorm as _add_rms
 from repro_torch.kernels.rmsnorm import rmsnorm as _rms
 from repro_torch.obs.trace import current as _tracer
 
@@ -29,6 +31,19 @@ def kd_loss_op(x_logits, y_logits, labels):
         return _kd(x_logits, y_logits, labels)
 
 
+def kd_loss_grad_op(x_logits, y_logits, labels, lambdas):
+    """(C, B, V) x 2 + (C, B) labels -> (dx, dy, means (6, C)): the
+    mutual-KD step's logit gradients and batch means in one launch."""
+    with _tracer().annotation("cuda.kd_loss_grad"):
+        return _kd_grad(x_logits, y_logits, labels, lambdas)
+
+
 def rmsnorm_op(x, scale, *, eps=1e-5):
     with _tracer().annotation("cuda.rmsnorm"):
         return _rms(x, scale, eps)
+
+
+def add_rmsnorm_op(x, delta, scale, *, eps=1e-5):
+    """(N, d) rows x, delta -> (x + delta, rmsnorm(x + delta))."""
+    with _tracer().annotation("cuda.add_rmsnorm"):
+        return _add_rms(x, delta, scale, eps)

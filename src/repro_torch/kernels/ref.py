@@ -3,7 +3,7 @@ and the oracle the CUDA kernels are held against on the card."""
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -67,6 +67,44 @@ def kd_loss_bwd_ref(x_logits: torch.Tensor, y_logits: torch.Tensor,
     return dx.to(x_logits.dtype), dy.to(y_logits.dtype)
 
 
+def kd_loss_grad_ref(x_logits: torch.Tensor, y_logits: torch.Tensor,
+                     labels: torch.Tensor, lambdas: Sequence[float]
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What the one-launch kernel writes for the mutual-KD step, in closed
+    form: logits (C, B, V) and labels (C, B), each client's loss
+    L = l1 ce_x + l2 kl_xy + l3 ce_y + l4 kl_yx averaged over its batch,
+    with the Eqs. 33-34 stop-gradients (kl_xy sends nothing to y, kl_yx
+    nothing to x):
+
+        dx = (l1/B) (p_x - onehot) + (l2/B) p_x ((x - y) - e_x)
+        dy = (l3/B) (p_y - onehot) + (l4/B) p_y ((y - x) - e_y)
+
+    in the logits' dtype, and means (6, C) fp32: each client's batch means
+    of ce_x, ce_y, kl_xy, kl_yx and of the two argmax accuracies."""
+    l1, l2, l3, l4 = (float(v) for v in lambdas)
+    B = x_logits.shape[-2]
+    x, y = x_logits.float(), y_logits.float()
+    lab = labels.long()[..., None]
+    lse_x = torch.logsumexp(x, -1, keepdim=True)
+    lse_y = torch.logsumexp(y, -1, keepdim=True)
+    p_x = torch.exp(x - lse_x)
+    p_y = torch.exp(y - lse_y)
+    diff = x - y
+    e_x = (p_x * diff).sum(-1, keepdim=True)
+    e_y = (p_y * -diff).sum(-1, keepdim=True)
+    onehot = torch.zeros_like(x).scatter_(-1, lab, 1.0)
+    dx = (l1 / B) * (p_x - onehot) + (l2 / B) * p_x * (diff - e_x)
+    dy = (l3 / B) * (p_y - onehot) + (l4 / B) * p_y * (-diff - e_y)
+    rows = torch.stack([
+        (lse_x - x.gather(-1, lab))[..., 0],
+        (lse_y - y.gather(-1, lab))[..., 0],
+        (e_x - lse_x + lse_y)[..., 0],
+        (e_y - lse_y + lse_x)[..., 0],
+        (x_logits.argmax(-1) == labels).float(),
+        (y_logits.argmax(-1) == labels).float()])
+    return dx.to(x_logits.dtype), dy.to(y_logits.dtype), rows.mean(-1)
+
+
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:
     """x (N, d), scale (d,) -> x * rsqrt(mean(x^2) + eps) * scale over each
@@ -74,6 +112,14 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
     xf = x.float()
     y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+def add_rmsnorm_ref(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
+                    eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the norm after it: (s, y) with s = x + delta in
+    x's dtype and y = rmsnorm_ref(s, scale, eps)."""
+    s = x + delta
+    return s, rmsnorm_ref(s, scale, eps)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,63 +1,99 @@
-"""RMSNorm on Hopper: the wrapper and its launch count.
+"""RMSNorm on Hopper, alone and fused with the residual add before it: the
+wrappers and their launch counts.
 
-The CUDA kernel in ``csrc/rmsnorm.cu`` replaces the Pallas TPU kernel
+The CUDA kernels in ``csrc/rmsnorm.cu`` replace the Pallas TPU kernel
 ``src/repro/kernels/rmsnorm.py::_rmsnorm_kernel``; that file's header says
-what bounds it and how it is laid out. The wrapper takes the plain version
-(`repro_torch.kernels.ref.rmsnorm_ref`) only for tensors on the CPU. For
-CUDA tensors it launches the kernel or raises; there is no backward kernel
-yet, so a backward through a CUDA call raises.
+what bounds them and how they are laid out. A wrapper takes the plain
+version (`repro_torch.kernels.ref`) only for tensors on the CPU. For CUDA
+tensors it launches its kernel or raises; there is no backward kernel yet,
+so a backward through a CUDA call raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
-#: kernel launches; the wrapper adds one where it launches its kernel and
-#: nowhere else (CPU calls go to the plain version, uncounted)
-launches: Dict[str, int] = {"rmsnorm": 0}
+#: kernel launches per wrapper; each wrapper adds one where it launches its
+#: kernel and nowhere else (CPU calls go to the plain version, uncounted)
+launches: Dict[str, int] = {"rmsnorm": 0, "add_rmsnorm": 0}
+
+#: the longest row the kernels hold in registers
+MAX_D = 8192
 
 
 def reset_launches() -> None:
-    launches["rmsnorm"] = 0
+    for k in launches:
+        launches[k] = 0
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("rmsnorm")
     if lib.rmsnorm_fwd.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.rmsnorm_fwd.argtypes = [P, P, P, I, I, ctypes.c_float, I, P]
-        lib.rmsnorm_fwd.restype = ctypes.c_int
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.rmsnorm_fwd.argtypes = [P, P, P, I, I, F, I, P]
+        lib.add_rmsnorm_fwd.argtypes = [P, P, P, P, P, I, I, F, I, P]
+        lib.rmsnorm_fwd.restype = lib.add_rmsnorm_fwd.restype = ctypes.c_int
     return lib
+
+
+def _check(rows, scale: torch.Tensor, what: str) -> None:
+    x = rows[0]
+    for r in rows:
+        if r.dim() != 2 or r.shape[0] == 0 or r.shape[1] == 0:
+            raise ValueError(f"{what}: rows must be non-empty (N, d) tensors, "
+                             f"got {tuple(r.shape)}")
+        if r.shape != x.shape:
+            raise ValueError(f"{what}: x and delta differ in shape, "
+                             f"{tuple(x.shape)} and {tuple(r.shape)}")
+    if scale.shape != (x.shape[1],):
+        raise ValueError(f"{what}: scale must be ({x.shape[1]},), got "
+                         f"{tuple(scale.shape)}")
+    if any(t.dtype != x.dtype for t in (*rows, scale)) or (
+            x.dtype not in _build.DTYPE_CODE):
+        raise TypeError(f"{what}: every tensor must be float32, or every "
+                        f"one bfloat16")
+    if any(t.device != x.device for t in (*rows, scale)):
+        raise ValueError(f"{what}: every tensor must be on one device")
+
+
+def _check_cuda(rows, scale: torch.Tensor, what: str) -> None:
+    x = rows[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or the CPU, got {x.device}")
+    if not all(t.is_contiguous() for t in (*rows, scale)):
+        raise ValueError(f"the {what} kernel needs contiguous tensors")
+    if x.shape[0] >= 2 ** 31 or x.shape[1] > MAX_D:
+        raise ValueError(f"{what}: N must fit in int32 and d be at most "
+                         f"{MAX_D}, got {tuple(x.shape)}")
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """x (N, d), scale (d,) of one dtype (float32 or bfloat16) -> (N, d) in
     that dtype: x * rsqrt(mean(x^2) + eps) * scale per row, in fp32."""
-    if x.dim() != 2 or x.shape[0] == 0 or x.shape[1] == 0:
-        raise ValueError(f"x must be a non-empty (N, d) tensor, got "
-                         f"{tuple(x.shape)}")
-    if scale.shape != (x.shape[1],):
-        raise ValueError(f"scale must be ({x.shape[1]},), got "
-                         f"{tuple(scale.shape)}")
-    if x.dtype != scale.dtype or x.dtype not in _build.DTYPE_CODE:
-        raise TypeError(f"x and scale must both be float32 or bfloat16, got "
-                        f"{x.dtype} and {scale.dtype}")
-    if x.device != scale.device:
-        raise ValueError("x and scale must be on one device")
+    _check((x,), scale, "rmsnorm")
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, scale, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm runs on CUDA or the CPU, got {x.device}")
-    if not (x.is_contiguous() and scale.is_contiguous()):
-        raise ValueError("the rmsnorm kernel needs contiguous tensors")
-    if max(x.shape) >= 2 ** 31:
-        raise ValueError(f"N and d must fit in int32, got {tuple(x.shape)}")
+    _check_cuda((x,), scale, "rmsnorm")
     return _build.forward_only("rmsnorm", _launch, x, scale, eps)
+
+
+def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the norm after it in one launch: x, delta (N, d)
+    and scale (d,) of one dtype -> (s, y), s = x + delta rounded to that
+    dtype and y = rmsnorm(s, scale), both (N, d). On the card y equals
+    `rmsnorm(x + delta, scale)` bit for bit."""
+    _check((x, delta), scale, "add_rmsnorm")
+    if x.device.type == "cpu":
+        return ref.add_rmsnorm_ref(x, delta, scale, eps)
+    _check_cuda((x, delta), scale, "add_rmsnorm")
+    return _build.forward_only("add_rmsnorm", _launch_add, x, delta, scale,
+                               eps)
 
 
 def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -71,3 +107,17 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     _build.check_launch(err, "rmsnorm")
     launches["rmsnorm"] += 1
     return y
+
+
+def _launch_add(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
+                eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    N, d = x.shape
+    s, y = torch.empty_like(x), torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _lib().add_rmsnorm_fwd(
+            x.data_ptr(), delta.data_ptr(), scale.data_ptr(), s.data_ptr(),
+            y.data_ptr(), N, d, float(eps), _build.DTYPE_CODE[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "add_rmsnorm")
+    launches["add_rmsnorm"] += 1
+    return s, y

@@ -10,8 +10,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import (apply_model, init_cache,
-                                            init_params, unembed)
+from repro_torch.models.transformer import (apply_blocks, apply_model,
+                                            init_cache, init_params, unembed)
 from repro_torch.utils.device import resolve_device
 
 
@@ -31,16 +31,17 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     """Prefill: consume a prompt, return (last-token logits, cache). Only the
     last position is unembedded: rows are independent, so its logits are
     those of the full unembedding, and the (B, S, vocab) fp32 logits are
-    never made."""
-    hidden, cache, _ = apply_model(params, cfg, batch, cache="init",
-                                   return_hidden=True)
-    return unembed(params["io"], cfg, hidden[:, -1:]), cache
+    never made. The final residual add, folded into the final norm, runs
+    on the last position too."""
+    x, delta, cache, _ = apply_blocks(params, cfg, batch, cache="init")
+    return unembed(params["io"], cfg, x[:, -1:], delta[:, -1:]), cache
 
 
 def decode_step(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-                cache, cache_index: int):
-    """One decode step. batch holds the single new token (B, 1); the cache
-    is updated in place."""
+                cache, cache_index):
+    """One decode step at position cache_index (an int, or a 0-d int64
+    tensor on the cache's device, which a CUDA graph can replay). batch
+    holds the single new token (B, 1); the cache is updated in place."""
     logits, new_cache, _ = apply_model(params, cfg, batch, cache=cache,
                                        cache_index=cache_index)
     return logits, new_cache

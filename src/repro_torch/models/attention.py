@@ -6,7 +6,8 @@ wrapper (`repro_torch.kernels.ops.flash_attention_op`): the CUDA kernel on the
 card, which takes the (B, S, H, hd) projections as transposed views with no
 copy, and its plain version on the CPU. Decode (one new token against a cache)
 writes the token's k/v into the ring-buffer cache and attends with
-`gqa_attention`, plain PyTorch, as the reference does.
+`gqa_attention`, plain PyTorch, over the whole cache under the reference's
+mask, so that its shapes do not change from step to step.
 
 The decode step updates the cache tensors it is given in place (the
 reference returns new arrays), so a (B, L, KV, hd) cache is never copied.
@@ -83,9 +84,9 @@ def apply_attention(params, cfg: ModelConfig, x, positions,
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x: (B, S, d). cache: None (train), "init" (prefill: the layer's k, v
     come back as its cache) or {"k", "v": (B, L, KV, hd)} with S == 1
-    (decode: the token's k, v are written at slot cache_index % L, in
-    place, and the query attends over the min(cache_index + 1, L) slots
-    filled so far).
+    (decode at position cache_index, a 0-d int64 tensor: the token's k, v
+    are written at slot cache_index % L, in place, and the query attends
+    over the min(cache_index + 1, L) slots filled so far).
 
     Returns (out, new_cache)."""
     B, S, d = x.shape
@@ -99,16 +100,18 @@ def apply_attention(params, cfg: ModelConfig, x, positions,
     new_cache = None
     if isinstance(cache, dict) and S == 1:
         # The cache is a ring buffer: for sliding-window archs it is only
-        # `window` long, so decode stays O(window).
+        # `window` long, so decode stays O(window). cache_index is a 0-d
+        # int64 tensor: the slot, the write and the mask are tensor ops, so
+        # the step has no host sync and the same shapes at every position
+        # (one CUDA graph replays it), and the query attends over all L
+        # slots with those past min(cache_index + 1, L) masked out, as the
+        # reference does.
         L = cache["k"].shape[1]
-        slot = cache_index % L
-        kv_valid = min(cache_index + 1, L)
-        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-        # slots past kv_valid are masked out by the reference; leaving them
-        # out gives the same softmax
-        out = gqa_attention(q, cache["k"][:, :kv_valid],
-                            cache["v"][:, :kv_valid], causal=False,
+        slot = (cache_index % L).view(1)
+        kv_valid = torch.clamp(cache_index + 1, max=L)
+        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+        out = gqa_attention(q, cache["k"], cache["v"], causal=False,
                             sliding_window=0, kv_len_valid=kv_valid,
                             q_start=cache_index)
         new_cache = cache

@@ -1,8 +1,10 @@
 """Core layers: initialisers, norms, rotary embeddings, MLPs.
 
 Counterpart of ``repro.models.layers``. RMSNorm goes through the port's
-kernel wrapper (`repro_torch.kernels.ops.rmsnorm_op`): the CUDA kernel on the card,
-its plain version on the CPU. The reference's ``shard(...)`` annotations are
+kernel wrappers: `repro_torch.kernels.ops.rmsnorm_op` alone, and
+`add_rmsnorm_op` where the residual add before the norm folds into it
+(`apply_add_norm`); the CUDA kernels on the card, their plain versions on
+the CPU. The reference's ``shard(...)`` annotations are
 dropped: they do nothing without a device mesh, and the mesh is ROADMAP §1
 item 13. M-RoPE (qwen2-vl) is not ported yet.
 """
@@ -14,7 +16,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ops import rmsnorm_op
+from repro_torch.kernels.ops import add_rmsnorm_op, rmsnorm_op
 
 
 # --------------------------------------------------------------------- #
@@ -61,6 +63,21 @@ def apply_norm(params, x: torch.Tensor, kind: str,
     if kind == "layernorm":
         y = y * params["scale"].float() + params["bias"].float()
     return y.to(x.dtype)
+
+
+def apply_add_norm(params, x: torch.Tensor, delta: torch.Tensor, kind: str,
+                   eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the norm after it: (x + delta, norm(x + delta)).
+    rmsnorm runs both in one kernel on the (prod(...), d) rows; the other
+    norms add, then norm."""
+    if kind == "rmsnorm":
+        d = x.shape[-1]
+        s, y = add_rmsnorm_op(x.reshape(-1, d).contiguous(),
+                              delta.reshape(-1, d).contiguous(),
+                              params["scale"], eps=eps)
+        return s.view(x.shape), y.view(x.shape)
+    s = x + delta
+    return s, apply_norm(params, s, kind, eps)
 
 
 # --------------------------------------------------------------------- #

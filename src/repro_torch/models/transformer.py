@@ -7,6 +7,15 @@ of the reference, leaf for leaf: block params are stacked on a leading
 (`repro_torch.convert.params_from_numpy`) drops in. A Python loop over the
 layers replaces ``lax.scan``.
 
+Each residual add is folded into the norm that follows it: the loop carries
+the residual stream and the pending delta (the attention's or the MLP's
+output), and `layers.apply_add_norm` adds and norms in one step, which is
+one kernel launch (`add_rmsnorm`) for rmsnorm configs: a block's second
+norm after its attention add, the next block's first norm after its MLP
+add, and the final norm after the last block. Only the first block's first
+norm is a plain norm. The arithmetic is the reference's: the same add, in
+the same dtype, before the same norm.
+
 The MoE, SSM (mamba2, xLSTM), hybrid (zamba2), VLM (embeddings inputs,
 M-RoPE) and audio (codebooks) families are not ported yet (ROADMAP §1
 item 15); their configs raise NotImplementedError.
@@ -19,8 +28,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import apply_attention, init_attention
-from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
-                                       embed_init, init_mlp, init_norm)
+from repro_torch.models.layers import (apply_add_norm, apply_mlp,
+                                       apply_norm, dense_init, embed_init,
+                                       init_mlp, init_norm)
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
 
@@ -54,14 +64,20 @@ def init_attn_block(gen: torch.Generator, cfg: ModelConfig, device):
                             device)}
 
 
-def apply_attn_block(p, cfg: ModelConfig, x, positions, cache, cache_index):
-    h = apply_norm(p["norm1"], x, cfg.norm)
+def apply_attn_block(p, cfg: ModelConfig, x, delta, positions, cache,
+                     cache_index):
+    """One block on the residual stream x, whose pending delta (the block
+    before's MLP output; None for the first block) is added in this block's
+    first norm. Returns (x, delta, new_cache, aux): the stream after the
+    attention add, and this block's MLP output as the next pending delta."""
+    if delta is None:
+        h = apply_norm(p["norm1"], x, cfg.norm)
+    else:
+        x, h = apply_add_norm(p["norm1"], x, delta, cfg.norm)
     attn_out, new_cache = apply_attention(p["attn"], cfg, h, positions,
                                           cache, cache_index)
-    x = x + attn_out
-    h = apply_norm(p["norm2"], x, cfg.norm)
-    x = x + apply_mlp(p["mlp"], h, cfg.act)
-    return x, new_cache, {}
+    x, h = apply_add_norm(p["norm2"], x, attn_out, cfg.norm)
+    return x, apply_mlp(p["mlp"], h, cfg.act), new_cache, {}
 
 
 def _stack_init(n: int, init_fn):
@@ -100,9 +116,13 @@ def embed_inputs(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     return x, positions
 
 
-def unembed(p, cfg: ModelConfig, h):
-    """Final norm and the (tied or separate) head: fp32 logits."""
-    h = apply_norm(p["norm_f"], h, cfg.norm)
+def unembed(p, cfg: ModelConfig, x, delta=None):
+    """Final norm of x + delta (x alone when delta is None) and the (tied
+    or separate) head: fp32 logits."""
+    if delta is None:
+        h = apply_norm(p["norm_f"], x, cfg.norm)
+    else:
+        _, h = apply_add_norm(p["norm_f"], x, delta, cfg.norm)
     w = p["embed"].T if cfg.tie_embeddings else p["head"]
     return (h @ w).float()
 
@@ -129,29 +149,36 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
         for k in ("k", "v")}}
 
 
-def apply_model(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-                cache=None, cache_index=None, return_hidden=False):
-    """Forward pass. Returns (logits, new_cache, aux), or the final hidden
-    states instead of logits when return_hidden=True.
+def apply_blocks(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                 cache=None, cache_index=None):
+    """Embedding and blocks. Returns (x, delta, new_cache, aux): the final
+    residual stream is x + delta, whose add `unembed` folds into the final
+    norm.
 
     cache semantics: None = train; "init" = prefill (build the cache);
-    a cache from `init_cache` = decode (S == 1 at position cache_index; the
-    cache is updated in place and returned)."""
+    a cache from `init_cache` = decode (S == 1 at position cache_index, an
+    int or a 0-d int64 tensor on x's device; the cache is updated in place
+    and returned). A tensor index keeps the decode step free of host syncs
+    and of host-side shapes that change from step to step, so one CUDA
+    graph replays it at every position."""
     check_supported(cfg)
     x, positions = embed_inputs(params["io"], cfg, batch)
     prefill = isinstance(cache, str) and cache == "init"
     decode = cache is not None and not prefill
-    if decode and "positions" not in batch:
-        # decode: the single token sits at absolute position cache_index
-        positions = torch.full((x.shape[0], 1), cache_index,
-                               device=x.device)
+    if decode:
+        cache_index = torch.as_tensor(cache_index, device=x.device)
+        if "positions" not in batch:
+            # the single token sits at absolute position cache_index
+            positions = cache_index.view(1, 1).expand(x.shape[0], 1)
     blocks = params["blocks"]
     layer_caches = []
+    delta = None
     for i in range(tree_leaves(blocks)[0].shape[0]):
         p = tree_map(lambda t: t[i], blocks)
         c = ("init" if prefill else
              tree_map(lambda t: t[i], cache["blocks"]) if decode else None)
-        x, nc, _ = apply_attn_block(p, cfg, x, positions, c, cache_index)
+        x, delta, nc, _ = apply_attn_block(p, cfg, x, delta, positions, c,
+                                           cache_index)
         layer_caches.append(nc)
     new_cache = None
     if prefill:
@@ -159,6 +186,13 @@ def apply_model(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                                         *layer_caches)}
     elif decode:
         new_cache = cache
-    if return_hidden:
-        return x, new_cache, {}
-    return unembed(params["io"], cfg, x), new_cache, {}
+    return x, delta, new_cache, {}
+
+
+def apply_model(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                cache=None, cache_index=None):
+    """Forward pass: (logits, new_cache, aux); cache and cache_index as in
+    `apply_blocks`."""
+    x, delta, new_cache, aux = apply_blocks(params, cfg, batch, cache,
+                                            cache_index)
+    return unembed(params["io"], cfg, x, delta), new_cache, aux

@@ -3,19 +3,41 @@
 Counterpart of ``repro.serve.engine`` for the dense decoders the port has
 (`repro_torch.models.transformer`). Sliding-window configs keep a
 ring-buffer cache of window size.
+
+Where the reference compiles its decode step with ``jax.jit``, the port
+runs it on the card as one CUDA graph: `ServeEngine` captures the step once
+per batch size, at the first `generate` of that size, and replays it for
+every token. The step reads its token, its position (a 0-d device tensor)
+and the cache from static buffers and writes the next token back into its
+token buffer, so a replay needs no host work beyond setting the position.
+On the CPU the same step runs eagerly on the same buffers. Prefill stays
+eager.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention, kd_loss, rmsnorm
 from repro_torch.models.api import (decode_step as _decode,
                                     make_decode_cache, prefill as _prefill)
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.pytree import tree_leaves, tree_map
+from repro_torch.utils.pytree import tree_leaves
+
+#: every kernel wrapper's launch counts
+_COUNTERS = (flash_attention.launches, kd_loss.launches, rmsnorm.launches)
+
+
+def _launch_counts() -> Dict[str, int]:
+    return {k: n for c in _COUNTERS for k, n in c.items()}
+
+
+def _add_launches(delta: Dict[str, int]) -> None:
+    for c in _COUNTERS:
+        for k in c:
+            c[k] += delta.get(k, 0)
 
 
 def make_prefill_step(cfg: ModelConfig):
@@ -44,6 +66,59 @@ def _write_prefix(big: torch.Tensor, small: torch.Tensor) -> torch.Tensor:
     return big
 
 
+class _DecodeStep:
+    """The decode step of one batch size on static buffers: the token
+    (B, 1), the position (0-d int64) and the decode cache. On CUDA it is
+    captured into a CUDA graph after one eager warm-up step on a side
+    stream; a failed capture raises."""
+
+    def __init__(self, decode, params, cfg: ModelConfig, batch: int,
+                 max_len: int, device: torch.device):
+        self.tokens = torch.zeros((batch, 1), dtype=torch.int64,
+                                  device=device)
+        self.index = torch.zeros((), dtype=torch.int64, device=device)
+        self.cache = make_decode_cache(cfg, batch, max_len, device)
+        self.graph = None
+        self.logits = None
+        self.launches: Dict[str, int] = {}   # per replay
+
+        def run():
+            tok, logits, _ = decode(params, {"tokens": self.tokens},
+                                    self.cache, self.index)
+            self.tokens.copy_(tok[:, None])
+            return logits
+        self._run = run
+        if device.type == "cuda":
+            self._capture(device)
+
+    def _capture(self, device: torch.device) -> None:
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            self._run()     # warm-up: lazy cuBLAS and allocator set-up
+        torch.cuda.current_stream(device).wait_stream(side)
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.logits = self._run()
+        after = _launch_counts()
+        # the wrappers counted their launches while being captured, but
+        # nothing ran: the count moves from the capture to every replay
+        self.launches = {k: after[k] - before[k] for k in after}
+        _add_launches({k: -n for k, n in self.launches.items()})
+        self.graph = graph
+
+    def step(self) -> torch.Tensor:
+        """One step at the position in `index`; returns its logits (B, 1,
+        vocab), a buffer that the next step overwrites."""
+        if self.graph is None:
+            self.logits = self._run()
+        else:
+            self.graph.replay()
+            _add_launches(self.launches)
+        return self.logits
+
+
 class ServeEngine:
     """Small batched-request serving loop (greedy decode) on `device` (CUDA
     when None); params must already live there."""
@@ -56,32 +131,51 @@ class ServeEngine:
         self.device = resolve_device(device)
         self._prefill = make_prefill_step(cfg)
         self._decode = make_decode_step(cfg)
+        self._steps: Dict[int, _DecodeStep] = {}
+
+    def decode_step_for(self, batch: int) -> _DecodeStep:
+        """The static decode step of `batch` rows (captured on CUDA at the
+        first call)."""
+        st = self._steps.get(batch)
+        if st is None:
+            st = self._steps[batch] = _DecodeStep(
+                self._decode, self.params, self.cfg, batch, self.max_len,
+                self.device)
+        return st
 
     @torch.no_grad()
-    def generate(self, batch: Dict[str, torch.Tensor], n_new: int = 16):
+    def generate(self, batch: Dict[str, torch.Tensor], n_new: int = 16,
+                 return_logits: bool = False):
         """batch {"tokens": (B, S)} (tensors or numpy arrays) -> (B, n_new)
-        numpy array of greedy tokens.
+        numpy array of greedy tokens; with return_logits, also each step's
+        logits, (B, n_new, vocab) fp32 on the device.
 
         As in the reference, the argmax of the prefill logits is fed to the
         first decode step but not returned: the result is the n_new decode
         argmaxes. Also as in the reference, a prefill cache of exactly the
         decode cache's shape (prompt length == max_len, or == the sliding
-        window) is not copied into the decode cache (ROADMAP §3)."""
+        window) is not copied into the decode cache, which decode then
+        reads as zeros (ROADMAP §3)."""
         batch = {k: torch.as_tensor(v, device=self.device)
                  for k, v in batch.items()}
         B = tree_leaves(batch)[0].shape[0]
         prompt_len = batch["tokens"].shape[1]
         logits, pre_cache = self._prefill(self.params, batch)
-        cache = make_decode_cache(self.cfg, B, self.max_len, self.device)
-        cache = tree_map(lambda big, small: (big if big.shape == small.shape
-                                             else _write_prefix(big, small)),
-                         cache, pre_cache)
+        st = self.decode_step_for(B)
+        for big, small in zip(tree_leaves(st.cache), tree_leaves(pre_cache)):
+            big.zero_()
+            if big.shape != small.shape:
+                _write_prefix(big, small)
         del pre_cache
-        toks = []
-        tok = logits[:, -1].argmax(-1)
+        st.tokens.copy_(logits[:, -1].argmax(-1)[:, None])
+        out = torch.empty((B, n_new), dtype=torch.int64, device=self.device)
+        kept = (torch.empty((B, n_new, logits.shape[-1]), dtype=logits.dtype,
+                            device=self.device) if return_logits else None)
         for i in range(n_new):
-            tok, logits, cache = self._decode(self.params,
-                                              {"tokens": tok[:, None]},
-                                              cache, prompt_len + i)
-            toks.append(tok)
-        return torch.stack(toks, dim=1).cpu().numpy()
+            st.index.fill_(prompt_len + i)
+            step_logits = st.step()
+            out[:, i] = st.tokens[:, 0]
+            if kept is not None:
+                kept[:, i] = step_logits[:, -1]
+        toks = out.cpu().numpy()
+        return (toks, kept) if return_logits else toks

@@ -16,11 +16,12 @@ from repro_torch.fl import BatchedClientEngine, FLEnvironment, FLSimConfig
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import kd_loss as tkd
 from repro_torch.kernels import rmsnorm as trms
-from repro_torch.kernels.ref import (flash_attention_ref, kd_loss_ref,
-                                     rmsnorm_ref)
-from repro_torch.models.api import forward, init_model
+from repro_torch.kernels.ref import (flash_attention_ref, kd_loss_grad_ref,
+                                     kd_loss_ref, rmsnorm_ref)
+from repro_torch.models.api import (forward, init_model, make_decode_cache,
+                                    prefill)
 from repro_torch.models.cnn import init_cnn
-from repro_torch.serve import ServeEngine
+from repro_torch.serve import ServeEngine, make_decode_step
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
 TERMS = ("ce_x", "ce_y", "kl_xy", "kl_yx")
@@ -119,11 +120,11 @@ def test_cuda_cohort_matches_cpu(cuda):
     for dev in (cuda, torch.device("cpu")):
         on = lambda t: tree_map(lambda a: a.to(dev), t)
         eng = BatchedClientEngine(FLEnvironment(cfg), device=dev)
-        before = tkd.launches["kd_loss_fwd"]
+        before = tkd.launches["kd_loss_grad"]
         out[dev.type] = eng.train_cohort(
             *cohort, {s: on(p) for s, p in globals_.items()}, on(lite))
         if dev.type == "cuda":
-            assert tkd.launches["kd_loss_fwd"] > before
+            assert tkd.launches["kd_loss_grad"] > before
     for a, b in zip(out["cuda"], out["cpu"]):
         for la, lb in zip(tree_leaves(a), tree_leaves(b)):
             torch.testing.assert_close(la.cpu(), lb, atol=1e-4, rtol=1e-3)
@@ -253,13 +254,111 @@ def test_cuda_generate_matches_cpu(cuda):
     cfg = get_config("llama3.2-3b").smoke()
     params = init_model(torch.Generator(cuda).manual_seed(0), cfg, cuda)
     tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40))
+    engine = ServeEngine(cfg, params, max_len=64, device=cuda)
+    engine.generate({"tokens": tok}, n_new=2)   # captures the decode step
     before = dict(trms.launches, **tflash.launches)
-    got = ServeEngine(cfg, params, max_len=64, device=cuda).generate(
-        {"tokens": tok}, n_new=6)
-    assert trms.launches["rmsnorm"] == before["rmsnorm"] + 5 * 7
+    got = engine.generate({"tokens": tok}, n_new=6)
+    # 7 forwards (prefill, 6 graph replays) of 2 blocks: one rmsnorm and
+    # four add_rmsnorm each
+    assert trms.launches["rmsnorm"] == before["rmsnorm"] + 7
+    assert trms.launches["add_rmsnorm"] == before["add_rmsnorm"] + 4 * 7
     assert (tflash.launches["flash_attention"]
             == before["flash_attention"] + 2)
     cpu = tree_map(lambda t: t.cpu(), params)
     exp = ServeEngine(cfg, cpu, max_len=64, device="cpu").generate(
         {"tokens": tok}, n_new=6)
     np.testing.assert_array_equal(got, exp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,d,dtype", [(2048, 3072, "bfloat16"),
+                                       (4, 3072, "bfloat16"),
+                                       (2048, 3072, "float32"),
+                                       (4, 3072, "float32"),
+                                       (64, 777, "float32"),
+                                       (64, 777, "bfloat16")])
+def test_cuda_add_rmsnorm_is_add_then_rmsnorm_bitwise(cuda, N, d, dtype):
+    rng = np.random.default_rng(N + d)
+    tdt = getattr(torch, dtype)
+    x, delta = (torch.from_numpy(rng.standard_normal((N, d)).astype(
+        np.float32)).to(cuda, tdt) for _ in range(2))
+    sc = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(
+        np.float32)).to(cuda, tdt)
+    before = trms.launches["add_rmsnorm"]
+    s, y = trms.add_rmsnorm(x, delta, sc)
+    torch.cuda.synchronize()
+    assert trms.launches["add_rmsnorm"] == before + 1
+    assert torch.equal(s, x + delta)
+    assert torch.equal(y, trms.rmsnorm(x + delta, sc))
+
+
+@pytest.mark.gpu
+def test_cuda_add_rmsnorm_refuses_backward(cuda):
+    x = torch.ones((4, 64), device=cuda, requires_grad=True)
+    s, y = trms.add_rmsnorm(x, torch.ones((4, 64), device=cuda),
+                            torch.ones(64, device=cuda))
+    with pytest.raises(NotImplementedError, match="item 16"):
+        (s.sum() + y.sum()).backward()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,B,V,dtype", [(8, 32, 10, "float32"),
+                                         (4, 32, 10, "float32"),
+                                         (2, 32, 777, "float32"),
+                                         (2, 32, 777, "bfloat16"),
+                                         (4, 512, 32000, "float32"),
+                                         (4, 512, 32000, "bfloat16")])
+def test_cuda_kd_loss_grad_matches_plain(cuda, C, B, V, dtype):
+    """Gradients and batch means within the kd tolerances, accuracies
+    exact, and two launches bitwise equal (no float atomics)."""
+    x, y, lab = _inputs(C * B, V, seed=9)
+    tdt = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(cuda, tdt).view(C, B, V)
+    yt = torch.from_numpy(y).to(cuda, tdt).view(C, B, V)
+    labt = torch.from_numpy(lab).to(cuda).view(C, B)
+    lam = (0.4, 0.6, 0.5, 0.5)
+    before = tkd.launches["kd_loss_grad"]
+    dx, dy, means = tkd.kd_loss_grad(xt, yt, labt, lam)
+    again = tkd.kd_loss_grad(xt, yt, labt, lam)
+    torch.cuda.synchronize()
+    assert tkd.launches["kd_loss_grad"] == before + 2
+    for a, b in zip((dx, dy, means), again):
+        assert torch.equal(a, b)
+    ex, ey, em = kd_loss_grad_ref(xt, yt, labt, lam)
+    tol = TOL[dtype]
+    torch.testing.assert_close(dx.float(), ex.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(dy.float(), ey.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(means[:4], em[:4], atol=tol, rtol=tol)
+    assert torch.equal(means[4:], em[4:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 16])
+def test_cuda_graphed_generate_is_the_eager_decode_loop(cuda, window):
+    """generate replays the captured decode step; its tokens and every
+    step's logits equal an eager loop of make_decode_step on the card bit
+    for bit, also across a 16-slot ring buffer's wrap."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("llama3.2-3b").smoke(),
+                              dtype=torch.bfloat16, sliding_window=window)
+    params = init_model(torch.Generator(cuda).manual_seed(3), cfg, cuda)
+    tok = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 12)), device=cuda)
+    engine = ServeEngine(cfg, params, max_len=48, device=cuda)
+    got, logits = engine.generate({"tokens": tok}, n_new=20,
+                                  return_logits=True)
+    assert engine.decode_step_for(2).graph is not None
+    step = make_decode_step(cfg)
+    with torch.no_grad():
+        first, pre = prefill(params, cfg, {"tokens": tok})
+        cache = make_decode_cache(cfg, 2, 48, cuda)
+        for key in ("k", "v"):
+            cache["blocks"][key][:, :, :12] = pre["blocks"][key]
+        nxt = first[:, -1].argmax(-1)
+        index = torch.zeros((), dtype=torch.int64, device=cuda)
+        for i in range(20):
+            index.fill_(12 + i)
+            nxt, lg, cache = step(params, {"tokens": nxt[:, None]}, cache,
+                                  index)
+            assert torch.equal(lg[:, -1], logits[:, i])
+            np.testing.assert_array_equal(nxt.cpu().numpy(), got[:, i])

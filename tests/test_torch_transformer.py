@@ -169,6 +169,77 @@ def test_prefill_and_decode_steps_match_reference(gqa_model):
         _close(tcache["blocks"]["k"], jcache["blocks"]["k"], 1e-4)
 
 
+@pytest.mark.parametrize("arch", ["granite-3-8b", "olmo-1b", "granite-20b"])
+def test_forward_matches_reference_for_each_norm(arch):
+    """The residual adds folded into the norms: rmsnorm through
+    add_rmsnorm (granite-3-8b, untied head), and the unfused add before
+    nonparam_ln (olmo) and layernorm (granite-20b, one KV head)."""
+    jcfg = jget_config(arch).smoke()
+    tcfg = tget_config(arch).smoke()
+    jp, tp = _params(jcfg, seed=3)
+    tok = _tokens(2, 16, jcfg.vocab_size, 12)
+    exp, _ = _jforward(jp, jcfg, {"tokens": jnp.asarray(tok)})
+    got, _ = tapi.forward(tp, tcfg, {"tokens": torch.from_numpy(tok)})
+    _close(got, exp, 1e-4)
+
+
+def test_decode_step_with_a_tensor_index_matches_reference_across_the_wrap():
+    """The decode step at a 0-d int64 tensor position (what the CUDA graph
+    replays) gives the reference's logits and cache at positions before
+    and after an 8-slot sliding-window ring buffer wraps."""
+    jcfg, tcfg = _cfgs(sliding_window=8)
+    jp, tp = _params(jcfg, seed=4)
+    B, S = 2, 6
+    tok = _tokens(B, S, jcfg.vocab_size, 13)
+    _, jc = _jprefill(jp, jcfg, {"tokens": jnp.asarray(tok)})
+    _, tc = tapi.prefill(tp, tcfg, {"tokens": torch.from_numpy(tok)})
+    jcache = jax.tree_util.tree_map(
+        lambda big, small: jax.lax.dynamic_update_slice(big, small, (0,) * 5),
+        japi.make_decode_cache(jcfg, B, 32), jc)
+    tcache = tapi.make_decode_cache(tcfg, B, 32, device="cpu")
+    assert tcache["blocks"]["k"].shape[2] == 8
+    for key in ("k", "v"):
+        tcache["blocks"][key][:, :, :S] = tc["blocks"][key]
+    index = torch.zeros((), dtype=torch.int64)
+    for i in range(7):          # positions 6..12: slots 6, 7, 0, 1, ...
+        step = _tokens(B, 1, jcfg.vocab_size, 20 + i)
+        jl, jcache = _jdecode(jp, jcfg, {"tokens": jnp.asarray(step)},
+                              jcache, S + i)
+        index.fill_(S + i)
+        tl, tcache = tapi.decode_step(tp, tcfg,
+                                      {"tokens": torch.from_numpy(step)},
+                                      tcache, index)
+        _close(tl, jl, 1e-4)
+        for key in ("k", "v"):
+            _close(tcache["blocks"][key], jcache["blocks"][key], 1e-4)
+
+
+@pytest.mark.parametrize("window", [0, 8])
+def test_generate_logits_are_the_decode_step_loop(window):
+    """generate(return_logits=True) runs the engine's static decode step
+    (the code a CUDA graph captures on the card); on the CPU its tokens and
+    logits equal a plain loop of make_decode_step, bit for bit."""
+    from repro_torch.serve import make_decode_step
+    jcfg, tcfg = _cfgs(sliding_window=window)
+    _, tp = _params(jcfg, seed=5)
+    tok = _tokens(2, 6, jcfg.vocab_size, 14)
+    eng = TServeEngine(tcfg, tp, max_len=32, device="cpu")
+    got, logits = eng.generate({"tokens": tok}, n_new=12, return_logits=True)
+    assert logits.shape == (2, 12, tcfg.vocab_size)
+    step = make_decode_step(tcfg)
+    with torch.no_grad():
+        first, pre = tapi.prefill(tp, tcfg, {"tokens": torch.from_numpy(tok)})
+        cache = tapi.make_decode_cache(tcfg, 2, 32, device="cpu")
+        for key in ("k", "v"):
+            cache["blocks"][key][:, :, :6] = pre["blocks"][key]
+        nxt = first[:, -1].argmax(-1)
+        for i in range(12):
+            nxt, lg, cache = step(tp, {"tokens": nxt[:, None]}, cache,
+                                  torch.tensor(6 + i))
+            assert torch.equal(lg[:, -1], logits[:, i])
+            np.testing.assert_array_equal(nxt.numpy(), got[:, i])
+
+
 @pytest.mark.parametrize("window,prompt,n_new,max_len",
                          [(0, 12, 8, 32), (8, 6, 24, 64)])
 def test_generate_matches_reference(window, prompt, n_new, max_len):
