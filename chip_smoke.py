@@ -31,10 +31,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 rmsnorm and flash hold fp32 to 1e-5 and 2e-5:
                 tests/test_kernels.py's 2e-6 assumes the CPU's order of
                 summation, and the kernels sum in another. bf16 2e-2, as
-                there. Then a training forward (models/api.py::forward)
-                on the card must refuse its backward (NotImplementedError:
-                the CUDA norms and flash have no backward kernel yet),
-                while the same forward on the CPU gives gradients.
+                there. The backward kernels: rmsnorm_bwd and
+                add_rmsnorm_bwd (with and without g_s) at the training
+                path's (2048, 3072) and (2048, 256), a ragged N and an odd
+                d, in bf16 and fp32, dscale at atol tol x sqrt(N) (a sum
+                over N rows in another order); flash_attention_bwd at
+                (4, 24, 8, 512, 128) and the lite's (4, 4, 4, 512, 64),
+                S = 300, window 64 and 48, fp32 and bf16, both layouts.
+                Two backward launches must be bitwise equal, and the flash
+                forward's o the same bits with and without its lse.
   4. HAPFL    — Algorithm 1 on the paper's cifar10 pool at full width
                 (small + large CNNs, 10 clients, 6 per round): 10
                 latency-only PPO pretraining rounds, then 3 training rounds
@@ -84,6 +89,28 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 of q, k, v or the attention output around the flash
                 kernel.
 
+  9. train    — llama3.2-3b at full width (bf16, remat) with its LiteModel
+                through repro_torch.launch.train's functions: batch 4 x
+                seq 512 of make_token_dataset tokens, AdamW at
+                TrainStepConfig()'s defaults; a warm step, then 3 counted
+                steps with exact launch counts derived from the config
+                (train_launch_shapes: with remat each block's kernels run
+                twice forward), finite loss and grad norm; seconds per
+                step, tokens/s, peak memory; one more step under
+                torch.profiler.
+ 10. fleet    — two LLMFleet rounds on the card (one kd_loss_grad per
+                local step).
+ 11. parity   — one train step of a 2-layer fp32 cut of the full-width
+                llama on the card and on the CPU (loss, metrics, grad norm,
+                the grads of wq, the norm scales and the embedding, at
+                1e-3), and one fleet round with injected sizes and
+                intensities.
+ 12. timing   — the backward kernels at the training path's shapes beside
+                their bounds, plain versions and the library's backward
+                alone (F.rms_norm's; SDPA's with enable_gqa); the flash
+                forward with and without lse; kd_loss_grad at
+                (1, 2048, 128256) fp32.
+
 The parity phases turn TF32 off for cuDNN and matmuls, so that both sides
 compute in full float32, and restore the defaults afterwards.
 The last two lines are the kernels' JSON record and
@@ -117,7 +144,8 @@ TERMS = ("ce_x", "ce_y", "kl_xy", "kl_yx")
 # and the vocabulary shape the LLM training slice will give it
 GRAD_SHAPES = [(8, 32, 10, "float32"), (4, 32, 10, "float32"),
                (2, 32, 777, "float32"), (2, 32, 777, "bfloat16"),
-               (4, 512, 32000, "float32"), (4, 512, 32000, "bfloat16")]
+               (4, 512, 32000, "float32"), (4, 512, 32000, "bfloat16"),
+               (1, 2048, 128256, "float32")]
 GRAD_VOCAB = [(4, 512, 32000, "float32"), (4, 512, 32000, "bfloat16")]
 LAMBDAS = (0.4, 0.6, 0.5, 0.5)
 CHECK_SHAPES = [(128, 10, "float32"), (256, 10, "float32"),
@@ -135,6 +163,7 @@ WRAP = {"n_layers": 2, "window": 64, "prompt": 48, "n_new": 40}
 # checks; layout "bshd" is the transposed view of (B, S, H, hd) tensors that
 # the model passes, "bhsd" contiguous (B, H, S, hd) tensors
 NORM_SHAPES = [(2048, 3072, "bfloat16"), (4, 3072, "bfloat16"),
+               (2048, 256, "bfloat16"),
                (2048, 3072, "float32"), (4, 3072, "float32"),
                (1000, 3072, "bfloat16"), (1000, 3072, "float32"),
                (64, 777, "float32"), (64, 777, "bfloat16")]
@@ -151,7 +180,26 @@ FLASH_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16", "bshd"),
                 (2, 8, 4, 256, 64, 0, "bfloat16", "bshd"),
                 (2, 8, 4, 300, 64, 48, "bfloat16", "bhsd"),
                 (2, 8, 8, 256, 128, 0, "float32", "bhsd"),
-                (2, 8, 8, 256, 128, 0, "bfloat16", "bhsd")]
+                (2, 8, 8, 256, 128, 0, "bfloat16", "bhsd"),
+                (4, 4, 4, 512, 64, 0, "bfloat16", "bshd")]
+
+# the training path: llama3.2-3b at full width (bf16, remat, the config's
+# own) with its LiteModel, batch 4 x seq 512, AdamW at TrainStepConfig()'s
+# defaults; one warm step, then TRAIN["steps"] counted and timed ones
+TRAIN = {"arch": "llama3.2-3b", "batch": 4, "seq": 512, "steps": 3,
+         "seed": 0}
+# backward checks: norms (N, d, dtype), flash as FLASH_SHAPES
+NORM_BWD_SHAPES = [(2048, 3072, "bfloat16"), (2048, 3072, "float32"),
+                   (2048, 256, "bfloat16"), (2048, 256, "float32"),
+                   (1000, 3072, "bfloat16"), (64, 777, "float32"),
+                   (64, 777, "bfloat16")]
+FLASH_BWD_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16", "bshd"),
+                    (4, 24, 8, 512, 128, 0, "float32", "bshd"),
+                    (4, 4, 4, 512, 64, 0, "bfloat16", "bshd"),
+                    (2, 24, 8, 300, 128, 0, "bfloat16", "bshd"),
+                    (2, 8, 2, 512, 128, 64, "bfloat16", "bshd"),
+                    (2, 8, 2, 512, 128, 64, "float32", "bhsd"),
+                    (2, 8, 4, 300, 64, 48, "float32", "bshd")]
 
 def log(*a):
     print(*a, flush=True)
@@ -430,9 +478,10 @@ def grad_bound(C, B, V, elt):
                   PEAK_FP32_OPS_PER_S)
 
 
-def phase_grad_timing(torch, shapes):
+def phase_grad_timing(torch, shapes, iters=None):
     """Times of kd_loss_grad and its plain version at each (C, B, V,
-    dtype); no single PyTorch call computes the same function."""
+    dtype), over `iters` calls (by default 200, or 20 at a million logits
+    and more); no single PyTorch call computes the same function."""
     from repro_torch.kernels import kd_loss as kd, ref
     times = {}
     for C, B, V, dtype in shapes:
@@ -443,7 +492,7 @@ def phase_grad_timing(torch, shapes):
         times[("kd_loss_grad", C, B, V, dtype)] = _time_set(
             torch, "kd_loss_grad", (C, B, V, dtype), fns,
             grad_bound(C, B, V, x.element_size()),
-            200 if C * B * V < 1e6 else 20)
+            iters or (200 if C * B * V < 1e6 else 20))
     return times
 
 
@@ -532,46 +581,85 @@ def phase_norm_flash_kernels(torch):
     return errs
 
 
-def phase_grad_guard(torch):
-    """A training forward (models/api.py::forward) under grad: on the card
-    its backward must raise NotImplementedError naming the training slice,
-    since the CUDA rmsnorm and flash have no backward kernel yet (without
-    the guard a loss would reach the tied unembedding only); on the CPU the
-    same forward gives every parameter a finite gradient."""
-    import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.models.api import forward, init_model
-    from repro_torch.utils.pytree import tree_leaves, tree_map
-    cfg = get_config(SERVE["arch"]).smoke()
-    gpu = init_model(torch.Generator("cuda").manual_seed(2), cfg, "cuda")
-    tok = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 24))
-    for dev in ("cuda", "cpu"):
-        params = tree_map(lambda t: t.detach().to(dev).requires_grad_(True),
-                          gpu)
-        before = all_launches()
-        logits, _ = forward(params, cfg,
-                            {"tokens": torch.as_tensor(tok, device=dev)})
-        if dev == "cuda":
-            ran = {k: all_launches()[k] - before[k]
-                   for k in ("rmsnorm", "add_rmsnorm", "flash_attention")}
-            try:
-                logits.sum().backward()
-            except NotImplementedError as err:
-                if "item 16" not in str(err):
-                    raise
-                log(f"[grad] forward on the card ({ran} launches): backward "
-                    f"raises NotImplementedError: {err}")
-            else:
-                raise SystemExit("chip_smoke: a backward through the CUDA "
-                                 "kernels returned without raising")
-            continue
-        logits.sum().backward()
-        grads = [t.grad for t in tree_leaves(params)]
-        if any(g is None or not bool(torch.isfinite(g).all()) for g in grads):
-            raise SystemExit("chip_smoke: the CPU forward left a parameter "
-                             "without a finite gradient")
-        log(f"[grad] the same forward on the CPU: finite gradients for all "
-            f"{len(grads)} parameter tensors")
+def phase_bwd_kernels(torch):
+    """{("rmsnorm_bwd" | "add_rmsnorm_bwd", N, d, dtype) |
+    ("flash_attention_bwd", B, H, KV, S, hd, window, dtype, layout):
+    max|err|} of the backward kernels against their plain closed forms at
+    the norm and flash tolerances. dscale is a sum over N rows taken in
+    another order than the plain version's, so its absolute tolerance is
+    the norm tolerance times sqrt(N), the sum's spread. Two launches on the
+    same inputs must be bitwise equal; the flash forward's o must be the
+    same bits with and without its lse output, and lse must match the plain
+    log-sum-exp at the fp32 flash tolerance."""
+    from repro_torch.kernels import flash_attention as fa, ref
+    from repro_torch.kernels import rmsnorm as rn
+    errs = {}
+    with full_fp32(torch):
+        for N, d, dtype in NORM_BWD_SHAPES:
+            x, dy, sc = _add_norm_inputs(torch, N, d, dtype)
+            g = torch.Generator(device="cuda").manual_seed(N + 7 * d)
+            gs = _randn(torch, (N, d), dtype, g)
+            tol = TOL_NORM[dtype]
+            for name, run, plain in (
+                    ("rmsnorm_bwd", lambda: rn.rmsnorm_bwd(x, sc, dy),
+                     lambda: ref.rmsnorm_bwd_ref(x, sc, dy)),
+                    ("add_rmsnorm_bwd",
+                     lambda: rn.add_rmsnorm_bwd(x, sc, gs, dy),
+                     lambda: ref.add_rmsnorm_bwd_ref(x, sc, gs, dy)),
+                    ("add_rmsnorm_bwd (no g_s)",
+                     lambda: rn.add_rmsnorm_bwd(x, sc, None, dy),
+                     lambda: ref.add_rmsnorm_bwd_ref(x, sc, None, dy))):
+                got, again = run(), run()
+                torch.cuda.synchronize()
+                what = f"{name} {N}x{d} {dtype}"
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise SystemExit(f"chip_smoke: {what}: two launches on "
+                                     f"the same inputs differ")
+                exp = plain()
+                _close(torch, got[:1], exp[:1], tol, what)
+                torch.testing.assert_close(
+                    got[1].float(), exp[1].float(), atol=tol * N ** 0.5,
+                    rtol=tol, msg=lambda m: f"{what} dscale: {m}")
+                key = (name.split(" ")[0], N, d, dtype)
+                e = _max_err(torch, got, exp)
+                errs[key] = max(errs.get(key, 0.0), e)
+                log(f"[kernels] {what}: max|err| {e:.3e} (tol {tol}; "
+                    f"dscale atol {tol * N ** 0.5:.2e}), two launches "
+                    f"bitwise equal")
+        for B, H, KV, S, hd, window, dtype, layout in FLASH_BWD_SHAPES:
+            q, k, v = _flash_inputs(torch, B, H, KV, S, hd, dtype, layout)
+            what = (f"flash_attention_bwd B{B} H{H} KV{KV} S{S} hd{hd} "
+                    f"window {window} {dtype} {layout}")
+            o, lse = fa._launch(q, k, v, True, window, with_lse=True)
+            o_plain = fa._launch(q, k, v, True, window)
+            if not torch.equal(o, o_plain):
+                raise SystemExit(f"chip_smoke: {what}: the forward's o "
+                                 f"differs with its lse output")
+            _, exp_lse = ref.flash_attention_ref(
+                q, k, v, sliding_window=window, return_lse=True)
+            _close(torch, (lse,), (exp_lse,), TOL_FLASH["float32"],
+                   f"{what} lse")
+            g = torch.Generator(device="cuda").manual_seed(S * hd + 1)
+            do = _randn(torch, (B, S, H, hd), dtype, g).transpose(1, 2)
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                         sliding_window=window)
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                           sliding_window=window)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise SystemExit(f"chip_smoke: {what}: two launches on the "
+                                 f"same inputs differ")
+            exp = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                              sliding_window=window)
+            tol = TOL_FLASH[dtype]
+            _close(torch, got, exp, tol, what)
+            key = ("flash_attention_bwd", B, H, KV, S, hd, window, dtype,
+                   layout)
+            errs[key] = e = _max_err(torch, got, exp)
+            log(f"[kernels] {what}: max|err| of dq, dk, dv {e:.3e} (tol "
+                f"{tol}); o bitwise unchanged by lse; two launches bitwise "
+                f"equal")
+    return errs
 
 
 def _bound(nbytes, ops, ops_per_s):
@@ -832,7 +920,9 @@ def serve_launch_shapes(cfg):
                             (B, d, "bfloat16"): 1 + 2 * L * n},
             "flash_attention": {(B, H, KV, S, cfg.resolved_head_dim, 0,
                                  "bfloat16", "bshd"): L},
-            "kd_loss_fwd": {}, "kd_loss_bwd": {}, "kd_loss_grad": {}}
+            "kd_loss_fwd": {}, "kd_loss_bwd": {}, "kd_loss_grad": {},
+            "rmsnorm_bwd": {}, "add_rmsnorm_bwd": {},
+            "flash_attention_bwd": {}}
 
 
 def eager_decode(torch, engine, batch, n_new):
@@ -1204,6 +1294,401 @@ def check_no_layout_copies(torch, prof, cfg):
                          f"around the flash kernel: {clones}")
 
 
+# ---------------------------------------------------------------------- #
+# 9-12. the training path: llama3.2-3b at full width, the LLM fleet, their
+# card-vs-CPU parity, and the backward kernels' times
+# ---------------------------------------------------------------------- #
+TRAIN_KERNELS = ("rmsnorm", "add_rmsnorm", "rmsnorm_bwd", "add_rmsnorm_bwd",
+                 "flash_attention", "flash_attention_bwd", "kd_loss_grad",
+                 "kd_loss_fwd", "kd_loss_bwd")
+
+
+def train_launch_shapes(cfg, lite):
+    """{kernel: {shape: launches}} of one training step on (B, S) tokens.
+    Per model of L blocks, with remat every block's forward runs twice (its
+    forward, then again in the backward): rmsnorm (the first block's first
+    norm) 2 and its backward 1; add_rmsnorm (every other norm of the
+    blocks) 2 (2L - 1), plus the final norm, outside the blocks, once; its
+    backward 2L; flash 2L and its backward L. Without remat the forwards
+    run once. Both models' logits go to one kd_loss_grad launch on
+    (1, B S, V)."""
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    out = {k: {} for k in TRAIN_KERNELS}
+
+    def add(name, shape, n):
+        out[name][shape] = out[name].get(shape, 0) + n
+
+    for c in (cfg, lite):
+        L, r = c.n_layers, 2 if c.remat else 1
+        dt = str(c.dtype).removeprefix("torch.")
+        norm = (B * S, c.d_model, dt)
+        flash = (B, c.n_heads, c.n_kv_heads, S, c.resolved_head_dim,
+                 c.sliding_window, dt, "bshd")
+        add("rmsnorm", norm, r)
+        add("rmsnorm_bwd", norm, 1)
+        add("add_rmsnorm", norm, r * (2 * L - 1) + 1)
+        add("add_rmsnorm_bwd", norm, 2 * L)
+        add("flash_attention", flash, r * L)
+        add("flash_attention_bwd", flash, L)
+    add("kd_loss_grad", (1, B * S, cfg.vocab_size, "float32"), 1)
+    return out
+
+
+def phase_train(torch):
+    """llama3.2-3b at full width with its LiteModel through
+    repro_torch.launch.train's functions: one warm step, then
+    TRAIN["steps"] counted and timed steps. Returns the state, the step,
+    the batches, the counted launches and the expected shapes per step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import token_batches
+    from repro_torch.train import (TrainStepConfig, make_hapfl_train_step,
+                                   make_train_state)
+    from repro_torch.utils.pytree import tree_leaves
+    cfg = get_config(TRAIN["arch"])
+    lite = cfg.lite()
+    tcfg = TrainStepConfig()
+    B, S, n = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = make_train_state(
+        torch.Generator("cuda").manual_seed(TRAIN["seed"]), cfg, lite, tcfg,
+        "cuda")
+    torch.cuda.synchronize()
+    params = tree_leaves(state["params"])
+    log(f"[train] {cfg.name} (remat {cfg.remat}, {cfg.dtype}) + "
+        f"{lite.name} ({lite.n_layers} layers, d {lite.d_model}, "
+        f"{lite.n_heads} heads, hd {lite.resolved_head_dim}): "
+        f"{sum(t.numel() for t in params)} parameters, "
+        f"{sum(t.numel() * t.element_size() for t in params)} B, AdamW "
+        f"lr {tcfg.lr}, grad clip {tcfg.grad_clip}; state made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    step = make_hapfl_train_step(cfg, lite, tcfg)
+    batches = list(token_batches(cfg, B, S, 1 + n, TRAIN["seed"],
+                                 device="cuda"))
+    t0 = time.perf_counter()
+    state, m = step(state, batches[0])
+    torch.cuda.synchronize()
+    log(f"[train] warm step {time.perf_counter() - t0:.3f} s, loss "
+        f"{float(m['loss']):.4f}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    secs, rows = [], []
+    for b in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        rows.append({k: float(v) for k, v in m.items()})
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    shapes = train_launch_shapes(cfg, lite)
+    expected = {k: n * sum(v.values()) for k, v in shapes.items()}
+    log(f"[train] launches over {n} steps {launches}, expected {expected}")
+    if launches != expected:
+        raise SystemExit(f"chip_smoke: train launches {launches} != "
+                         f"{expected}")
+    for r in rows:
+        if not all(math.isfinite(v) for v in r.values()):
+            raise SystemExit(f"chip_smoke: non-finite training metrics {r}")
+        log(f"[train] metrics {r}")
+    if not _finite(torch, state["params"]):
+        raise SystemExit("chip_smoke: non-finite params after training")
+    mean = sum(secs) / n
+    log(f"[train] seconds per step after the first {secs} (mean "
+        f"{mean:.4f}), {B * S / mean:.1f} tokens/s ({B} x {S} tokens a "
+        f"step), max_memory_allocated {peak} B")
+    return state, step, batches, launches, shapes
+
+
+def phase_fleet(torch):
+    """Two LLMFleet rounds on the card at the reference's own size (the fp32
+    smoke cut): one kd_loss_grad launch per local step, finite globals."""
+    from repro_torch.fl.llm_fleet import FleetConfig, LLMFleet
+    fleet = LLMFleet(FleetConfig(), device="cuda")
+    reset_all_launches()
+    steps = 0
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = fleet.run_round()
+        torch.cuda.synchronize()
+        steps += sum(rec["taus"])
+        log(f"[fleet] round {rec['round']}: {time.perf_counter() - t0:.3f} "
+            f"s, {rec}")
+    launches = all_launches()
+    log(f"[fleet] launches {launches}")
+    if launches["kd_loss_grad"] != steps:
+        raise SystemExit(f"chip_smoke: fleet kd_loss_grad launches "
+                         f"{launches['kd_loss_grad']} != {steps} local steps")
+    if not (_finite(torch, fleet.lite_params) and all(
+            _finite(torch, p) for p in fleet.global_by_size.values())):
+        raise SystemExit("chip_smoke: non-finite fleet params")
+
+
+def _assert_trees_close(torch, got, exp, tol, what, lr_steps=None):
+    """Leaf by leaf at atol = rtol = tol; with lr_steps (lr times the Adam
+    steps taken) a leaf may hold up to 0.5% of elements beyond tol, each
+    within lr_steps: Adam's first steps move a parameter whose gradients
+    are float noise or nearly cancel by about +-lr either way."""
+    from repro_torch.utils.pytree import tree_leaves
+    err = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(exp)):
+        a, b = a.detach().cpu().float(), b.detach().cpu().float()
+        diff = (a - b).abs()
+        err = max(err, float(diff.max()))
+        if lr_steps is None:
+            torch.testing.assert_close(a, b, atol=tol, rtol=tol,
+                                       msg=lambda m: f"{what}: {m}")
+            continue
+        beyond = diff > tol + tol * b.abs()
+        if float(beyond.float().mean()) >= 0.005 or float(
+                diff.max()) > lr_steps * 1.01:
+            raise SystemExit(f"chip_smoke: {what}: {int(beyond.sum())} of "
+                             f"{diff.numel()} elements beyond {tol}, max "
+                             f"|diff| {float(diff.max()):.3e}")
+    return err
+
+
+def phase_train_parity(torch):
+    """One train step of a 2-layer fp32 cut of the full-width llama (and
+    its LiteModel, remat as the config's), the same weights and tokens on
+    the card and on the CPU: loss, metrics and grad norm, and the gradients
+    of wq, the norm scales and the embedding (both models), at atol and
+    rtol 1e-3."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.launch.train import token_batches
+    from repro_torch.optim import adamw, global_norm
+    from repro_torch.train import (TrainStepConfig, loss_and_grads,
+                                   make_hapfl_train_step, make_train_state)
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=2,
+                              dtype=torch.float32)
+    lite = cfg.lite()
+    tcfg = TrainStepConfig()
+    gpu = make_train_state(torch.Generator("cuda").manual_seed(4), cfg, lite,
+                           tcfg, "cuda")
+    cpu_params = params_from_numpy(params_to_numpy(gpu["params"]), "cpu")
+    states = {"cuda": gpu, "cpu": {"params": cpu_params,
+                                   "opt": adamw(tcfg.lr).init(cpu_params)}}
+    out = {}
+    with full_fp32(torch):
+        for dev, state in states.items():
+            batch = next(token_batches(cfg, 2, 64, 1, seed=4, device=dev))
+            metrics, grads = loss_and_grads(state["params"], cfg, lite, tcfg,
+                                            batch)
+            picked = [grads[m]["blocks"]["attn"]["wq"] for m in ("local",
+                                                                 "lite")]
+            picked += [grads[m]["blocks"][k]["scale"]
+                       for m in ("local", "lite") for k in ("norm1", "norm2")]
+            picked += [grads[m]["io"][k] if k == "embed" else
+                       grads[m]["io"][k]["scale"]
+                       for m in ("local", "lite") for k in ("embed", "norm_f")]
+            gn = global_norm(grads)
+            del grads
+            _, m2 = make_hapfl_train_step(cfg, lite, tcfg)(state, batch)
+            out[dev] = ({k: float(v) for k, v in metrics.items()},
+                        float(gn), [t.cpu() for t in picked],
+                        {k: float(v) for k, v in m2.items()})
+        torch.cuda.synchronize()
+    (ma, gna, pa, sa), (mb, gnb, pb, sb) = out["cuda"], out["cpu"]
+    for k in mb:
+        if not math.isclose(ma[k], mb[k], rel_tol=1e-3, abs_tol=1e-3):
+            raise SystemExit(f"chip_smoke: train parity {k}: card {ma[k]} "
+                             f"cpu {mb[k]}")
+    for k in ("loss", "grad_norm"):
+        if not math.isclose(sa[k], sb[k], rel_tol=1e-3, abs_tol=1e-3):
+            raise SystemExit(f"chip_smoke: train step parity {k}: card "
+                             f"{sa[k]} cpu {sb[k]}")
+    if not math.isclose(gna, gnb, rel_tol=1e-3, abs_tol=1e-3):
+        raise SystemExit(f"chip_smoke: grad norm card {gna} cpu {gnb}")
+    err = _assert_trees_close(torch, pa, pb, 1e-3, "train parity grads")
+    log(f"[parity] train, 2-layer fp32 cut at full width (B 2, S 64): loss "
+        f"card {ma['loss']:.6f} cpu {mb['loss']:.6f}, grad norm "
+        f"{gna:.6f} / {gnb:.6f}, the step's {sa['loss']:.6f} / "
+        f"{sb['loss']:.6f}; grads of wq, the norm scales and the embedding "
+        f"(both models) max|diff| {err:.3e} (atol 1e-3, rtol 1e-3)")
+
+
+def phase_fleet_parity(torch):
+    """One LLMFleet round on the card and on the CPU from the same globals,
+    with the sizes and intensities injected: clients, sizes, taus and
+    straggling equal, and the aggregated lite and size globals at 1e-3
+    (but for Adam's few sign-noise elements, as `_assert_trees_close`)."""
+    from repro_torch.fl.llm_fleet import FleetConfig, LLMFleet
+    from repro_torch.utils.pytree import tree_map
+    cfg = dict(n_clients=4, k_per_round=2, seq=32, batch=2, default_steps=2)
+    fleets = {dev: LLMFleet(FleetConfig(**cfg), device=dev)
+              for dev in ("cuda", "cpu")}
+    gpu, cpu = fleets["cuda"], fleets["cpu"]
+    cpu.lite_params = tree_map(lambda t: t.cpu(), gpu.lite_params)
+    cpu.global_by_size = {s: tree_map(lambda t: t.cpu(), p)
+                          for s, p in gpu.global_by_size.items()}
+    sizes, taus = ["small", "large"], [2, 1]
+    recs = {}
+    with full_fp32(torch):
+        for dev, f in fleets.items():
+            f.allocator.allocate = lambda gen, assess: (sizes, None)
+            f.intensity.assign = lambda gen, modified: (taus, None)
+            f.allocator.feedback = f.intensity.feedback = lambda *a: 0.0
+            recs[dev] = f.run_round()
+        torch.cuda.synchronize()
+    for k in ("clients", "sizes", "taus", "straggling"):
+        if recs["cuda"][k] != recs["cpu"][k]:
+            raise SystemExit(f"chip_smoke: fleet parity {k}: "
+                             f"{recs['cuda'][k]} != {recs['cpu'][k]}")
+    lr_steps = gpu.cfg.lr * max(taus)
+    err = _assert_trees_close(torch, gpu.lite_params, cpu.lite_params, 1e-3,
+                              "fleet parity lite", lr_steps)
+    for s in gpu.global_by_size:
+        err = max(err, _assert_trees_close(
+            torch, gpu.global_by_size[s], cpu.global_by_size[s], 1e-3,
+            f"fleet parity {s}", lr_steps))
+    log(f"[parity] fleet round, sizes {sizes} and taus {taus} injected: "
+        f"clients, sizes, taus and straggling equal; accuracies card "
+        f"{recs['cuda']['acc_local_mean']:.4f} / "
+        f"{recs['cuda']['acc_lite_mean']:.4f}, cpu "
+        f"{recs['cpu']['acc_local_mean']:.4f} / "
+        f"{recs['cpu']['acc_lite_mean']:.4f}; aggregated params max|diff| "
+        f"{err:.3e} (1e-3, Adam's sign-noise elements within lr x steps)")
+
+
+def norm_bwd_bound(N, d, elt, add):
+    """rmsnorm_bwd: x, dy read and dx written once (add_rmsnorm_bwd: s,
+    g_s, g_y read and d_s written), scale read and dscale written once;
+    about 10 fp32 operations per element."""
+    return _bound((4 if add else 3) * N * d * elt + 2 * d * elt, 10 * N * d,
+                  PEAK_FP32_OPS_PER_S)
+
+
+def flash_bwd_bound(B, H, KV, S, hd, window, dtype, elt):
+    """flash_attention_bwd: q, o, dO, dq (B, H, S, hd) and k, v, dk, dv
+    (B, KV, S, hd) moved once, lse read once; five products over the
+    visible pairs (Q K^T again, dO V^T, P^T dO, dS^T Q, dS K), 2
+    operations per multiply-add, at the bf16 tensor-core rate for bf16
+    inputs and the fp32 rate for fp32 ones."""
+    nbytes = (4 * B * H + 4 * B * KV) * S * hd * elt + 4 * B * H * S
+    ops = 10 * hd * B * H * visible_pairs(S, True, window)
+    rate = PEAK_BF16_OPS_PER_S if dtype == "bfloat16" else PEAK_FP32_OPS_PER_S
+    return _bound(nbytes, ops, rate)
+
+
+def _backward_ms(torch, fwd, nxt, iters):
+    """Device ms of a PyTorch function's backward alone: graph replays of
+    its forward and backward together, less those of its forward alone.
+    nxt() gives (inputs, upstream gradients)."""
+    def both():
+        ins, grads = nxt()
+        ins = [t.detach().requires_grad_(True) for t in ins]
+        torch.autograd.grad(fwd(*ins), ins, grads)
+
+    def forward():
+        ins, _ = nxt()
+        fwd(*[t.detach().requires_grad_(True) for t in ins])
+    return _graph_ms(torch, both, iters) - _graph_ms(torch, forward, iters)
+
+
+def phase_train_timing(torch, shapes):
+    """Times of the backward kernels, their plain versions and, where one
+    PyTorch call computes the same function, that call's backward alone
+    (F.rms_norm's; F.scaled_dot_product_attention's with enable_gqa), at
+    the training path's shapes; and of the flash forward with and without
+    its lse output."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa, ref
+    from repro_torch.kernels import rmsnorm as rn
+
+    def rms(x, scale):
+        return F.rms_norm(x, (x.shape[-1],), scale, 1e-5)
+
+    def add_rms(x, delta, scale):
+        s = x + delta
+        return s, rms(s, scale)
+
+    times = {}
+    for N, d, dtype in shapes["rmsnorm_bwd"]:
+        x, dy, sc = _add_norm_inputs(torch, N, d, dtype)
+        nbytes = 3 * x.numel() * x.element_size()
+        nxt = _cold_copies((x, sc, dy), nbytes)
+        fns = {"kernel": lambda: rn.rmsnorm_bwd(*nxt()),
+               "plain": lambda: ref.rmsnorm_bwd_ref(*nxt()),
+               "library": None,
+               "kernel_warm": lambda: rn.rmsnorm_bwd(x, sc, dy)}
+        t = _time_set(torch, "rmsnorm_bwd", (N, d, dtype), fns,
+                      norm_bwd_bound(N, d, x.element_size(), False), 50)
+        lib_nxt = _cold_copies((x, sc, dy), nbytes)
+
+        def rms_inputs():
+            a, b, c = lib_nxt()
+            return (a, b), c
+        t["library_ms"] = _backward_ms(torch, rms, rms_inputs, 50)
+        log(f"[timing] rmsnorm_bwd {(N, d, dtype)}: F.rms_norm's backward "
+            f"alone {t['library_ms']:.6f} ms")
+        times[("rmsnorm_bwd", N, d, dtype)] = t
+    for N, d, dtype in shapes["add_rmsnorm_bwd"]:
+        x, dy, sc = _add_norm_inputs(torch, N, d, dtype)
+        g = torch.Generator(device="cuda").manual_seed(N + 7 * d)
+        gs = _randn(torch, (N, d), dtype, g)
+        nbytes = 4 * x.numel() * x.element_size()
+        nxt = _cold_copies((x, sc, gs, dy), nbytes)
+        fns = {"kernel": lambda: rn.add_rmsnorm_bwd(*nxt()),
+               "plain": lambda: ref.add_rmsnorm_bwd_ref(*nxt()),
+               "library": None,
+               "kernel_warm": lambda: rn.add_rmsnorm_bwd(x, sc, gs, dy)}
+        t = _time_set(torch, "add_rmsnorm_bwd", (N, d, dtype), fns,
+                      norm_bwd_bound(N, d, x.element_size(), True), 50)
+        lib_nxt = _cold_copies((x, dy, sc, gs), nbytes)
+
+        def lib_inputs():
+            a, b, c, e = lib_nxt()
+            return (a, b, c), (e, b)
+        t["library_ms"] = _backward_ms(torch, add_rms, lib_inputs, 50)
+        log(f"[timing] add_rmsnorm_bwd {(N, d, dtype)}: the backward alone "
+            f"of x + delta then F.rms_norm {t['library_ms']:.6f} ms")
+        times[("add_rmsnorm_bwd", N, d, dtype)] = t
+    sdpa = _sdpa(torch)
+    for key in shapes["flash_attention_bwd"]:
+        B, H, KV, S, hd, window, dtype, layout = key
+        q, k, v = _flash_inputs(torch, B, H, KV, S, hd, dtype, layout)
+        o, lse = fa._launch(q, k, v, True, window, with_lse=True)
+        g = torch.Generator(device="cuda").manual_seed(S * hd + 1)
+        do = _randn(torch, (B, S, H, hd), dtype, g).transpose(1, 2)
+        nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+        nxt = _cold_copies((q, k, v, o, lse, do), nbytes)
+        fns = {"kernel": lambda: fa.flash_attention_bwd(
+                   *nxt(), sliding_window=window),
+               "plain": lambda: ref.flash_attention_bwd_ref(
+                   *nxt(), sliding_window=window),
+               "library": None,
+               "kernel_warm": lambda: fa.flash_attention_bwd(
+                   q, k, v, o, lse, do, sliding_window=window)}
+        t = _time_set(torch, "flash_attention_bwd", key, fns,
+                      flash_bwd_bound(*key[:7], q.element_size()), 10)
+        lib_nxt = _cold_copies((q, k, v, do), nbytes)
+
+        def sdpa_inputs():
+            a, b, c, e = lib_nxt()
+            return (a, b, c), e
+        t["library_ms"] = _backward_ms(
+            torch, lambda a, b, c: sdpa(a, b, c, window), sdpa_inputs, 10)
+        log(f"[timing] flash_attention_bwd {key}: SDPA's backward alone "
+            f"{t['library_ms']:.6f} ms")
+        times[("flash_attention_bwd", *key)] = t
+        # the forward with and without its lse output
+        nxt_f = _cold_copies((q, k, v), (2 * q.numel() + 2 * k.numel())
+                             * q.element_size())
+        with_lse = _graph_ms(torch, lambda: fa._launch(
+            *nxt_f(), True, window, with_lse=True), 10)
+        without = _graph_ms(torch, lambda: fa._launch(
+            *nxt_f(), True, window), 10)
+        times[("flash_attention_lse", *key)] = {"ms": with_lse,
+                                                "ms_without": without}
+        log(f"[timing] flash_attention forward {key}: {with_lse:.6f} ms "
+            f"with lse, {without:.6f} ms without")
+    return times
+
+
 def path_times(times, launches_by_key):
     """One kernel's times over a path, each the mean over the shapes it ran
     at weighted by its launches there; bound_by is that of the shape with
@@ -1238,7 +1723,7 @@ def main() -> int:
     errs = phase_kernels(torch, CHECK_SHAPES)
     grad_errs = phase_kd_grad(torch, GRAD_SHAPES)
     nf_errs = phase_norm_flash_kernels(torch)
-    phase_grad_guard(torch)
+    bwd_errs = phase_bwd_kernels(torch)
     server, launches, shapes = phase_main_path(torch)
     grad_main = [(C, B, V, "float32") for C, B, V in sorted(shapes)]
     grad_errs.update(phase_kd_grad(
@@ -1283,6 +1768,36 @@ def main() -> int:
                              record_shapes=True)
     check_no_layout_copies(torch, prof, engine.cfg)
     del engine, batch
+    torch.cuda.empty_cache()
+
+    state, step, train_batches, train_launches, train_shapes = phase_train(
+        torch)
+    train_keys = {name: {(name, *shape): n for shape, n in by_shape.items()}
+                  for name, by_shape in train_shapes.items() if by_shape}
+    checked = {**nf_errs, **bwd_errs,
+               **{("kd_loss_grad", *k): e for k, e in grad_errs.items()}}
+    unchecked = [k for keys in train_keys.values() for k in keys
+                 if k not in checked]
+    if unchecked:
+        raise SystemExit(f"chip_smoke: the training path ran shapes phase 3 "
+                         f"did not check: {unchecked}")
+    phase_profile(torch, "training step",
+                  lambda: step(state, train_batches[1]),
+                  ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                   "flash_bwd_delta_kernel", "norm_bwd_kernel",
+                   "dscale_kernel", "norm_kernel", "flash_wgmma_kernel",
+                   "kd_grad_row_kernel"))
+    del state, step, train_batches
+    torch.cuda.empty_cache()
+    phase_fleet(torch)
+    phase_train_parity(torch)
+    phase_fleet_parity(torch)
+    tr_times = phase_train_timing(
+        torch, {name: [k[1:] for k in train_keys[name]]
+                for name in ("rmsnorm_bwd", "add_rmsnorm_bwd",
+                             "flash_attention_bwd")})
+    kd_train = [k[1:] for k in train_keys["kd_loss_grad"]]
+    tr_times.update(phase_grad_timing(torch, kd_train, iters=3))
 
     weights = {(name, C * B, V, "float32"): n
                for name in ("kd_loss_fwd", "kd_loss_bwd")
@@ -1326,6 +1841,43 @@ def main() -> int:
             **path_times(nf_times, keys),
             "shapes": [[*k[1:], n] for k, n in keys.items()],
             "dtype": "bfloat16", "path": "serve llama3.2-3b"})
+    for name, replaces in (
+            ("rmsnorm_bwd", "src/repro/kernels/rmsnorm.py:11"),
+            ("add_rmsnorm_bwd", "src/repro/kernels/rmsnorm.py:11"),
+            ("flash_attention_bwd",
+             "src/repro/kernels/flash_attention.py:23")):
+        keys = train_keys[name]
+        record["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": ("src/repro_torch/kernels/csrc/rmsnorm.cu"
+                       if "rmsnorm" in name else
+                       "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"),
+            "replaces": replaces, "launches": train_launches[name],
+            "max_abs_err": max(bwd_errs[k] for k in keys),
+            **path_times(tr_times, keys),
+            "shapes": [[*k[1:], n // TRAIN["steps"]] for k, n in keys.items()],
+            "dtype": "bfloat16",
+            "path": f"train {TRAIN['arch']} (launches over "
+                    f"{TRAIN['steps']} steps; the Pallas kernel has no "
+                    f"backward)"})
+    # the forward kernels and kd_loss_grad on the training path too
+    for row in record["kernels"]:
+        keys = train_keys.get(row["name"])
+        if keys and row["name"] in ("rmsnorm", "add_rmsnorm",
+                                    "flash_attention", "kd_loss_grad"):
+            row["train"] = {
+                "launches": train_launches[row["name"]],
+                "shapes": [[*k[1:], n // TRAIN["steps"]]
+                           for k, n in keys.items()]}
+    kd_key = ("kd_loss_grad", *kd_train[0])
+    next(r for r in record["kernels"] if r["name"] == "kd_loss_grad")[
+        "train"].update({k: tr_times[kd_key][k] for k in
+                         ("ms", "plain_ms", "bound_ms", "bound_by")})
+    lse = {k[1:]: v for k, v in tr_times.items()
+           if k[0] == "flash_attention_lse"}
+    next(r for r in record["kernels"] if r["name"] == "flash_attention")[
+        "train"]["lse_ms"] = [[*k, v["ms"], v["ms_without"]]
+                              for k, v in lse.items()]
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -6,10 +6,11 @@ delta model categories) and ``lite()`` (the paper's LiteModel).
 
 A copy of ``repro.configs.base`` with ``torch`` dtypes in place of ``jnp``
 ones, so that a config of either package compares field by field with the
-other's (``asdict()`` names the dtype the same way in both). ``remat`` and
-``scan_layers`` are kept as fields but mean nothing in the port: it runs
-eagerly, keeps no activations for a backward pass, and loops over layers in
-Python.
+other's (``asdict()`` names the dtype the same way in both). ``remat`` runs
+each block under ``torch.utils.checkpoint`` when autograd records, as the
+reference wraps it in ``jax.checkpoint`` (``models/transformer.py``).
+``scan_layers`` is kept as a field but means nothing in the port, which
+loops over layers in Python.
 """
 from __future__ import annotations
 

@@ -5,9 +5,12 @@
                      kd_loss_grad, the HAPFL step's loss means and logit
                      gradients in one launch
   rmsnorm          — row RMSNorm, alone and fused with the residual add
-                     before it (the transformer's norms)
+                     before it (the transformer's norms), with backward
+                     kernels under autograd Functions
   flash_attention  — causal / sliding-window attention with grouped KV heads
-                     (the transformer's training and prefill attention)
+                     (the transformer's training and prefill attention);
+                     the forward keeps the rows' log-sum-exp for the
+                     backward kernels (csrc/flash_attention_bwd.cu)
   ops              — the kernels under tracer annotations: the model's and
                      the HAPFL step's entry points
   ref              — plain PyTorch versions (the CPU path and the on-card oracle)

@@ -7,8 +7,7 @@ The library's file name carries a hash of its source and flags, so an edited
 source is rebuilt and a stale library is never loaded. `build` starts one
 ``nvcc`` per source, all together, and keeps each one's ``-Xptxas -v``
 register and spill report in `reports`. A failed build raises: there is no
-fallback to the plain versions. `forward_only` puts a launch that has no
-backward kernel yet under autograd, so that a backward through it raises.
+fallback to the plain versions.
 """
 from __future__ import annotations
 
@@ -19,14 +18,15 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional
 
 import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {"kd_loss": "kd_loss.cu", "rmsnorm": "rmsnorm.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu"}
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -99,33 +99,3 @@ def check_launch(err: int, name: str) -> None:
     """Raise if a kernel's C entry point returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-
-
-class _ForwardOnly(torch.autograd.Function):
-    """A kernel launch recorded by autograd, whose backward raises: without
-    it, the launch's output (filled through ctypes) has no grad_fn, and a
-    backward would silently leave every input before it without gradient."""
-
-    @staticmethod
-    def forward(ctx, name, launch, *args):
-        ctx.name = name
-        return launch(*args)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            f"{ctx.name} has no backward kernel on CUDA yet: the training "
-            f"slice (ROADMAP §1 item 16) brings it; on the CPU the plain "
-            f"version is differentiable")
-
-
-def forward_only(name: str, launch: Callable[..., torch.Tensor],
-                 *args) -> torch.Tensor:
-    """launch(*args), through `_ForwardOnly` where autograd would record it
-    (grad mode on and a tensor argument that requires grad), so that a
-    backward raises NotImplementedError; otherwise (under no_grad, as in
-    serving) the launch alone."""
-    if torch.is_grad_enabled() and any(
-            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
-        return _ForwardOnly.apply(name, launch, *args)
-    return launch(*args)

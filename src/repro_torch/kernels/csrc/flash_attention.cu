@@ -72,6 +72,11 @@
 // Both grids are (batch x head, query tiles) with the query tiles of the
 // longest causal extent scheduled first, so that the short tiles fill the
 // last wave.
+//
+// Given an lse pointer (fp32, (B, H, S) contiguous), both kernels also
+// write each row's log-sum-exp of its scaled scores, m + log(l) in natural
+// units, which the backward (flash_attention_bwd.cu) reads. The store is
+// added after o is computed and changes nothing of it.
 
 #include <cuda.h>          // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_bf16.h>
@@ -151,8 +156,9 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
-                      Strides sq, Strides sk, Strides sv, Strides so, int H,
-                      int KV, int S, int causal, int window, float sm_scale) {
+                      float* __restrict__ lse, Strides sq, Strides sk,
+                      Strides sv, Strides so, int H, int KV, int S,
+                      int causal, int window, float sm_scale) {
   constexpr int kStride = HD + 4;          // padded K row
   constexpr int kCols = HD / 32;           // output columns per lane
   extern __shared__ float4 smem4[];
@@ -257,18 +263,21 @@ __global__ void __launch_bounds__(kThreads)
   float* ob = o + b * so.b + h * so.h;     // not held across the loop
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
-    const float denom = fmaxf(warp_sum(l[i]), 1e-30f);
+    const float l_row = warp_sum(l[i]);
+    const float denom = fmaxf(l_row, 1e-30f);
     const int qpos = row0 + i;
     if (qpos < S) {
       float* orow = ob + qpos * so.s + lane * kCols;
 #pragma unroll
       for (int j = 0; j < kCols; ++j) orow[j] = acc[i][j] / denom;
+      if (lse != nullptr && lane == 0)
+        lse[static_cast<long long>(bh) * S + qpos] = m[i] + logf(l_row);
     }
   }
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const Strides* st, int B, int H, int KV, int S, int causal,
            int window, float sm_scale, cudaStream_t stream) {
   constexpr int kSmem = smem_floats<HD>() * sizeof(float);
@@ -281,8 +290,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(B * H, (S + kBlockQ - 1) / kBlockQ);
   flash_simt_kernel<HD><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1],
-      st[2], st[3], H, KV, S, causal, window, sm_scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, st[0],
+      st[1], st[2], st[3], H, KV, S, causal, window, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -604,8 +613,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       const __grid_constant__ CUtensorMap to, int H, int KV,
-                       int S, int causal, int window, float scale_log2) {
+                       const __grid_constant__ CUtensorMap to,
+                       float* __restrict__ lse, int H, int KV, int S,
+                       int causal, int window, float scale_log2) {
   using L = Layout<HD>;
   constexpr int kPanels = HD / kPanel;
   extern __shared__ uint8_t smem_raw[];
@@ -744,6 +754,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
+  if (lse != nullptr && lane % 4 == 0) {
+    // m and l are in log2 units: lse = (m + log2 l) ln 2
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = row + 8 * r;
+      if (qpos < S)
+        lse[static_cast<long long>(bh) * S + qpos] =
+            (m[r] + log2f(l[r])) * 0.6931471805599453f;
+    }
+  }
 #pragma unroll
   for (int i = 0; i < HD / 2; i += 2) {
     const int rr = 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
@@ -817,7 +837,7 @@ int make_map(CUtensorMap* map, const void* ptr, const Strides& st, int B,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const Strides* st, int B, int H, int KV, int S, int causal,
            int window, float sm_scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mo;
@@ -833,7 +853,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (S + kBM - 1) / kBM);
   flash_wgmma_kernel<HD><<<grid, kThreads, kSmem, stream>>>(
-      mq, mk, mv, mo, H, KV, S, causal, window,
+      mq, mk, mv, mo, lse, H, KV, S, causal, window,
       sm_scale * 1.4426950408889634f);   // exp(x) = exp2(x log2(e))
   return static_cast<int>(cudaGetLastError());
 }
@@ -846,17 +866,20 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // k, v and o all of it; hd 64 or 128. `strides` holds 12 element strides,
 // (batch, head, row) of q, k, v and o in turn; hd's stride is 1. Every
 // pointer and every stride is a multiple of 16 bytes; row strides fit in
-// int32. Returns
+// int32. lse, when not null, receives each row's log-sum-exp, (B, H, S)
+// fp32 contiguous. Returns
 // cudaGetLastError() after the launch (0 on success), or, where a tensor
 // map is refused, 10000 + its CUresult; the launch runs on `stream`
 // and does not sync.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int B, int H,
+                                   const void* v, void* o, void* lse_out,
+                                   int B, int H,
                                    int KV, int S, int hd,
                                    const long long* strides, int causal,
                                    int window, float sm_scale, int dtype,
                                    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 ||
       (S + simt::kBlockQ - 1) / simt::kBlockQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -866,16 +889,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     if (st[i].s > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 0 && hd == 64)
-    return simt::launch<64>(q, k, v, o, st, B, H, KV, S, causal, window,
+    return simt::launch<64>(q, k, v, o, lse, st, B, H, KV, S, causal, window,
                             sm_scale, s);
   if (dtype == 0 && hd == 128)
-    return simt::launch<128>(q, k, v, o, st, B, H, KV, S, causal, window,
+    return simt::launch<128>(q, k, v, o, lse, st, B, H, KV, S, causal, window,
                              sm_scale, s);
   if (dtype == 1 && hd == 64)
-    return hopper::launch<64>(q, k, v, o, st, B, H, KV, S, causal, window,
+    return hopper::launch<64>(q, k, v, o, lse, st, B, H, KV, S, causal, window,
                               sm_scale, s);
   if (dtype == 1 && hd == 128)
-    return hopper::launch<128>(q, k, v, o, st, B, H, KV, S, causal, window,
+    return hopper::launch<128>(q, k, v, o, lse, st, B, H, KV, S, causal, window,
                                sm_scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -32,6 +32,25 @@
 // bytes (4 fp32 or 8 bf16) when d is a multiple of it and every pointer is
 // 16-byte aligned, else one element, so any d up to kMaxPPT * 1024 packs is
 // taken. Any N is taken: the grid has one block per row.
+//
+// Backward (the Pallas kernel has none; the JAX package differentiates its
+// jnp norm): per row, with r = rsqrt(mean(x^2) + eps), xhat = x r, w =
+// scale and dy the upstream gradient of y,
+//   dx = r (dy w - xhat mean(dy w xhat)),   dscale = sum_rows dy xhat,
+// in fp32; the add variant takes s (the saved x + delta) for x and adds the
+// upstream gradient g_s of s, so d_s = g_s + dx, the gradient of both x and
+// delta, is rounded once. norm_bwd_kernel keeps the forward's layout (the
+// row, dy and the scale in registers, the same packs per thread) and walks
+// rows blockIdx.x, blockIdx.x + gridDim.x, ...; each thread sums dy xhat
+// for the columns it owns in registers and writes them to its block's row
+// of an fp32 scratch (n_blocks, d) at the end. dscale is then the sum of
+// those rows (dscale_kernel: 16 slices of rows per column, each summed in
+// order, then the slices in order): a fixed assignment and a fixed order,
+// no float atomics, so two launches give the same bits. The caller fixes
+// n_blocks from N alone (min(N, 528), four blocks of 128 threads per SM).
+// What bounds it: x (or s), dy and g_s read and dx written once, plus the
+// scratch: at (2048, 3072) bf16 the add variant moves 50.3 MB (15.0 us at
+// 3.35 TB/s) and the scratch 2 x 6.5 MB more, read back from L2 mostly.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -131,6 +150,124 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// The backward of one row per iteration over rows blockIdx.x + k gridDim.x.
+// ADD: g_s (the upstream gradient of s) is added to dx. partial gets this
+// block's sum over its rows of dy xhat, per column.
+template <typename T, int VEC, int PPT, bool ADD>
+__global__ void __launch_bounds__(VEC == 1 ? kMaxThreads : 256)
+    norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                    const T* __restrict__ dy, const T* __restrict__ g_s,
+                    T* __restrict__ dx, float* __restrict__ partial, int N,
+                    int d, float eps) {
+  using P = Pack<T, VEC>;
+  const int n_pack = d / VEC;
+  const P* sr = reinterpret_cast<const P*>(scale);
+  P sc[PPT];
+  float acc[PPT][VEC];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i < n_pack) sc[k] = sr[i];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[k][e] = 0.f;
+  }
+  __shared__ float2 red[kMaxThreads / 32];
+  __shared__ float2 tot;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int n = blockIdx.x; n < N; n += gridDim.x) {
+    const size_t row = static_cast<size_t>(n) * d;
+    const P* xr = reinterpret_cast<const P*>(x + row);
+    const P* gr = reinterpret_cast<const P*>(dy + row);
+    P v[PPT], g[PPT];
+    float ss = 0.f, sd = 0.f;   // sum x^2, sum dy w x
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < n_pack) {
+        v[k] = xr[i];
+        g[k] = gr[i];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float f = to_f32(v[k].v[e]);
+          ss += f * f;
+          sd += to_f32(g[k].v[e]) * to_f32(sc[k].v[e]) * f;
+        }
+      }
+    }
+    ss = warp_sum(ss);
+    sd = warp_sum(sd);
+    if (lane == 0) red[warp] = make_float2(ss, sd);
+    __syncthreads();
+    if (warp == 0) {
+      float2 t = lane < static_cast<int>(blockDim.x >> 5)
+                     ? red[lane] : make_float2(0.f, 0.f);
+      t.x = warp_sum(t.x);
+      t.y = warp_sum(t.y);
+      if (lane == 0) tot = t;
+    }
+    __syncthreads();
+    const float r = rsqrtf(tot.x / static_cast<float>(d) + eps);
+    // mean(dy w xhat) = r sum(dy w x) / d
+    const float c = r * tot.y / static_cast<float>(d);
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < n_pack) {
+        P gs;
+        if constexpr (ADD) gs = reinterpret_cast<const P*>(g_s + row)[i];
+        P o;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float xh = to_f32(v[k].v[e]) * r;
+          const float gy = to_f32(g[k].v[e]);
+          float t = r * (gy * to_f32(sc[k].v[e]) - xh * c);
+          if constexpr (ADD) t = to_f32(gs.v[e]) + t;
+          o.v[e] = from_f32<T>(t);
+          acc[k][e] += gy * xh;
+        }
+        reinterpret_cast<P*>(dx + row)[i] = o;
+      }
+    }
+  }
+  float* pr = partial + static_cast<size_t>(blockIdx.x) * d;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i < n_pack) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) pr[i * VEC + e] = acc[k][e];
+    }
+  }
+}
+
+// dscale[c] = sum over b < n_blocks of partial[b][c]: a block of 32
+// columns x kRedSlices slices, slice i summing rows b = i mod kRedSlices in
+// order, then the slices' sums added in order of slice
+constexpr int kRedCols = 32;
+constexpr int kRedSlices = 16;
+
+template <typename T>
+__global__ void __launch_bounds__(kRedCols * kRedSlices)
+    dscale_kernel(const float* __restrict__ partial, T* __restrict__ dscale,
+                  int n_blocks, int d) {
+  __shared__ float part[kRedSlices][kRedCols + 1];
+  const int c = blockIdx.x * kRedCols + threadIdx.x;
+  float s = 0.f;
+  if (c < d) {
+#pragma unroll 4
+    for (int b = threadIdx.y; b < n_blocks; b += kRedSlices)
+      s += partial[static_cast<size_t>(b) * d + c];
+  }
+  part[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < d) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < kRedSlices; ++i) t += part[i][threadIdx.x];
+    dscale[c] = from_f32<T>(t);
+  }
+}
+
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
@@ -197,6 +334,59 @@ int dispatch(const void* x, const void* delta, const void* scale,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename T, int VEC, bool ADD>
+int launch_bwd_packs(const void* x, const void* scale, const void* dy,
+                     const void* g_s, void* dx, float* partial, void* dscale,
+                     int N, int d, float eps, int n_blocks, cudaStream_t s) {
+  const int n_pack = d / VEC;
+  int ppt = (n_pack + kBaseThreads - 1) / kBaseThreads;
+  if (ppt > kMaxPPT) ppt = kMaxPPT;
+  const int threads = ((n_pack + ppt - 1) / ppt + 31) / 32 * 32;
+  if (threads > (VEC == 1 ? kMaxThreads : 256))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* xt = static_cast<const T*>(x);
+  const T* st = static_cast<const T*>(scale);
+  const T* gt = static_cast<const T*>(dy);
+  const T* gst = static_cast<const T*>(g_s);
+  T* dt = static_cast<T*>(dx);
+  switch (ppt) {
+#define REPRO_NORM_BWD_CASE(K)                                              \
+  case K:                                                                   \
+    norm_bwd_kernel<T, VEC, K, ADD><<<n_blocks, threads, 0, s>>>(           \
+        xt, st, gt, gst, dt, partial, N, d, eps);                           \
+    break;
+    REPRO_NORM_BWD_CASE(1)
+    REPRO_NORM_BWD_CASE(2)
+    REPRO_NORM_BWD_CASE(3)
+    REPRO_NORM_BWD_CASE(4)
+    REPRO_NORM_BWD_CASE(5)
+    REPRO_NORM_BWD_CASE(6)
+    REPRO_NORM_BWD_CASE(7)
+    REPRO_NORM_BWD_CASE(8)
+#undef REPRO_NORM_BWD_CASE
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dscale_kernel<T><<<(d + kRedCols - 1) / kRedCols,
+                     dim3(kRedCols, kRedSlices), 0, s>>>(
+      partial, static_cast<T*>(dscale), n_blocks, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool ADD>
+int launch_bwd(const void* x, const void* scale, const void* dy,
+               const void* g_s, void* dx, float* partial, void* dscale,
+               int N, int d, float eps, int n_blocks, cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  bool vec = d % kVec == 0 && aligned16(x) && aligned16(scale) &&
+             aligned16(dy) && aligned16(dx);
+  if (ADD) vec = vec && aligned16(g_s);
+  return vec ? launch_bwd_packs<T, kVec, ADD>(x, scale, dy, g_s, dx, partial,
+                                              dscale, N, d, eps, n_blocks, s)
+             : launch_bwd_packs<T, 1, ADD>(x, scale, dy, g_s, dx, partial,
+                                           dscale, N, d, eps, n_blocks, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (every tensor of the call). Each returns
@@ -215,4 +405,33 @@ extern "C" int add_rmsnorm_fwd(const void* x, const void* delta,
                                const void* scale, void* s_out, void* y, int N,
                                int d, float eps, int dtype, void* stream) {
   return dispatch<true>(x, delta, scale, s_out, y, N, d, eps, dtype, stream);
+}
+
+// The backward of rmsnorm_fwd (g_s null) or of add_rmsnorm_fwd (x is then
+// the saved s, and g_s, which may be null when s went unused, the upstream
+// gradient of s): dx (N, d) and dscale (d,) in the call's dtype. partial is
+// an fp32 scratch of n_blocks x d, n_blocks in [1, N], the number of blocks
+// the rows are spread over (the caller fixes it from N alone, so that two
+// calls sum in one order).
+extern "C" int rmsnorm_bwd(const void* x, const void* scale, const void* dy,
+                           const void* g_s, void* dx, void* partial,
+                           void* dscale, int N, int d, float eps,
+                           int n_blocks, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N <= 0 || d <= 0 || n_blocks <= 0 || n_blocks > N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* p = static_cast<float*>(partial);
+  if (dtype == 0)
+    return g_s ? launch_bwd<float, true>(x, scale, dy, g_s, dx, p, dscale, N,
+                                         d, eps, n_blocks, s)
+               : launch_bwd<float, false>(x, scale, dy, g_s, dx, p, dscale,
+                                          N, d, eps, n_blocks, s);
+  if (dtype == 1)
+    return g_s ? launch_bwd<__nv_bfloat16, true>(x, scale, dy, g_s, dx, p,
+                                                 dscale, N, d, eps, n_blocks,
+                                                 s)
+               : launch_bwd<__nv_bfloat16, false>(x, scale, dy, g_s, dx, p,
+                                                  dscale, N, d, eps,
+                                                  n_blocks, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

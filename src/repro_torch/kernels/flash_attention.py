@@ -1,15 +1,18 @@
-"""Flash attention on Hopper: the wrapper and its launch count.
+"""Flash attention on Hopper: the wrappers, the autograd Function and their
+launch counts.
 
 The CUDA kernels in ``csrc/flash_attention.cu`` (bf16: wgmma and TMA; fp32:
 SIMT) replace the Pallas TPU kernel
 ``src/repro/kernels/flash_attention.py::_flash_kernel`` and add grouped KV
-heads; that file's header says what bounds them and how they are laid out.
-They read q, k and v through their strides, so the transposed views of the
-model's (B, S, H, hd) tensors go in without a copy, and the output is a
-(B, H, S, hd) view of a (B, S, H, hd) tensor. The wrapper takes the plain
-version (`repro_torch.kernels.ref.flash_attention_ref`) only for tensors on
-the CPU. For CUDA tensors it launches the kernel or raises; there is no
-backward kernel yet, so a backward through a CUDA call raises.
+heads; ``csrc/flash_attention_bwd.cu`` adds the backward it lacks. The
+files' headers say what bounds them and how they are laid out. They read
+their inputs through their strides, so the transposed views of the model's
+(B, S, H, hd) tensors go in without a copy, and every output (o, and dq,
+dk, dv) is a (B, H, S, hd) view of a (B, S, H, hd) tensor. A wrapper takes
+the plain version (`repro_torch.kernels.ref`) only for tensors on the CPU.
+For CUDA tensors it launches its kernels or raises. Where autograd records,
+the forward runs under `FlashAttention`, which also keeps the rows'
+log-sum-exp, and its backward is the backward kernels.
 """
 from __future__ import annotations
 
@@ -23,14 +26,15 @@ from repro_torch.kernels import _build, ref
 
 #: kernel launches; the wrapper adds one where it launches its kernel and
 #: nowhere else (CPU calls go to the plain version, uncounted)
-launches: Dict[str, int] = {"flash_attention": 0}
+launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (64, 128)
 
 
 def reset_launches() -> None:
-    launches["flash_attention"] = 0
+    for k in launches:
+        launches[k] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -38,28 +42,137 @@ def _lib() -> ctypes.CDLL:
     if lib.flash_attention_fwd.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_fwd.argtypes = [
-            P, P, P, P, I, I, I, I, I, ctypes.POINTER(ctypes.c_longlong), I,
-            I, ctypes.c_float, I, P]
+            P, P, P, P, P, I, I, I, I, I, ctypes.POINTER(ctypes.c_longlong),
+            I, I, ctypes.c_float, I, P]
         lib.flash_attention_fwd.restype = ctypes.c_int
     return lib
 
 
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    if lib.flash_attention_bwd.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_bwd.argtypes = [
+            P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+            ctypes.POINTER(ctypes.c_longlong), I, I, ctypes.c_float, I, P]
+        lib.flash_attention_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _bshd_like(t: torch.Tensor) -> torch.Tensor:
+    """An uninitialised (B, N, S, hd) view of a (B, S, N, hd) tensor shaped
+    and typed as t."""
+    B, N, S, hd = t.shape
+    return torch.empty((B, S, N, hd), dtype=t.dtype,
+                       device=t.device).transpose(1, 2)
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            sliding_window: int) -> torch.Tensor:
+            sliding_window: int, with_lse: bool = False):
+    """o, or (o, lse) with lse (B, H, S) fp32 when with_lse."""
     B, H, S, hd = q.shape
-    o = torch.empty((B, S, H, hd), dtype=q.dtype,
-                    device=q.device).transpose(1, 2)
+    o = _bshd_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, o)
                                          for st in t.stride()[:3]))
     with torch.cuda.device(q.device):
         err = _lib().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, H,
             k.shape[1], S, hd, strides, int(causal), int(sliding_window),
             1.0 / math.sqrt(hd), _build.DTYPE_CODE[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, "flash_attention")
     launches["flash_attention"] += 1
-    return o
+    return (o, lse) if with_lse else o
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal: bool, sliding_window: int):
+    B, H, S, hd = q.shape
+    dq, dk, dv = _bshd_like(q), _bshd_like(k), _bshd_like(v)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*(
+        st for t in (q, k, v, o, do, dq, dk, dv) for st in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        err = _lib_bwd().flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, k.shape[1], S, hd, strides,
+            int(causal), int(sliding_window), 1.0 / math.sqrt(hd),
+            _build.DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "flash_attention_bwd")
+    launches["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def _readable(t: torch.Tensor) -> bool:
+    """Whether the kernels read t by its strides: hd's stride 1, the others
+    multiples of 16 bytes, the row stride below 2^31, 16-byte aligned."""
+    return not (t.stride(3) != 1 or t.data_ptr() % 16
+                or t.stride(2) >= 2 ** 31
+                or any(st * t.element_size() % 16 for st in t.stride()[:3]))
+
+
+def _check_views(tensors, what: str) -> None:
+    for t in tensors:
+        if not _readable(t):
+            raise ValueError(
+                f"the {what} kernel needs hd's stride 1, the other strides "
+                f"multiples of 16 bytes (the row stride below 2^31) and "
+                f"16-byte aligned tensors, got strides {t.stride()} of "
+                f"{t.dtype}")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, sliding_window: int = 0):
+    """The backward of `flash_attention` from its output o and row
+    log-sum-exp lse (B, H, S) fp32: the upstream gradient do of o ->
+    (dq, dk, dv) in q's dtype, shaped as q, k and v
+    (`ref.flash_attention_bwd_ref`). On CUDA each is the (B, N, S, hd) view
+    of a (B, S, N, hd) tensor; a do the kernel cannot read by its strides
+    is made contiguous first."""
+    _check_args(q, k, v, sliding_window)
+    B, H, S, hd = q.shape
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, S):
+        raise ValueError(f"o and do must be {tuple(q.shape)} and lse "
+                         f"{(B, H, S)}, got {tuple(o.shape)}, "
+                         f"{tuple(do.shape)}, {tuple(lse.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError("o and do must have q's dtype and lse float32")
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                           causal=causal,
+                                           sliding_window=sliding_window)
+    _check_cuda(q, k, v, S, hd)
+    if not _readable(do):
+        do = do.contiguous()
+    _check_views((o, do), "flash_attention_bwd")
+    return _launch_bwd(q, k, v, o, lse.contiguous(), do, causal,
+                       sliding_window)
+
+
+class FlashAttention(torch.autograd.Function):
+    """`flash_attention` on CUDA under autograd: the forward kernel, which
+    also writes the rows' log-sum-exp, and the backward kernels from the
+    saved q, k, v, o and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sliding_window):
+        o, lse = _launch(q, k, v, causal, sliding_window, with_lse=True)
+        ctx.causal, ctx.window = causal, sliding_window
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=ctx.causal,
+                                         sliding_window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -71,6 +184,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and v may be strided views (hd's stride 1, the others multiples of 16
     bytes) and the result is the (B, H, S, hd) view of a (B, S, H, hd)
     tensor, so that ``.transpose(1, 2)`` gives it back contiguous."""
+    _check_args(q, k, v, sliding_window)
+    B, H, S, hd = q.shape
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       sliding_window=sliding_window)
+    _check_cuda(q, k, v, S, hd)
+    _check_views((q, k, v), "flash_attention")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, sliding_window)
+    return _launch(q, k, v, causal, sliding_window)
+
+
+def _check_args(q, k, v, sliding_window: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"need q (B, H, S, hd) and k, v (B, KV, S, hd), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -89,25 +215,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q, k, v must be on one device")
     if sliding_window < 0:
         raise ValueError(f"sliding_window must be >= 0, got {sliding_window}")
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal,
-                                       sliding_window=sliding_window)
+
+
+def _check_cuda(q, k, v, S: int, hd: int) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or the CPU, got "
                          f"{q.device}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"the flash_attention kernel takes hd in "
                          f"{HEAD_DIMS}, got {hd}")
-    for t in (q, k, v):
-        if (t.stride(3) != 1 or t.data_ptr() % 16 or t.stride(2) >= 2 ** 31
-                or any(st * t.element_size() % 16 for st in t.stride()[:3])):
-            raise ValueError(
-                f"the flash_attention kernel needs hd's stride 1, the other "
-                f"strides multiples of 16 bytes (the row stride below 2^31) "
-                f"and 16-byte aligned tensors, got strides {t.stride()} of "
-                f"{t.dtype}")
     if (S + 63) // 64 > 65535:
         raise ValueError(f"S must be at most {65535 * 64} (the grid's second "
                          f"dimension), got {S}")
-    return _build.forward_only("flash_attention", _launch, q, k, v, causal,
-                               sliding_window)

@@ -3,7 +3,7 @@ and the oracle the CUDA kernels are held against on the card."""
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -122,18 +122,45 @@ def add_rmsnorm_ref(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
     return s, rmsnorm_ref(s, scale, eps)
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True,
-                        sliding_window: int = 0) -> torch.Tensor:
-    """q (B, H, S, hd), k and v (B, KV, S, hd) with H % KV == 0 ->
-    (B, H, S, hd) in q's dtype. Naive attention, materialised in fp32 with
-    scale 1/sqrt(hd). Query head h reads KV head h // (H / KV), as
-    ``models.attention.gqa_attention`` groups them. Key j is visible to
-    query i when j <= i (causal) and j > i - sliding_window (when set)."""
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of `rmsnorm_ref` in closed form: x, dy (N, d) and scale
+    (d,) -> (dx (N, d) in x's dtype, dscale (d,) in scale's dtype). Per row,
+    with r = rsqrt(mean(x^2) + eps), xhat = x r and w = scale, in fp32:
+
+        dx = r (dy w - xhat mean(dy w xhat)),   dscale = sum_rows dy xhat
+    """
+    xf, w, g = x.float(), scale.float(), dy.float()
+    r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    xhat = xf * r
+    gw = g * w
+    dx = r * (gw - xhat * (gw * xhat).mean(-1, keepdim=True))
+    return dx.to(x.dtype), (g * xhat).sum(0).to(scale.dtype)
+
+
+def add_rmsnorm_bwd_ref(s: torch.Tensor, scale: torch.Tensor,
+                        g_s: Optional[torch.Tensor], g_y: torch.Tensor,
+                        eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of `add_rmsnorm_ref` from its saved sum s: the upstream
+    gradients g_s of s (None when s went unused) and g_y of y -> (d_s,
+    dscale). d_s = g_s + the norm's backward of g_y, summed in fp32 and
+    rounded once to s's dtype; it is the gradient of both x and delta."""
+    xf, w, g = s.float(), scale.float(), g_y.float()
+    r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    xhat = xf * r
+    gw = g * w
+    dx = r * (gw - xhat * (gw * xhat).mean(-1, keepdim=True))
+    if g_s is not None:
+        dx = g_s.float() + dx
+    return dx.to(s.dtype), (g * xhat).sum(0).to(scale.dtype)
+
+
+def _flash_scores(q, k, causal, sliding_window):
+    """fp32 scores (B, H, S, S) with the masked pairs at -inf, and K
+    repeated over each group's query heads."""
     B, H, S, hd = q.shape
     G = H // k.shape[1]
     kf = k.float().repeat_interleave(G, dim=1)
-    vf = v.float().repeat_interleave(G, dim=1)
     scores = (q.float() @ kf.transpose(-1, -2)) / math.sqrt(hd)
     i = torch.arange(S, device=q.device)[:, None]
     j = torch.arange(S, device=q.device)[None, :]
@@ -142,5 +169,55 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask = j <= i
     if sliding_window:
         mask = mask & (j > i - sliding_window)
-    scores = scores.masked_fill(~mask, float("-inf"))
-    return (torch.softmax(scores, -1) @ vf).to(q.dtype)
+    return scores.masked_fill(~mask, float("-inf")), kf
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, sliding_window: int = 0,
+                        return_lse: bool = False):
+    """q (B, H, S, hd), k and v (B, KV, S, hd) with H % KV == 0 ->
+    (B, H, S, hd) in q's dtype. Naive attention, materialised in fp32 with
+    scale 1/sqrt(hd). Query head h reads KV head h // (H / KV), as
+    ``models.attention.gqa_attention`` groups them. Key j is visible to
+    query i when j <= i (causal) and j > i - sliding_window (when set).
+    With return_lse, also each row's log-sum-exp of its scaled scores,
+    (B, H, S) fp32, what the backward needs of the forward."""
+    scores, _ = _flash_scores(q, k, causal, sliding_window)
+    G = q.shape[1] // k.shape[1]
+    vf = v.float().repeat_interleave(G, dim=1)
+    o = (torch.softmax(scores, -1) @ vf).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(scores, -1)
+    return o
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True, sliding_window: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The backward of `flash_attention_ref` in closed form, from the saved
+    output o and row log-sum-exp lse: P = exp(S - lse), D = rowsum(dO o),
+
+        dV = P^T dO,  dS = P (dO V^T - D),  dQ = dS K / sqrt(hd),
+        dK = dS^T Q / sqrt(hd)
+
+    in fp32, with dK and dV summed over the H / KV query heads of each KV
+    head's group; returned in q's dtype and the shapes of q, k and v."""
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    scores, kf = _flash_scores(q, k, causal, sliding_window)
+    p = torch.exp(scores - lse[..., None].float())
+    vf = v.float().repeat_interleave(G, dim=1)
+    dof = do.float()
+    dv = p.transpose(-1, -2) @ dof
+    dp = dof @ vf.transpose(-1, -2)
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta) / math.sqrt(hd)
+    dq = ds @ kf
+    dk = ds.transpose(-1, -2) @ q.float()
+    dk = dk.view(B, KV, G, S, hd).sum(2)
+    dv = dv.view(B, KV, G, S, hd).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

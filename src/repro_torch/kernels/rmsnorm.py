@@ -1,17 +1,19 @@
 """RMSNorm on Hopper, alone and fused with the residual add before it: the
-wrappers and their launch counts.
+wrappers, their autograd Functions and their launch counts.
 
 The CUDA kernels in ``csrc/rmsnorm.cu`` replace the Pallas TPU kernel
-``src/repro/kernels/rmsnorm.py::_rmsnorm_kernel``; that file's header says
-what bounds them and how they are laid out. A wrapper takes the plain
-version (`repro_torch.kernels.ref`) only for tensors on the CPU. For CUDA
-tensors it launches its kernel or raises; there is no backward kernel yet,
-so a backward through a CUDA call raises.
+``src/repro/kernels/rmsnorm.py::_rmsnorm_kernel`` and add the backward it
+lacks; that file's header says what bounds them and how they are laid out.
+A wrapper takes the plain version (`repro_torch.kernels.ref`) only for
+tensors on the CPU. For CUDA tensors it launches its kernel or raises.
+Where autograd records (grad mode on and an input that needs a gradient),
+the CUDA launch runs under `RMSNorm` / `AddRMSNorm`, whose backward is the
+backward kernel; elsewhere (serving, under no_grad) the launch runs alone.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -19,10 +21,15 @@ from repro_torch.kernels import _build, ref
 
 #: kernel launches per wrapper; each wrapper adds one where it launches its
 #: kernel and nowhere else (CPU calls go to the plain version, uncounted)
-launches: Dict[str, int] = {"rmsnorm": 0, "add_rmsnorm": 0}
+launches: Dict[str, int] = {"rmsnorm": 0, "add_rmsnorm": 0,
+                            "rmsnorm_bwd": 0, "add_rmsnorm_bwd": 0}
 
 #: the longest row the kernels hold in registers
 MAX_D = 8192
+
+#: the most blocks a backward spreads its rows over (four of 128 threads
+#: per SM of an H100); each writes one fp32 row of dscale partial sums
+BWD_BLOCKS = 528
 
 
 def reset_launches() -> None:
@@ -36,7 +43,9 @@ def _lib() -> ctypes.CDLL:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rmsnorm_fwd.argtypes = [P, P, P, I, I, F, I, P]
         lib.add_rmsnorm_fwd.argtypes = [P, P, P, P, P, I, I, F, I, P]
+        lib.rmsnorm_bwd.argtypes = [P, P, P, P, P, P, P, I, I, F, I, I, P]
         lib.rmsnorm_fwd.restype = lib.add_rmsnorm_fwd.restype = ctypes.c_int
+        lib.rmsnorm_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -79,7 +88,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, scale, eps)
     _check_cuda((x,), scale, "rmsnorm")
-    return _build.forward_only("rmsnorm", _launch, x, scale, eps)
+    if _records(x, scale):
+        return RMSNorm.apply(x, scale, eps)
+    return _launch(x, scale, eps)
 
 
 def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
@@ -92,8 +103,82 @@ def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
     if x.device.type == "cpu":
         return ref.add_rmsnorm_ref(x, delta, scale, eps)
     _check_cuda((x, delta), scale, "add_rmsnorm")
-    return _build.forward_only("add_rmsnorm", _launch_add, x, delta, scale,
-                               eps)
+    if _records(x, delta, scale):
+        return AddRMSNorm.apply(x, delta, scale, eps)
+    return _launch_add(x, delta, scale, eps)
+
+
+def _records(*tensors) -> bool:
+    """Whether autograd records a call on `tensors`."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of `rmsnorm`: x, dy (N, d), scale (d,) of one dtype ->
+    (dx, dscale) in that dtype (`ref.rmsnorm_bwd_ref`). dscale is summed in
+    a fixed order: two calls give the same bits."""
+    _check((x, dy), scale, "rmsnorm_bwd")
+    if x.device.type == "cpu":
+        return ref.rmsnorm_bwd_ref(x, scale, dy, eps)
+    _check_cuda((x, dy), scale, "rmsnorm_bwd")
+    return _launch_bwd(x, scale, dy, None, eps, "rmsnorm_bwd")
+
+
+def add_rmsnorm_bwd(s: torch.Tensor, scale: torch.Tensor,
+                    g_s: Optional[torch.Tensor], g_y: torch.Tensor,
+                    eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of `add_rmsnorm` from its saved sum s (N, d): the
+    upstream gradients g_s of s (None when s went unused) and g_y of y ->
+    (d_s, dscale), d_s the gradient of both x and delta
+    (`ref.add_rmsnorm_bwd_ref`)."""
+    rows = (s, g_y) if g_s is None else (s, g_s, g_y)
+    _check(rows, scale, "add_rmsnorm_bwd")
+    if s.device.type == "cpu":
+        return ref.add_rmsnorm_bwd_ref(s, scale, g_s, g_y, eps)
+    _check_cuda(rows, scale, "add_rmsnorm_bwd")
+    return _launch_bwd(s, scale, g_y, g_s, eps, "add_rmsnorm_bwd")
+
+
+class RMSNorm(torch.autograd.Function):
+    """`rmsnorm` on CUDA under autograd: the forward kernel, and the backward
+    kernel from the saved input."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, scale)
+        return _launch(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, dy.contiguous(), ctx.eps)
+        return dx, dscale, None
+
+
+class AddRMSNorm(torch.autograd.Function):
+    """`add_rmsnorm` on CUDA under autograd: the forward kernel, and the
+    backward kernel from the saved sum s; a gradient of s alone (y unused)
+    passes straight to x and delta."""
+
+    @staticmethod
+    def forward(ctx, x, delta, scale, eps):
+        ctx.eps = eps
+        ctx.set_materialize_grads(False)
+        s, y = _launch_add(x, delta, scale, eps)
+        ctx.save_for_backward(s, scale)
+        return s, y
+
+    @staticmethod
+    def backward(ctx, g_s, g_y):
+        s, scale = ctx.saved_tensors
+        if g_y is None:
+            return g_s, g_s, None, None
+        d_s, dscale = add_rmsnorm_bwd(
+            s, scale, None if g_s is None else g_s.contiguous(),
+            g_y.contiguous(), ctx.eps)
+        return d_s, d_s, dscale, None
 
 
 def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -121,3 +206,24 @@ def _launch_add(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
     _build.check_launch(err, "add_rmsnorm")
     launches["add_rmsnorm"] += 1
     return s, y
+
+
+def _launch_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                g_s: Optional[torch.Tensor], eps: float,
+                name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    N, d = x.shape
+    n_blocks = min(N, BWD_BLOCKS)
+    dx = torch.empty_like(x)
+    dscale = torch.empty_like(scale)
+    partial = torch.empty((n_blocks, d), dtype=torch.float32,
+                          device=x.device)
+    with torch.cuda.device(x.device):
+        err = _lib().rmsnorm_bwd(
+            x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
+            None if g_s is None else g_s.data_ptr(), dx.data_ptr(),
+            partial.data_ptr(), dscale.data_ptr(), N, d, float(eps),
+            n_blocks, _build.DTYPE_CODE[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, name)
+    launches[name] += 1
+    return dx, dscale

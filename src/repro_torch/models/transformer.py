@@ -16,6 +16,12 @@ add, and the final norm after the last block. Only the first block's first
 norm is a plain norm. The arithmetic is the reference's: the same add, in
 the same dtype, before the same norm.
 
+With ``cfg.remat``, each block runs under
+``torch.utils.checkpoint.checkpoint`` (non-reentrant) wherever autograd
+records, as the reference wraps it in ``jax.checkpoint``: a block keeps
+only its inputs for the backward and runs its forward again there, its
+norm and flash kernels included.
+
 The MoE, SSM (mamba2, xLSTM), hybrid (zamba2), VLM (embeddings inputs,
 M-RoPE) and audio (codebooks) families are not ported yet (ROADMAP §1
 item 15); their configs raise NotImplementedError.
@@ -25,13 +31,14 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import apply_attention, init_attention
 from repro_torch.models.layers import (apply_add_norm, apply_mlp,
                                        apply_norm, dense_init, embed_init,
                                        init_mlp, init_norm)
-from repro_torch.utils.pytree import tree_leaves, tree_map
+from repro_torch.utils.pytree import tree_map
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -170,15 +177,25 @@ def apply_blocks(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         if "positions" not in batch:
             # the single token sits at absolute position cache_index
             positions = cache_index.view(1, 1).expand(x.shape[0], 1)
-    blocks = params["blocks"]
+    # every layer's view of the stacked params, taken once: under autograd
+    # unbind's backward stacks the layers' gradients once, where a select
+    # per layer would write a zero tensor of the whole stack for each
+    layers = _unstack(params["blocks"])
+    caches = (_unstack(cache["blocks"]) if decode
+              else ["init" if prefill else None] * len(layers))
+    remat = (cfg.remat and not prefill and not decode
+             and torch.is_grad_enabled())
     layer_caches = []
     delta = None
-    for i in range(tree_leaves(blocks)[0].shape[0]):
-        p = tree_map(lambda t: t[i], blocks)
-        c = ("init" if prefill else
-             tree_map(lambda t: t[i], cache["blocks"]) if decode else None)
-        x, delta, nc, _ = apply_attn_block(p, cfg, x, delta, positions, c,
-                                           cache_index)
+    for p, c in zip(layers, caches):
+        if remat:
+            x, delta = checkpoint(_train_block, p, cfg, x, delta, positions,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+            nc = None
+        else:
+            x, delta, nc, _ = apply_attn_block(p, cfg, x, delta, positions,
+                                               c, cache_index)
         layer_caches.append(nc)
     new_cache = None
     if prefill:
@@ -189,10 +206,32 @@ def apply_blocks(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     return x, delta, new_cache, {}
 
 
+def _unstack(tree):
+    """The list of per-layer trees of a tree stacked on a leading axis."""
+    leaves = []
+    tree_map(lambda t: leaves.append(t.unbind(0)), tree)
+    out = []
+    for per_layer in zip(*leaves):
+        pieces = iter(per_layer)
+        out.append(tree_map(lambda _: next(pieces), tree))
+    return out
+
+
+def _train_block(p, cfg: ModelConfig, x, delta, positions):
+    """One training block for checkpoint: (x, delta) out."""
+    x, delta, _, _ = apply_attn_block(p, cfg, x, delta, positions, None, None)
+    return x, delta
+
+
 def apply_model(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-                cache=None, cache_index=None):
+                cache=None, cache_index=None, return_hidden=False):
     """Forward pass: (logits, new_cache, aux); cache and cache_index as in
-    `apply_blocks`."""
+    `apply_blocks`. With return_hidden, the final residual stream (x, delta)
+    before the final norm takes the logits' place: x + delta is the
+    reference's hidden state, and `unembed` folds the add into that norm
+    (the chunked loss's path)."""
     x, delta, new_cache, aux = apply_blocks(params, cfg, batch, cache,
                                             cache_index)
+    if return_hidden:
+        return (x, delta), new_cache, aux
     return unembed(params["io"], cfg, x, delta), new_cache, aux

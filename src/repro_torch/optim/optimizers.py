@@ -1,23 +1,40 @@
-"""Optimizers on parameter trees, as delta-returning functions.
+"""Optimizers on parameter trees, as delta-returning functions, and the
+in-place AdamW step the transformer trainer takes.
 
 Mirrors the reference's minimal optax-like API, not ``torch.optim``:
 ``opt = adamw(lr); state = opt.init(params); updates, state =
 opt.update(grads, state, params); params = tree_add(params, updates)``.
-The formulas are the reference's: sgd keeps ``mu = m*mu + g`` and updates by
-``-lr*mu``; adamw divides by ``sqrt(v/bc2) + eps``.
+The formulas and their order of operations are the reference's: sgd keeps
+``mu = m*mu + g`` and updates by ``-lr*mu``; adamw divides by
+``sqrt(v/bc2) + eps``. ``lr`` is a float or a schedule, a function of the
+step (1 at the first update) giving the rate as a 0-d float32 tensor.
+
+``adamw(...).update_`` is the same AdamW step done in place, leaf by leaf
+and in slices of a leaf: it writes m, v, the step and the params of the
+state and params it is given, and keeps no tree of fp32 gradients or
+updates alive at once. The reference donates its train state to the jitted
+step (``launch/train.py``) for the same reason; at 3.2 B parameters the
+functional update's trees would not fit on one 80 GB card beside the
+state. It gives the functional update's bits.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+import math
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
+#: elements per slice of a leaf that `update_` works on at once
+SLICE_ELEMENTS = 1 << 26
+
 
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[..., Any]   # (grads, state, params) -> (updates, state)
+    # (grads, state, params, scale=None) -> None: the update, in place
+    update_: Optional[Callable[..., None]] = None
 
 
 def _step0(params):
@@ -25,42 +42,120 @@ def _step0(params):
                        device=tree_leaves(params)[0].device)
 
 
-def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
+def constant_schedule(lr: float):
+    return lambda step: torch.tensor(lr, dtype=torch.float32,
+                                     device=step.device)
+
+
+def cosine_schedule(lr: float, total_steps: int, warmup: int = 0,
+                    final_frac: float = 0.1):
+    """Linear warmup over `warmup` steps, then a cosine from lr down to
+    final_frac * lr at total_steps."""
+    def sched(step):
+        step = step.to(torch.float32)
+        warm = torch.clamp(step / max(warmup, 1), max=1.0)
+        prog = torch.clamp((step - warmup) / max(total_steps - warmup, 1),
+                           0, 1)
+        cos = final_frac + (1 - final_frac) * 0.5 * (
+            1 + torch.cos(math.pi * prog))
+        return lr * warm * cos
+    return sched
+
+
+def global_norm(grads) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's sum of squares, in fp32."""
+    total = 0
+    for g in tree_leaves(grads):
+        total = total + torch.sum(torch.square(g.float()))
+    return torch.sqrt(total)
+
+
+def clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor that scales gradients of global norm gn to at most
+    max_norm."""
+    return torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled to a global norm of at most max_norm, in fp32 as the
+    reference's product with an fp32 scale is, and the norm before)."""
+    gn = global_norm(grads)
+    scale = clip_scale(gn, max_norm)
+    return tree_map(lambda g: g.float() * scale, grads), gn
+
+
+def sgd(lr, momentum: float = 0.0) -> Optimizer:
+    def rate(step):
+        return lr(step) if callable(lr) else lr
+
     def init(params):
         mu = tree_map(torch.zeros_like, params) if momentum else None
         return {"step": _step0(params), "mu": mu}
 
     def update(grads, state, params=None):
         step = state["step"] + 1
+        lr_t = rate(step)
         if momentum:
             mu = tree_map(lambda m, g: momentum * m + g, state["mu"], grads)
-            return tree_map(lambda m: -lr * m, mu), {"step": step, "mu": mu}
-        return tree_map(lambda g: -lr * g, grads), {"step": step, "mu": None}
+            return (tree_map(lambda m: (-lr_t * m).to(m.dtype), mu),
+                    {"step": step, "mu": mu})
+        return (tree_map(lambda g: (-lr_t * g).to(g.dtype), grads),
+                {"step": step, "mu": None})
     return Optimizer(init, update)
 
 
-def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           weight_decay: float = 0.0) -> Optimizer:
     def init(params):
         zeros32 = lambda p: torch.zeros_like(p, dtype=torch.float32)
         return {"step": _step0(params), "m": tree_map(zeros32, params),
                 "v": tree_map(zeros32, params)}
 
-    def update(grads, state, params):
-        step = state["step"] + 1
-        g32 = tree_map(lambda g: g.float(), grads)
-        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], g32)
-        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state["v"],
-                     g32)
+    def factors(step):
         t = step.float()
         bc1 = 1 - torch.pow(torch.tensor(b1, device=t.device), t)
         bc2 = 1 - torch.pow(torch.tensor(b2, device=t.device), t)
+        return (lr(step) if callable(lr) else lr), bc1, bc2
 
-        def upd(m_, v_, p):
-            u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
-            if weight_decay:
-                u = u + weight_decay * p.float()
-            return (-lr * u).to(p.dtype)
+    def first(m_, g):
+        return b1 * m_ + (1 - b1) * g
 
-        return tree_map(upd, m, v, params), {"step": step, "m": m, "v": v}
-    return Optimizer(init, update)
+    def second(v_, g):
+        return b2 * v_ + (1 - b2) * (g * g)
+
+    def delta(m_, v_, p, lr_t, bc1, bc2):
+        u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
+        if weight_decay:
+            u = u + weight_decay * p.float()
+        return (-lr_t * u).to(p.dtype)
+
+    def update(grads, state, params):
+        step = state["step"] + 1
+        lr_t, bc1, bc2 = factors(step)
+        g32 = tree_map(lambda g: g.float(), grads)
+        m = tree_map(first, state["m"], g32)
+        v = tree_map(second, state["v"], g32)
+        updates = tree_map(lambda m_, v_, p: delta(m_, v_, p, lr_t, bc1, bc2),
+                           m, v, params)
+        return updates, {"step": step, "m": m, "v": v}
+
+    def update_(grads, state, params, scale=None):
+        """The update in place: state["m"], state["v"] and the leaves of
+        params are written, state["step"] replaced. Each gradient is taken
+        in fp32 and multiplied by `scale` (a 0-d tensor, the clip factor)
+        when given."""
+        step = state["step"] + 1
+        lr_t, bc1, bc2 = factors(step)
+        for g, m_, v_, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
+                                tree_leaves(state["v"]), tree_leaves(params)):
+            rows = max(1, SLICE_ELEMENTS // max(1, p[0].numel())) \
+                if p.dim() else 1
+            pieces = ([(g, m_, v_, p)] if p.dim() == 0 else
+                      zip(*(t.split(rows) for t in (g, m_, v_, p))))
+            for gs, ms, vs, ps in pieces:
+                g32 = gs.float() if scale is None else gs.float() * scale
+                ms.copy_(first(ms, g32))
+                vs.copy_(second(vs, g32))
+                ps.add_(delta(ms, vs, ps, lr_t, bc1, bc2))
+        state["step"] = step
+    return Optimizer(init, update, update_)

@@ -1,11 +1,9 @@
 """rmsnorm and flash attention in the port: the plain versions against the
 reference's Pallas kernels (interpret mode) and model functions, the
 wrappers' CPU path and checks (strided views included), the views prefill
-hands the flash wrapper, the guard that refuses a backward through the CUDA
-launches, the port's gqa_attention, the port's mutual-KD loss against the
-reference's ops.mutual_kd_loss, and the kernels/ops.py annotations on the
-model path. The CUDA kernels
-are held against the plain versions on a card by tests/test_torch_gpu.py.
+hands the flash wrapper, the port's gqa_attention, the port's mutual-KD
+loss against the reference's ops.mutual_kd_loss, and the kernels/ops.py
+annotations on the model path. The CUDA kernels are held against the plain versions on a card by tests/test_torch_gpu.py.
 
 Tolerance 1e-5 in fp32 unless noted; bf16 2e-2, as in tests/test_kernels.py.
 """
@@ -23,7 +21,6 @@ from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro_torch.configs import get_config
 from repro_torch.core import distill as tdistill
-from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import rmsnorm as trms
@@ -188,35 +185,6 @@ def test_apply_attention_hands_flash_views(monkeypatch):
         assert t.shape == (2, n, 5, hd)
         assert t.stride() == (5 * n * hd, hd, n * hd, 1)
         assert t.transpose(1, 2).is_contiguous()
-
-
-class _Launch:
-    """A stand-in for a kernel launch on CPU tensors, counting its calls."""
-
-    def __init__(self):
-        self.calls = 0
-
-    def __call__(self, x, scale):
-        self.calls += 1
-        return x * scale
-
-
-def test_forward_only_refuses_backward_and_stays_out_of_no_grad():
-    """The guard the CUDA rmsnorm and flash launches go through: where
-    autograd records, the output has a grad_fn whose backward raises,
-    naming the training slice; under no_grad, or with no input that needs
-    a gradient, it is the launch alone. Either way one launch per call."""
-    launch = _Launch()
-    x = torch.from_numpy(_normal((3, 4), 84)).requires_grad_(True)
-    y = _build.forward_only("rmsnorm", launch, x, 2.0)
-    assert y.grad_fn is not None and launch.calls == 1
-    with pytest.raises(NotImplementedError, match="item 16"):
-        y.sum().backward()
-    with torch.no_grad():
-        y = _build.forward_only("rmsnorm", launch, x, 2.0)
-    assert y.grad_fn is None and launch.calls == 2
-    y = _build.forward_only("rmsnorm", launch, x.detach(), 2.0)
-    assert y.grad_fn is None and launch.calls == 3
 
 
 def test_forward_on_cpu_gives_gradients_to_attention_and_norms():

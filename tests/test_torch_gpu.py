@@ -1,6 +1,8 @@
 """On the card: the port's CUDA kernels against their plain versions, one
-cohort trained through them against the same cohort on the CPU, and the
-serving path on the card against the CPU. Every test
+cohort trained through them against the same cohort on the CPU, the
+serving path on the card against the CPU, the norm and flash backward
+kernels against their plain versions, and gradients and training steps on
+the card against the CPU. Every test
 here is marked gpu and skips inside its fixture on a machine without CUDA.
 The file imports no JAX, so it runs where only PyTorch is installed:
 
@@ -15,6 +17,7 @@ from repro_torch.configs import get_config
 from repro_torch.fl import BatchedClientEngine, FLEnvironment, FLSimConfig
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import kd_loss as tkd
+from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as trms
 from repro_torch.kernels.ref import (flash_attention_ref, kd_loss_grad_ref,
                                      kd_loss_ref, rmsnorm_ref)
@@ -221,30 +224,37 @@ def test_cuda_norm_and_attention_wrappers_raise_on_bad_layouts(cuda):
 
 @pytest.mark.gpu
 def test_cuda_training_forward_refuses_backward(cuda):
-    """The CUDA rmsnorm and flash have no backward kernel yet: a backward
-    through models/api.py::forward on the card raises, naming the training
-    slice, instead of leaving everything below the unembedding without
-    gradient. The same forward on the CPU gives gradients to wq and the
-    norm scales."""
+    """Nothing refuses a backward now: a backward through
+    models/api.py::forward on the card runs the rmsnorm, add_rmsnorm and
+    flash backward kernels, and wq, the norm scales and the embedding get
+    the CPU's gradients (fp32, atol and rtol 1e-3 as the other card-vs-CPU
+    checks)."""
     cfg = get_config("llama3.2-3b").smoke()
     params = init_model(torch.Generator(cuda).manual_seed(0), cfg, cuda)
     tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24))
+    grads = {}
     for dev in (cuda, torch.device("cpu")):
         p = tree_map(lambda t: t.detach().to(dev).requires_grad_(True),
                      params)
+        before = dict(trms.launches, **tflash.launches)
         logits, _ = forward(p, cfg, {"tokens": torch.as_tensor(tok,
                                                                 device=dev)})
+        (logits * logits).mean().backward()
         if dev.type == "cuda":
-            with pytest.raises(NotImplementedError, match="item 16"):
-                logits.sum().backward()
-            continue
-        logits.sum().backward()
-        for g in (p["blocks"]["attn"]["wq"].grad,
-                  p["blocks"]["norm1"]["scale"].grad,
-                  p["blocks"]["norm2"]["scale"].grad,
-                  p["io"]["norm_f"]["scale"].grad):
-            assert g is not None and bool(torch.isfinite(g).all())
-            assert float(g.abs().max()) > 0
+            after = dict(trms.launches, **tflash.launches)
+            assert after["flash_attention_bwd"] == (
+                before["flash_attention_bwd"] + cfg.n_layers)
+            assert after["rmsnorm_bwd"] == before["rmsnorm_bwd"] + 1
+            assert after["add_rmsnorm_bwd"] == (
+                before["add_rmsnorm_bwd"] + 2 * cfg.n_layers)
+        grads[dev.type] = [p["blocks"]["attn"]["wq"].grad,
+                           p["blocks"]["norm1"]["scale"].grad,
+                           p["blocks"]["norm2"]["scale"].grad,
+                           p["io"]["norm_f"]["scale"].grad,
+                           p["io"]["embed"].grad]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert a is not None and float(b.abs().max()) > 0
+        torch.testing.assert_close(a.cpu(), b, atol=1e-3, rtol=1e-3)
 
 
 @pytest.mark.gpu
@@ -294,11 +304,113 @@ def test_cuda_add_rmsnorm_is_add_then_rmsnorm_bitwise(cuda, N, d, dtype):
 
 @pytest.mark.gpu
 def test_cuda_add_rmsnorm_refuses_backward(cuda):
-    x = torch.ones((4, 64), device=cuda, requires_grad=True)
-    s, y = trms.add_rmsnorm(x, torch.ones((4, 64), device=cuda),
-                            torch.ones(64, device=cuda))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        (s.sum() + y.sum()).backward()
+    """Nothing refuses a backward now: through add_rmsnorm on the card both
+    x and delta get the gradient of s plus the norm's, equal to the CPU's
+    (plain autograd); a loss on s alone passes straight through."""
+    rng = np.random.default_rng(5)
+    x0, d0 = (rng.standard_normal((4, 64)).astype(np.float32)
+              for _ in range(2))
+    sc0 = (1 + 0.1 * rng.standard_normal(64)).astype(np.float32)
+    w = torch.from_numpy(rng.standard_normal((4, 64)).astype(np.float32))
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        x, delta, sc = (torch.from_numpy(a).to(dev).requires_grad_(True)
+                        for a in (x0, d0, sc0))
+        s, y = trms.add_rmsnorm(x, delta, sc)
+        (s.sum() + (y * w.to(dev)).sum()).backward()
+        got[dev.type] = (x.grad, delta.grad, sc.grad)
+        x2 = torch.from_numpy(x0).to(dev).requires_grad_(True)
+        s2, _ = trms.add_rmsnorm(x2, torch.from_numpy(d0).to(dev),
+                                 torch.from_numpy(sc0).to(dev))
+        s2.sum().backward()
+        assert torch.equal(x2.grad.cpu(), torch.ones((4, 64)))
+    for a, b in zip(got["cuda"], got["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,d,dtype", [(2048, 3072, "bfloat16"),
+                                       (2048, 256, "bfloat16"),
+                                       (2048, 3072, "float32"),
+                                       (2048, 256, "float32"),
+                                       (1000, 3072, "float32"),
+                                       (64, 777, "float32"),
+                                       (64, 777, "bfloat16")])
+@pytest.mark.parametrize("variant", ["rmsnorm", "add", "add_no_gs"])
+def test_cuda_rmsnorm_bwd_matches_plain(cuda, N, d, dtype, variant):
+    """The norm backward kernels against their plain closed forms, at the
+    norm tolerances; two launches bitwise equal (dscale summed in a fixed
+    order)."""
+    rng = np.random.default_rng(N * 7 + d)
+    tdt = getattr(torch, dtype)
+    x, dy, gs = (torch.from_numpy(rng.standard_normal((N, d)).astype(
+        np.float32)).to(cuda, tdt) for _ in range(3))
+    sc = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(
+        np.float32)).to(cuda, tdt)
+    if variant == "rmsnorm":
+        name = "rmsnorm_bwd"
+        run = lambda: trms.rmsnorm_bwd(x, sc, dy)
+        exp = ref.rmsnorm_bwd_ref(x, sc, dy)
+    else:
+        name = "add_rmsnorm_bwd"
+        g = gs if variant == "add" else None
+        run = lambda: trms.add_rmsnorm_bwd(x, sc, g, dy)
+        exp = ref.add_rmsnorm_bwd_ref(x, sc, g, dy)
+    before = trms.launches[name]
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert trms.launches[name] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    tol = TOL_NORM[dtype]
+    torch.testing.assert_close(got[0].float(), exp[0].float(), atol=tol,
+                               rtol=tol)
+    # dscale is a sum over N rows, taken in another order than the plain
+    # version's: its absolute tolerance grows as the sum's spread, sqrt(N)
+    torch.testing.assert_close(got[1].float(), exp[1].float(),
+                               atol=tol * N ** 0.5, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("B,H,KV,S,hd,window,dtype", [
+    (4, 24, 8, 512, 128, 0, "bfloat16"),
+    (4, 24, 8, 512, 128, 0, "float32"),
+    (4, 4, 4, 512, 64, 0, "bfloat16"),
+    (2, 4, 2, 300, 128, 0, "float32"),
+    (2, 4, 2, 300, 64, 0, "bfloat16"),
+    (1, 4, 4, 256, 128, 64, "float32"),
+    (1, 4, 2, 300, 64, 64, "bfloat16"),
+    (1, 2, 2, 130, 64, 16, "float32")])
+def test_cuda_flash_attention_bwd_matches_plain(cuda, B, H, KV, S, hd, window,
+                                                dtype, layout):
+    """The flash backward kernels against the plain closed form on the
+    card, from the forward kernel's o and lse; two launches bitwise equal;
+    the forward's o is the same bits with and without lse."""
+    q, k, v = _flash_inputs(B, H, KV, S, hd, dtype, layout, cuda)
+    o, lse = tflash._launch(q, k, v, True, window, with_lse=True)
+    assert torch.equal(o, tflash.flash_attention(q, k, v,
+                                                 sliding_window=window))
+    _, exp_lse = flash_attention_ref(q, k, v, sliding_window=window,
+                                     return_lse=True)
+    torch.testing.assert_close(lse, exp_lse, atol=TOL_FLASH["float32"],
+                               rtol=TOL_FLASH["float32"])
+    do = torch.from_numpy(np.random.default_rng(S).standard_normal(
+        (B, S, H, hd)).astype(np.float32)).to(cuda, q.dtype).transpose(1, 2)
+    before = tflash.launches["flash_attention_bwd"]
+    got = tflash.flash_attention_bwd(q, k, v, o, lse, do,
+                                     sliding_window=window)
+    again = tflash.flash_attention_bwd(q, k, v, o, lse, do,
+                                       sliding_window=window)
+    torch.cuda.synchronize()
+    assert tflash.launches["flash_attention_bwd"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    exp = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                      sliding_window=window)
+    for a, b, t in zip(got, exp, (q, k, v)):
+        assert a.shape == t.shape and a.transpose(1, 2).is_contiguous()
+        torch.testing.assert_close(a.float(), b.float(),
+                                   atol=TOL_FLASH[dtype],
+                                   rtol=TOL_FLASH[dtype])
 
 
 @pytest.mark.gpu
