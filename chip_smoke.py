@@ -1783,7 +1783,7 @@ def main() -> int:
                          f"did not check: {unchecked}")
     phase_profile(torch, "training step",
                   lambda: step(state, train_batches[1]),
-                  ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                  ("flash_bwd_dkdv", "flash_bwd_dq",
                    "flash_bwd_delta_kernel", "norm_bwd_kernel",
                    "dscale_kernel", "norm_kernel", "flash_wgmma_kernel",
                    "kd_grad_row_kernel"))

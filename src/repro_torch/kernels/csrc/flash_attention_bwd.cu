@@ -16,33 +16,45 @@
 // scores (nothing of size S x S is stored):
 //   1. flash_bwd_delta_kernel: D = rowsum(dO o), one warp per row, (B, H, S)
 //      fp32.
-//   2. flash_bwd_dkdv_kernel: one block per (batch, KV head, tile of 64
-//      keys). It holds its K and V tile and loops over the G = H / KV query
-//      heads of its group and, for each, over the query tiles of 32 rows
-//      that can see a key of the tile: S = Q K^T, P, dP = dO V^T, dS = P
-//      (dP - D); dV += P^T dO and dK += dS^T Q stay in registers across the
-//      whole loop, so the group's sum needs no atomics and dk, dv are
-//      written once.
-//   3. flash_bwd_dq_kernel: one block per (batch, head, tile of 64 query
-//      rows), looping over the visible key tiles of 32: dQ += dS K.
+//   2. dK/dV: one block per (batch, KV head, tile of 64 keys). It holds its
+//      K and V tile and loops over the G = H / KV query heads of its group
+//      and, for each, over the query tiles of 32 rows that can see a key of
+//      the tile: S = Q K^T, P, dP = dO V^T, dS = P (dP - D); dV += P^T dO
+//      and dK += dS^T Q stay in registers across the whole loop, so the
+//      group's sum needs no atomics and dk, dv are written once.
+//   3. dQ: one block per (batch, head, tile of 64 query rows), looping over
+//      the visible key tiles of 32: dQ += dS K.
 // Every sum is taken in one fixed order, so two launches give the same bits.
 //
 // What bounds it: at the training path's (4, 24, 8, 512, 128) bf16 causal,
 // the five products over the visible pairs are about 16.1 GFLOP (16 us on
 // the bf16 tensor cores) and q, o, dO, dq, k, v, dk, dv about 67 MB (20 us
-// at 3.35 TB/s): bytes bound it. This first design runs on the SIMT fp32
-// units for both types (the fp32 path must not drop to TF32, and a
-// tensor-core bf16 path is later work), which puts its floor near 16.1
-// GFLOP / 67 TFLOP/s = 0.24 ms. Tiles are staged in shared memory as fp32
-// with rows padded to hd + 1 floats, so that the 32 lanes reading 32 rows
-// at one column hit 32 banks; each thread owns a 4 x 2 (S-like products) or
-// 8 x hd/32 (dK, dV, dQ) patch of outputs in registers. Shared memory at hd
-// 128: 107,648 bytes (dK/dV) and 108,032 (dQ), two blocks per SM.
+// at 3.35 TB/s): bytes bound it. Two designs, one per type:
+//
+// * bfloat16: the tensor cores through mma.sync m16n8k16 with fp32 sums
+//   (flash_bwd_dkdv_mma_kernel, flash_bwd_dq_mma_kernel), four warps a
+//   block, each over 16 rows (keys for dK/dV, query rows for dQ). Tiles are
+//   staged in shared memory as bf16 with rows padded by 16 bytes and read by
+//   ldmatrix (transposed for the operands that lie [k][n]). The dK/dV
+//   kernel computes S^T = K Q^T and dP^T = V dO^T, so that P^T and dS^T
+//   come out as accumulator fragments that, rounded to bf16 in pairs, are
+//   the A fragments of dV += P^T dO and dK += dS^T Q; the dQ kernel does the
+//   same with S = Q K^T. Shared memory at hd 128: 52,480 and 52,736 bytes.
+//   P and dS are rounded to bf16 for the tensor cores, as FA2 rounds them.
+// * float32: SIMT (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel), since the
+//   tensor cores would take fp32 only as TF32; its floor is near 16.1 GFLOP
+//   / 67 TFLOP/s = 0.24 ms. Tiles are staged as fp32 with rows padded to
+//   hd + 1 floats, so that the 32 lanes reading 32 rows at one column hit
+//   32 banks; each thread owns a 4 x 2 (S-like products) or 8 x hd/32 (dK,
+//   dV, dQ) patch of outputs in registers. Shared memory at hd 128: 107,648
+//   bytes (dK/dV) and 108,032 (dQ), two blocks per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -76,10 +88,6 @@ template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 template <int HD>
 constexpr int dkdv_smem_floats() {
@@ -369,6 +377,363 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// ------------------------------------------------------------------------
+// bfloat16: the tensor cores through mma.sync (m16n8k16, fp32 sums)
+// ------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kKvBK = 64;    // dK/dV block: keys, 16 per warp
+constexpr int kKvBQ = 32;    // query rows per inner tile
+constexpr int kQBQ = 64;     // dQ block: query rows, 16 per warp
+constexpr int kQBK = 32;     // keys per inner tile
+
+using bf16 = __nv_bfloat16;
+
+template <int HD>
+constexpr int kLd = HD + 8;  // bf16 a staged row: 16 bytes of padding, so
+                             // the 8 rows of an ldmatrix hit 8 bank groups
+
+template <int HD>
+constexpr int dkdv_smem_bytes() {
+  return (2 * kKvBK + 2 * kKvBQ) * kLd<HD> * 2 + 2 * kKvBQ * 4;
+}
+template <int HD>
+constexpr int dq_smem_bytes() {
+  return (2 * kQBQ + 2 * kQBK) * kLd<HD> * 2 + 2 * kQBQ * 4;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d (16 x 8, fp32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&t);
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k16), g = lane / 4, t = lane % 4:
+// A (16 x 16): a0 (g, 2t..2t+1), a1 (g + 8, ...), a2 (g, 2t + 8..), a3
+// (g + 8, 2t + 8..); B (16 x 8): b0 (k 2t..2t+1, n g), b1 (k 2t + 8..);
+// C (16 x 8): c0, c1 (g, 2t..2t+1), c2, c3 (g + 8, ...). The C fragments
+// of two neighbouring n-tiles, rounded to bf16 in pairs, are the A
+// fragment of one k-step, so P and dS feed the next products from
+// registers.
+
+// the A fragment of rows [r0, r0 + 16) x cols [c0, c0 + 16) of a staged
+// row-major matrix
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* m,
+                                       int r0, int c0, int lane) {
+  const int q = lane >> 3;
+  ldsm_x4(a, m + (r0 + (q & 1) * 8 + (lane & 7)) * LD + c0 + (q >> 1) * 8);
+}
+
+// the B fragments of n-tiles n0 and n0 + 8 for k-step [k0, k0 + 16) of a
+// matrix staged as [n][k]: (b0, b1) of the first in b[0..1], of the second
+// in b[2..3]
+template <int LD>
+__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* m,
+                                          int n0, int k0, int lane) {
+  const int q = lane >> 3;
+  ldsm_x4(b, m + (n0 + (q >> 1) * 8 + (lane & 7)) * LD + k0 + (q & 1) * 8);
+}
+
+// the same of a matrix staged as [k][n], transposed by ldmatrix
+template <int LD>
+__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* m,
+                                          int k0, int n0, int lane) {
+  const int q = lane >> 3;
+  ldsm_x4_trans(b,
+                m + (k0 + (q & 1) * 8 + (lane & 7)) * LD + n0 + (q >> 1) * 8);
+}
+
+// rows [row0, row0 + NROWS) of an (S, HD) bf16 matrix whose rows lie `rs`
+// elements apart into shared memory, LD elements a row; rows at or past S
+// become zeros. 16-byte copies.
+template <int HD, int NROWS, int LD>
+__device__ __forceinline__ void stage(bf16* dst, const bf16* src,
+                                      long long rs, int row0, int S) {
+  constexpr int kPerRow = HD / 8;
+  for (int idx = threadIdx.x; idx < NROWS * kPerRow; idx += kThreads) {
+    const int r = idx / kPerRow, c = (idx % kPerRow) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < S)
+      v = *reinterpret_cast<const uint4*>(src + (row0 + r) * rs + c);
+    *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
+  }
+}
+
+// out[n] (n-tiles over the rows of `bm`) = A rows of `am` (from row r0) .
+// rows of `bm`, over HD: S = A B^T for two [row][hd] matrices
+template <int HD, int NT, int LD>
+__device__ __forceinline__ void rows_dot(float (&out)[NT][4], const bf16* am,
+                                         int r0, const bf16* bm, int lane) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4];
+    load_a<LD>(a, am, r0, kk * 16, lane);
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      uint32_t b[4];
+      load_b_nk<LD>(b, bm, n * 8, kk * 16, lane);
+      mma(out[n], a, b[0], b[1]);
+      mma(out[n + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc (16 x HD) += C (16 x 16 KT, the C fragments c) . X (16 KT x HD, a
+// [row][hd] matrix staged as [k][n])
+template <int HD, int KT, int LD>
+__device__ __forceinline__ void acc_cx(float (&acc)[HD / 8][4],
+                                       const float (&c)[2 * KT][4],
+                                       const bf16* xm, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    const uint32_t a[4] = {pack(c[2 * kk][0], c[2 * kk][1]),
+                           pack(c[2 * kk][2], c[2 * kk][3]),
+                           pack(c[2 * kk + 1][0], c[2 * kk + 1][1]),
+                           pack(c[2 * kk + 1][2], c[2 * kk + 1][3])};
+#pragma unroll
+    for (int n = 0; n < HD / 8; n += 2) {
+      uint32_t b[4];
+      load_b_kn<LD>(b, xm, kk * 16, n * 8, lane);
+      mma(acc[n], a, b[0], b[1]);
+      mma(acc[n + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// a warp's 16 rows x HD of fp32 sums times `mul`, stored as bf16 pairs at
+// rows row0 + g (+ 8) of a view with row stride rs, rows past S skipped
+template <int HD>
+__device__ __forceinline__ void store_rows(bf16* dst, long long rs,
+                                           const float (&acc)[HD / 8][4],
+                                           int row0, int S, float mul,
+                                           int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    if (row >= S) continue;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<uint32_t*>(dst + row * rs + n * 8 + 2 * t) =
+          pack(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
+  }
+}
+
+// One block per (batch, KV head, 64 keys): warp w owns keys 16w..16w+15
+// and computes S^T = K Q^T, dP^T = V dO^T for each query tile, so that
+// P^T and dS^T come out in registers as the A operands of dV += P^T dO and
+// dK += dS^T Q.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dO,
+                const float* __restrict__ lse, const float* __restrict__ D,
+                bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sq,
+                Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
+                int H, int KV, int S, int causal, int window,
+                float sm_scale) {
+  constexpr int LD = kLd<HD>;
+  constexpr int NT = kKvBQ / 8;
+  extern __shared__ uint4 smem_tc[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_tc);
+  bf16* Vs = Ks + kKvBK * LD;
+  bf16* Qs = Vs + kKvBK * LD;
+  bf16* dOs = Qs + kKvBQ * LD;
+  float* ls = reinterpret_cast<float*>(dOs + kKvBQ * LD);
+  float* Ds = ls + kKvBQ;
+
+  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
+  const int k0 = blockIdx.y * kKvBK;   // the longest causal extents first
+  const int G = H / KV;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, jr = 16 * warp;
+  stage<HD, kKvBK, LD>(Ks, k + b * sk.b + kvh * sk.h, sk.s, k0, S);
+  stage<HD, kKvBK, LD>(Vs, v + b * sv.b + kvh * sv.h, sv.s, k0, S);
+
+  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  const int i_lo = causal ? k0 : 0;
+  const int i_hi = window > 0 ? min(S, k0 + kKvBK - 1 + window) : S;
+  for (int gh = 0; gh < G; ++gh) {
+    const int h = kvh * G + gh;
+    const bf16* qb = q + b * sq.b + h * sq.h;
+    const bf16* gb = dO + b * sdo.b + h * sdo.h;
+    const float* lb = lse + (static_cast<long long>(b) * H + h) * S;
+    const float* Db = D + (static_cast<long long>(b) * H + h) * S;
+    for (int q0 = (i_lo / kKvBQ) * kKvBQ; q0 < i_hi; q0 += kKvBQ) {
+      __syncthreads();   // the last tile's Q and dO are read (K, V staged)
+      stage<HD, kKvBQ, LD>(Qs, qb, sq.s, q0, S);
+      stage<HD, kKvBQ, LD>(dOs, gb, sdo.s, q0, S);
+      if (threadIdx.x < kKvBQ) {
+        const int i = q0 + threadIdx.x;
+        ls[threadIdx.x] = i < S ? lb[i] : 0.f;
+        Ds[threadIdx.x] = i < S ? Db[i] : 0.f;
+      }
+      __syncthreads();
+      float p[NT][4], ds[NT][4];
+      rows_dot<HD, NT, LD>(p, Ks, jr, Qs, lane);    // S^T
+      rows_dot<HD, NT, LD>(ds, Vs, jr, dOs, lane);  // dP^T
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = k0 + jr + g + (e >> 1) * 8;
+          const int il = n * 8 + 2 * t + (e & 1);
+          const float pv = visible(q0 + il, j, S, causal, window)
+                               ? expf(p[n][e] * sm_scale - ls[il])
+                               : 0.f;
+          p[n][e] = pv;
+          ds[n][e] = pv * (ds[n][e] - Ds[il]);
+        }
+      acc_cx<HD, NT / 2, LD>(dv_acc, p, dOs, lane);   // dV += P^T dO
+      acc_cx<HD, NT / 2, LD>(dk_acc, ds, Qs, lane);   // dK += dS^T Q
+    }
+  }
+  store_rows<HD>(dk + b * sdk.b + kvh * sdk.h, sdk.s, dk_acc, k0 + jr, S,
+                 sm_scale, lane);
+  store_rows<HD>(dv + b * sdv.b + kvh * sdv.h, sdv.s, dv_acc, k0 + jr, S,
+                 1.f, lane);
+}
+
+// One block per (batch, head, 64 query rows): warp w owns rows 16w..16w+15;
+// S = Q K^T and dP = dO V^T for each key tile give dS in registers, the A
+// operand of dQ += dS K.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ dO,
+              const float* __restrict__ lse, const float* __restrict__ D,
+              bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv,
+              Strides sdo, Strides sdq, int H, int KV, int S, int causal,
+              int window, float sm_scale) {
+  constexpr int LD = kLd<HD>;
+  constexpr int NT = kQBK / 8;
+  extern __shared__ uint4 smem_tc[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);
+  bf16* dOs = Qs + kQBQ * LD;
+  bf16* Ks = dOs + kQBQ * LD;
+  bf16* Vs = Ks + kQBK * LD;
+  float* ls = reinterpret_cast<float*>(Vs + kQBK * LD);
+  float* Ds = ls + kQBQ;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kQBQ;   // longest rows first
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, ir = 16 * warp;
+  stage<HD, kQBQ, LD>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S);
+  stage<HD, kQBQ, LD>(dOs, dO + b * sdo.b + h * sdo.h, sdo.s, q0, S);
+  if (threadIdx.x < kQBQ) {
+    const int i = q0 + threadIdx.x;
+    ls[threadIdx.x] = i < S ? lse[static_cast<long long>(bh) * S + i] : 0.f;
+    Ds[threadIdx.x] = i < S ? D[static_cast<long long>(bh) * S + i] : 0.f;
+  }
+  const bf16* kb = k + b * sk.b + kvh * sk.h;
+  const bf16* vb = v + b * sv.b + kvh * sv.h;
+
+  float dq_acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
+
+  const int k_end = causal ? min(S, q0 + kQBQ) : S;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  for (int k0 = (k_begin / kQBK) * kQBK; k0 < k_end; k0 += kQBK) {
+    __syncthreads();   // the last tile's K and V are read (Q, dO staged)
+    stage<HD, kQBK, LD>(Ks, kb, sk.s, k0, S);
+    stage<HD, kQBK, LD>(Vs, vb, sv.s, k0, S);
+    __syncthreads();
+    float p[NT][4], ds[NT][4];
+    rows_dot<HD, NT, LD>(p, Qs, ir, Ks, lane);    // S
+    rows_dot<HD, NT, LD>(ds, dOs, ir, Vs, lane);  // dP
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int il = ir + g + (e >> 1) * 8;
+        const int j = k0 + n * 8 + 2 * t + (e & 1);
+        const float pv = visible(q0 + il, j, S, causal, window)
+                             ? expf(p[n][e] * sm_scale - ls[il])
+                             : 0.f;
+        ds[n][e] = pv * (ds[n][e] - Ds[il]);
+      }
+    acc_cx<HD, NT / 2, LD>(dq_acc, ds, Ks, lane);   // dQ += dS K
+  }
+  store_rows<HD>(dq + b * sdq.b + h * sdq.h, sdq.s, dq_acc, q0 + ir, S,
+                 sm_scale, lane);
+}
+
+template <int HD>
+int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* dO,
+           const float* lse, const float* D, bf16* dq, bf16* dk, bf16* dv,
+           const Strides* st, int B, int H, int KV, int S, int causal,
+           int window, float sm_scale, cudaStream_t stream) {
+  constexpr int kSmemKv = dkdv_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_mma_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemKv);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_kv(B * KV, (S + kKvBK - 1) / kKvBK);
+  flash_bwd_dkdv_mma_kernel<HD><<<grid_kv, kThreads, kSmemKv, stream>>>(
+      q, k, v, dO, lse, D, dk, dv, st[0], st[1], st[2], st[4], st[6], st[7],
+      H, KV, S, causal, window, sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kSmemQ = dq_smem_bytes<HD>();
+  err = cudaFuncSetAttribute(
+      flash_bwd_dq_mma_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemQ);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_q(B * H, (S + kQBQ - 1) / kQBQ);
+  flash_bwd_dq_mma_kernel<HD><<<grid_q, kThreads, kSmemQ, stream>>>(
+      q, k, v, dO, lse, D, dq, st[0], st[1], st[2], st[4], st[5], H, KV, S,
+      causal, window, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dO, const float* lse, float* D, void* dq, void* dk,
@@ -385,30 +750,35 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       static_cast<const T*>(o), gt, D, st[3], st[4], H, S, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    return tc::launch<HD>(qt, kt, vt, gt, lse, D, static_cast<T*>(dq),
+                          static_cast<T*>(dk), static_cast<T*>(dv), st, B, H,
+                          KV, S, causal, window, sm_scale, stream);
+  else {
+    constexpr int kSmemKv = dkdv_smem_floats<HD>() * sizeof(float);
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemKv);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid_kv(B * KV, (S + kKvBK - 1) / kKvBK);
+    flash_bwd_dkdv_kernel<T, HD><<<grid_kv, kThreads, kSmemKv, stream>>>(
+        qt, kt, vt, gt, lse, D, static_cast<T*>(dk), static_cast<T*>(dv),
+        st[0], st[1], st[2], st[4], st[6], st[7], H, KV, S, causal, window,
+        sm_scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
 
-  constexpr int kSmemKv = dkdv_smem_floats<HD>() * sizeof(float);
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemKv);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_kv(B * KV, (S + kKvBK - 1) / kKvBK);
-  flash_bwd_dkdv_kernel<T, HD><<<grid_kv, kThreads, kSmemKv, stream>>>(
-      qt, kt, vt, gt, lse, D, static_cast<T*>(dk), static_cast<T*>(dv),
-      st[0], st[1], st[2], st[4], st[6], st[7], H, KV, S, causal, window,
-      sm_scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  constexpr int kSmemQ = dq_smem_floats<HD>() * sizeof(float);
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemQ);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_q(B * H, (S + kQBQ - 1) / kQBQ);
-  flash_bwd_dq_kernel<T, HD><<<grid_q, kThreads, kSmemQ, stream>>>(
-      qt, kt, vt, gt, lse, D, static_cast<T*>(dq), st[0], st[1], st[2],
-      st[4], st[5], H, KV, S, causal, window, sm_scale);
-  return static_cast<int>(cudaGetLastError());
+    constexpr int kSmemQ = dq_smem_floats<HD>() * sizeof(float);
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemQ);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid_q(B * H, (S + kQBQ - 1) / kQBQ);
+    flash_bwd_dq_kernel<T, HD><<<grid_q, kThreads, kSmemQ, stream>>>(
+        qt, kt, vt, gt, lse, D, static_cast<T*>(dq), st[0], st[1], st[2],
+        st[4], st[5], H, KV, S, causal, window, sm_scale);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 }  // namespace
