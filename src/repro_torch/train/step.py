@@ -40,10 +40,6 @@ class TrainStepConfig:
     lr: float = 3e-4
     weight_decay: float = 0.0
     grad_clip: float = 1.0
-    # the reference's MoE loss weights, kept so that the two configs compare
-    # field by field; unread until the MoE family is ported
-    moe_aux_coef: float = 0.01
-    z_loss_coef: float = 1e-3
     microbatch: int = 0           # >0: grad-accumulate over microbatches
     loss_chunk: int = 0           # >0: compute loss in sequence chunks
 

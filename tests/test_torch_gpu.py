@@ -223,7 +223,7 @@ def test_cuda_norm_and_attention_wrappers_raise_on_bad_layouts(cuda):
 
 
 @pytest.mark.gpu
-def test_cuda_training_forward_refuses_backward(cuda):
+def test_cuda_training_forward_gradients_match_cpu(cuda):
     """Nothing refuses a backward now: a backward through
     models/api.py::forward on the card runs the rmsnorm, add_rmsnorm and
     flash backward kernels, and wq, the norm scales and the embedding get
@@ -303,7 +303,7 @@ def test_cuda_add_rmsnorm_is_add_then_rmsnorm_bitwise(cuda, N, d, dtype):
 
 
 @pytest.mark.gpu
-def test_cuda_add_rmsnorm_refuses_backward(cuda):
+def test_cuda_add_rmsnorm_gradients_match_cpu(cuda):
     """Nothing refuses a backward now: through add_rmsnorm on the card both
     x and delta get the gradient of s plus the norm's, equal to the CPU's
     (plain autograd); a loss on s alone passes straight through."""
