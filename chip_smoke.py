@@ -11,7 +11,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 src/repro_torch/kernels/csrc with nvcc (one process per
                 source, all at once), print ptxas' register/spill report,
                 and require HGMMA (wgmma) in the SASS of the bf16 flash
-                kernel (cuobjdump -sass of the built library).
+                kernels, forward and backward, and TMA loads (UTMALDG) and
+                mbarrier waits (SYNCS) in the backward's (cuobjdump -sass of
+                the built libraries).
   3. kernels  — hold each kernel against its plain PyTorch version:
                 kd_loss_fwd / kd_loss_bwd at the HAPFL path's row counts (4
                 and 8 padded clients x batch 32), a ragged N, a ragged V and
@@ -39,7 +41,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 (4, 24, 8, 512, 128) and the lite's (4, 4, 4, 512, 64),
                 S = 300, window 64 and 48, fp32 and bf16, both layouts.
                 Two backward launches must be bitwise equal, and the flash
-                forward's o the same bits with and without its lse.
+                forward's o the same bits with and without its lse; the
+                norm backward, one launch, must replay under a CUDA graph
+                bit for bit as it runs eagerly.
   4. HAPFL    — Algorithm 1 on the paper's cifar10 pool at full width
                 (small + large CNNs, 10 clients, 6 per round): 10
                 latency-only PPO pretraining rounds, then 3 training rounds
@@ -107,9 +111,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 intensities.
  12. timing   — the backward kernels at the training path's shapes beside
                 their bounds, plain versions and the library's backward
-                alone (F.rms_norm's; SDPA's with enable_gqa); the flash
-                forward with and without lse; kd_loss_grad at
-                (1, 2048, 128256) fp32.
+                alone (F.rms_norm's; SDPA's with enable_gqa); the norm
+                backward's and flash backward's device time by kernel (the
+                norm backward must be one kernel); the flash forward with
+                and without lse; kd_loss_grad at (1, 2048, 128256) fp32.
 
 The parity phases turn TF32 off for cuDNN and matmuls, so that both sides
 compute in full float32, and restore the defaults afterwards.
@@ -191,8 +196,8 @@ TRAIN = {"arch": "llama3.2-3b", "batch": 4, "seq": 512, "steps": 3,
 # backward checks: norms (N, d, dtype), flash as FLASH_SHAPES
 NORM_BWD_SHAPES = [(2048, 3072, "bfloat16"), (2048, 3072, "float32"),
                    (2048, 256, "bfloat16"), (2048, 256, "float32"),
-                   (1000, 3072, "bfloat16"), (64, 777, "float32"),
-                   (64, 777, "bfloat16")]
+                   (1000, 3072, "bfloat16"), (1000, 3072, "float32"),
+                   (64, 777, "float32"), (64, 777, "bfloat16")]
 FLASH_BWD_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16", "bshd"),
                     (4, 24, 8, 512, 128, 0, "float32", "bshd"),
                     (4, 4, 4, 512, 64, 0, "bfloat16", "bshd"),
@@ -249,23 +254,34 @@ def phase_build():
 
 
 def check_hgmma(_build):
-    """The bf16 flash kernel must run on the tensor cores through wgmma:
-    every instantiation of flash_wgmma_kernel has HGMMA in its SASS."""
+    """The bf16 flash kernels must run on the tensor cores through wgmma,
+    fed by TMA: every instantiation of the forward's flash_wgmma_kernel and
+    of the backward's flash_bwd_dkdv_wgmma_kernel and
+    flash_bwd_dq_wgmma_kernel has HGMMA in its SASS, and the backward's
+    also UTMALDG (cp.async.bulk.tensor) and SYNCS (mbarrier) instructions."""
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     tool = Path(_build.nvcc()).with_name("cuobjdump")
-    sass = subprocess.run(
-        [str(tool), "-sass", str(_build.library_path("flash_attention"))],
-        capture_output=True, text=True, check=True, timeout=300).stdout
-    counts = {}
-    for section in sass.split("Function : ")[1:]:
-        name = section.splitlines()[0].strip()
-        if "flash_wgmma_kernel" in name:
-            counts[name] = section.count("HGMMA")
-    log(f"[build] HGMMA instructions in the SASS of flash_wgmma_kernel: "
-        f"{counts}")
-    if len(counts) != len(HEAD_DIMS) or not all(counts.values()):
-        raise SystemExit("chip_smoke: the bf16 flash kernel's SASS has no "
-                         "HGMMA (wgmma) in some instantiation")
+    wanted = {"flash_attention": ("flash_wgmma_kernel",),
+              "flash_attention_bwd": ("flash_bwd_dkdv_wgmma_kernel",
+                                      "flash_bwd_dq_wgmma_kernel")}
+    for lib, kernels in wanted.items():
+        sass = subprocess.run(
+            [str(tool), "-sass", str(_build.library_path(lib))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        counts = {}
+        for section in sass.split("Function : ")[1:]:
+            name = section.splitlines()[0].strip()
+            if any(k in name for k in kernels):
+                counts[name] = {op: section.count(op)
+                                for op in ("HGMMA", "UTMALDG", "SYNCS")}
+        log(f"[build] HGMMA, UTMALDG and SYNCS instructions in the SASS of "
+            f"{', '.join(kernels)}: {counts}")
+        need = ("HGMMA",) if lib == "flash_attention" else (
+            "HGMMA", "UTMALDG", "SYNCS")
+        if (len(counts) != len(HEAD_DIMS) * len(kernels)
+                or not all(c[op] for c in counts.values() for op in need)):
+            raise SystemExit(f"chip_smoke: a bf16 kernel of {lib} lacks "
+                             f"{' or '.join(need)} in its SASS")
 
 
 # ---------------------------------------------------------------------- #
@@ -626,6 +642,7 @@ def phase_bwd_kernels(torch):
                 log(f"[kernels] {what}: max|err| {e:.3e} (tol {tol}; "
                     f"dscale atol {tol * N ** 0.5:.2e}), two launches "
                     f"bitwise equal")
+        check_norm_bwd_graph(torch)
         for B, H, KV, S, hd, window, dtype, layout in FLASH_BWD_SHAPES:
             q, k, v = _flash_inputs(torch, B, H, KV, S, hd, dtype, layout)
             what = (f"flash_attention_bwd B{B} H{H} KV{KV} S{S} hd{hd} "
@@ -660,6 +677,38 @@ def phase_bwd_kernels(torch):
                 f"{tol}); o bitwise unchanged by lse; two launches bitwise "
                 f"equal")
     return errs
+
+
+def check_norm_bwd_graph(torch):
+    """The norm backward, replayed from a CUDA graph, gives the bits of an
+    eager launch on the same inputs: its dscale reduction's counters reset
+    themselves within the launch."""
+    from repro_torch.kernels import rmsnorm as rn
+    N, d, dtype = NORM_BWD_SHAPES[0]
+    x, dy, sc = _add_norm_inputs(torch, N, d, dtype)
+    g = torch.Generator(device="cuda").manual_seed(N + 7 * d)
+    gs = _randn(torch, (N, d), dtype, g)
+    for name, run in (("rmsnorm_bwd", lambda: rn.rmsnorm_bwd(x, sc, dy)),
+                      ("add_rmsnorm_bwd",
+                       lambda: rn.add_rmsnorm_bwd(x, sc, gs, dy))):
+        eager = run()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = run()
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(out, eager)):
+                raise SystemExit(f"chip_smoke: {name} {(N, d, dtype)} "
+                                 f"replayed from a CUDA graph differs from "
+                                 f"an eager launch")
+        log(f"[kernels] {name} {(N, d, dtype)}: 3 CUDA-graph replays "
+            f"bitwise equal to an eager launch")
 
 
 def _bound(nbytes, ops, ops_per_s):
@@ -1609,6 +1658,56 @@ def _backward_ms(torch, fwd, nxt, iters):
     return _graph_ms(torch, both, iters) - _graph_ms(torch, forward, iters)
 
 
+def kernel_split(torch, label, call, iters):
+    """Device ms per call of each kernel that `call()` launches: `iters`
+    eager calls under torch.profiler, each kernel's device time summed by
+    name and divided by `iters`; beside it the whole call's device ms from
+    CUDA events around a graph of `iters` calls. Returns {kernel: ms}."""
+    from torch.profiler import ProfilerActivity, profile
+    total = _graph_ms(torch, call, iters)
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    split = {ev.key: ev.self_device_time_total / 1e3 / iters
+             for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and ev.self_device_time_total > 0}
+    log(f"[timing] {label}: {total:.6f} ms a call (CUDA events over a graph "
+        f"of {iters}); by kernel (profiler, eager calls): "
+        + ("; ".join(f"{k[:60]} {v:.6f} ms" for k, v in split.items())
+           or "not measured (the profiler recorded no device events)"))
+    return split
+
+
+def phase_norm_bwd_split(torch, shapes):
+    """kernel_split of rmsnorm_bwd and add_rmsnorm_bwd at each (N, d,
+    dtype), their inputs cycled L2-cold as in _time_set: the backward must
+    be one kernel."""
+    from repro_torch.kernels import rmsnorm as rn
+    out = {}
+    for N, d, dtype in shapes:
+        x, dy, sc = _add_norm_inputs(torch, N, d, dtype)
+        g = torch.Generator(device="cuda").manual_seed(N + 7 * d)
+        gs = _randn(torch, (N, d), dtype, g)
+        nxt = _cold_copies((x, sc, gs, dy), 4 * x.numel() * x.element_size())
+        def plain_bwd():
+            a, b, _, c = nxt()
+            return rn.rmsnorm_bwd(a, b, c)
+        for name, call in (("rmsnorm_bwd", plain_bwd),
+                           ("add_rmsnorm_bwd",
+                            lambda: rn.add_rmsnorm_bwd(*nxt()))):
+            split = kernel_split(torch, f"{name} {(N, d, dtype)}", call, 50)
+            if split and len(split) != 1:
+                raise SystemExit(f"chip_smoke: {name} {(N, d, dtype)} "
+                                 f"launched {sorted(split)}, not one kernel")
+            out[(name, N, d, dtype)] = split
+    return out
+
+
 def phase_train_timing(torch, shapes):
     """Times of the backward kernels, their plain versions and, where one
     PyTorch call computes the same function, that call's backward alone
@@ -1667,6 +1766,8 @@ def phase_train_timing(torch, shapes):
         log(f"[timing] add_rmsnorm_bwd {(N, d, dtype)}: the backward alone "
             f"of x + delta then F.rms_norm {t['library_ms']:.6f} ms")
         times[("add_rmsnorm_bwd", N, d, dtype)] = t
+    phase_norm_bwd_split(torch, sorted(set(shapes["rmsnorm_bwd"])
+                                       | set(shapes["add_rmsnorm_bwd"])))
     sdpa = _sdpa(torch)
     for key in shapes["flash_attention_bwd"]:
         B, H, KV, S, hd, window, dtype, layout = key
@@ -1694,6 +1795,9 @@ def phase_train_timing(torch, shapes):
             torch, lambda a, b, c: sdpa(a, b, c, window), sdpa_inputs, 10)
         log(f"[timing] flash_attention_bwd {key}: SDPA's backward alone "
             f"{t['library_ms']:.6f} ms")
+        kernel_split(torch, f"flash_attention_bwd {key}",
+                     lambda: fa.flash_attention_bwd(
+                         q, k, v, o, lse, do, sliding_window=window), 10)
         times[("flash_attention_bwd", *key)] = t
         # the forward with and without its lse output
         nxt_f = _cold_copies((q, k, v), (2 * q.numel() + 2 * k.numel())
@@ -1805,7 +1909,7 @@ def main() -> int:
                   lambda: step(state, train_batches[1]),
                   ("flash_bwd_dkdv", "flash_bwd_dq",
                    "flash_bwd_delta_kernel", "norm_bwd_kernel",
-                   "dscale_kernel", "norm_kernel", "flash_wgmma_kernel",
+                   "norm_kernel", "flash_wgmma_kernel",
                    "kd_grad_row_kernel"))
     del state, step, train_batches
     torch.cuda.empty_cache()
@@ -1875,11 +1979,11 @@ def main() -> int:
             "replaces": replaces, "launches": train_launches[name],
             "max_abs_err": max(bwd_errs[k] for k in keys),
             **path_times(tr_times, keys),
-            "shapes": [[*k[1:], n // TRAIN["steps"]] for k, n in keys.items()],
+            "shapes": [[*k[1:], n] for k, n in keys.items()],
             "dtype": "bfloat16",
             "path": f"train {TRAIN['arch']} (launches over "
-                    f"{TRAIN['steps']} steps; the Pallas kernel has no "
-                    f"backward)"})
+                    f"{TRAIN['steps']} steps, shapes with their launches a "
+                    f"step; the Pallas kernel has no backward)"})
     # the forward kernels and kd_loss_grad on the training path too
     for row in record["kernels"]:
         keys = train_keys.get(row["name"])
@@ -1887,8 +1991,7 @@ def main() -> int:
                                     "flash_attention", "kd_loss_grad"):
             row["train"] = {
                 "launches": train_launches[row["name"]],
-                "shapes": [[*k[1:], n // TRAIN["steps"]]
-                           for k, n in keys.items()]}
+                "shapes": [[*k[1:], n] for k, n in keys.items()]}
     kd_key = ("kd_loss_grad", *kd_train[0])
     next(r for r in record["kernels"] if r["name"] == "kd_loss_grad")[
         "train"].update({k: tr_times[kd_key][k] for k in

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, into
 ``build/repro_torch/`` at the repository root (listed in ``.gitignore``).
-The library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded. `build` starts one
+The library's file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded. `build` starts one
 ``nvcc`` per source, all together, and keeps each one's ``-Xptxas -v``
 register and spill report in `reports`. A failed build raises: there is no
 fallback to the plain versions.
@@ -51,7 +52,8 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    src = (CSRC / SOURCES[name]).read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

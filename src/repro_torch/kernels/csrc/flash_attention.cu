@@ -77,21 +77,17 @@
 // write each row's log-sum-exp of its scaled scores, m + log(l) in natural
 // units, which the backward (flash_attention_bwd.cu) reads. The store is
 // added after o is computed and changes nothing of it.
+//
+// The mbarrier, TMA and wgmma helpers, the swizzled tile layout and the
+// tensor-map encoding are hopper.cuh's, shared with the backward.
 
-#include <cuda.h>          // CUtensorMap and its enums; libcuda is not linked
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
+
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;          // running max before any key
-
-// element strides of one (batch, head, row, hd) view; hd's stride is 1
-struct Strides {
-  long long b, h, s;
-};
 
 // ------------------------------------------------------------------------
 // float32: the SIMT kernel
@@ -300,16 +296,15 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // ------------------------------------------------------------------------
 // bfloat16: wgmma and TMA
 // ------------------------------------------------------------------------
-namespace hopper {
+namespace wg {
+
+using namespace hopper;
 
 constexpr int kBM = 64;                    // query rows per block: one m64
 constexpr int kBN = 64;                    // keys per K/V tile
 constexpr int kStages = 2;                 // K tiles, and V tiles, in flight
 constexpr int kConsumerWarps = 4;          // one warpgroup
 constexpr int kThreads = 32 * kConsumerWarps + 32;   // + the producer warp
-constexpr int kPanel = 64;                 // bf16 columns per 128-byte row
-constexpr int kRowBytes = 128;             // one swizzled row of a panel
-constexpr int kTensorMapError = 10000;     // + the CUresult of a refused map
 
 // shared-memory layout, in bytes from a 1024-aligned base
 template <int HD>
@@ -323,233 +318,6 @@ struct Layout {
   static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages);
   static constexpr int kAlloc = kBytes + 1024;       // room to align the base
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// returns once the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// box at coordinates (hd, row, head, batch) of `map` into shared memory at
-// `dst`, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
-                                          int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-// keeps the compiler from touching wgmma registers across the async window
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// wgmma shared-memory descriptor of an operand laid out with the 128-byte
-// swizzle: start address, leading and stride byte offsets (16-byte units),
-// layout type 1 (128B) in bits 62-63; base offset 0, since every swizzle
-// atom (8 rows of 128 bytes) starts 1024-aligned
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&t);
-}
-
-// S[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// O[64 x 64] += P[64 x 16] V[16 x 64], P in registers, V MN-major in
-// shared memory
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// O[64 x 128] += P[64 x 16] V[16 x 128], P in registers, V MN-major in
-// shared memory
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
-                                         const uint32_t (&a)[4], uint64_t b);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  wgmma_rs_n64(o, a, b);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
-  wgmma_rs_n128(o, a, b);
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// issues S = Q K^T for one K tile: hd / 16 k-steps, each advancing 32 bytes
-// along a swizzled row and to the next panel every 4 steps
-template <int HD>
-__device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint32_t q,
-                                         uint32_t k_tile) {
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t col = (kk % 4) * 32;   // 16 columns: 32 bytes
-    wgmma_ss_n64(sc,
-                 desc_sw128(q + (kk / 4) * kBM * kRowBytes + col, 16, 1024),
-                 desc_sw128(k_tile + (kk / 4) * kBN * kRowBytes + col, 16,
-                            1024),
-                 kk > 0);
-  }
-  wgmma_commit();
-}
-
-// issues O += P V for one V tile; V MN-major: 16 key rows per k-step, LBO
-// steps between the hd panels, SBO between groups of 8 key rows
-template <int HD>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
-                                         const uint32_t (&pa)[kBN / 16][4],
-                                         uint32_t v_tile) {
-#pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk)
-    wgmma_pv<HD>(o, pa[kk], desc_sw128(v_tile + kk * 16 * kRowBytes,
-                                       kBN * kRowBytes, 1024));
-  wgmma_commit();
-}
 
 // One tile's scores, in place, to unnormalised probabilities in log2 units:
 // masks (where a key of the tile may be hidden from a row of the
@@ -590,16 +358,6 @@ __device__ __forceinline__ void online_softmax(
     sc[i] = exp2f(sc[i] - mx[(i / 2) % 2]);   // masked: exp2(-inf) = 0
     l[(i / 2) % 2] += sc[i];
   }
-}
-
-// P in bf16 as the A fragments of the P V wgmma
-__device__ __forceinline__ void to_a_fragments(const float (&sc)[kBN / 2],
-                                               uint32_t (&pa)[kBN / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
 }
 
 // Fragment layouts (PTX ISA, wgmma m64nNk16): in a consumer warpgroup, warp
@@ -711,7 +469,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   mbar_wait(q_full, 0);
   wait_k(t_lo);
   wgmma_fence();
-  issue_qk<HD>(sc, sq, sk + stage(t_lo) * L::kTile);
+  issue_abt<HD>(sc, sq, sk + stage(t_lo) * L::kTile);
   wgmma_wait<0>();
   fence_regs(sc);
   release_k(t_lo);
@@ -724,8 +482,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     wait_k(t);
     wait_v(t - 1);
     wgmma_fence();
-    issue_qk<HD>(sc, sq, sk + stage(t) * L::kTile);
-    issue_pv<HD>(o, pa, sv + stage(t - 1) * L::kTile);
+    issue_abt<HD>(sc, sq, sk + stage(t) * L::kTile);
+    issue_pb<HD>(o, pa, sv + stage(t - 1) * L::kTile);
     wgmma_wait<1>();                   // groups retire in order: S is done
     fence_regs(sc);
     release_k(t);
@@ -741,7 +499,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   wait_v(t_hi - 1);
   wgmma_fence();
-  issue_pv<HD>(o, pa, sv + stage(t_hi - 1) * L::kTile);
+  issue_pb<HD>(o, pa, sv + stage(t_hi - 1) * L::kTile);
   wgmma_wait<0>();
   fence_regs(o);
   fence_regs(pa);
@@ -764,76 +522,15 @@ __global__ void __launch_bounds__(kThreads, 1)
             (m[r] + log2f(l[r])) * 0.6931471805599453f;
     }
   }
-#pragma unroll
-  for (int i = 0; i < HD / 2; i += 2) {
-    const int rr = 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
-    const int c = 8 * (i / 4) + 2 * (lane % 4);
-    const int cc = c % kPanel;
-    const int off = (c / kPanel) * kBM * kRowBytes + rr * kRowBytes +
-                    (((cc / 8) ^ (rr % 8)) * 16) + (cc % 8) * 2;
-    const float f = inv[(i / 2) % 2];
-    *reinterpret_cast<uint32_t*>(smem + off) =
-        pack_bf16(o[i] * f, o[i + 1] * f);
-  }
+  write_tile<HD>(smem, o, inv, warp, lane);
   // the generic-proxy writes above, visible to the TMA store
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("bar.sync 1, 128;" ::: "memory");   // the consumer warps
+  fence_async_smem();
+  named_sync(1, 128);   // the consumer warps
   if (threadIdx.x == 0) {
     for (int p = 0; p < kPanels; ++p)
       tma_store(&to, sq + p * kBM * kRowBytes, p * kPanel, q0, h, b);
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    tma_store_wait();
   }
-}
-
-// cuTensorMapEncodeTiled, fetched through the runtime (libcuda is not
-// linked)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A map of the (B, N, S, hd) view at `ptr` with element strides `st`, cut
-// into boxes of 64 hd columns (one 128-byte swizzle row) by `rows` rows.
-// Returns 0 or the CUresult of the refusal.
-int make_map(CUtensorMap* map, const void* ptr, const Strides& st, int B,
-             int N, int S, int hd, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(N),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
-                                 static_cast<cuuint64_t>(st.h) * 2,
-                                 static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[4] = {kPanel, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return static_cast<int>(encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
 template <int HD>
@@ -858,7 +555,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace hopper
+}  // namespace wg
 
 }  // namespace
 
@@ -895,10 +592,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return simt::launch<128>(q, k, v, o, lse, st, B, H, KV, S, causal, window,
                              sm_scale, s);
   if (dtype == 1 && hd == 64)
-    return hopper::launch<64>(q, k, v, o, lse, st, B, H, KV, S, causal, window,
+    return wg::launch<64>(q, k, v, o, lse, st, B, H, KV, S, causal, window,
                               sm_scale, s);
   if (dtype == 1 && hd == 128)
-    return hopper::launch<128>(q, k, v, o, lse, st, B, H, KV, S, causal, window,
+    return wg::launch<128>(q, k, v, o, lse, st, B, H, KV, S, causal, window,
                                sm_scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,33 +14,60 @@
 //
 // FA2's scheme, in three kernels, with P = exp(S - lse) recomputed from the
 // scores (nothing of size S x S is stored):
-//   1. flash_bwd_delta_kernel: D = rowsum(dO o), one warp per row, (B, H, S)
-//      fp32.
+//   1. flash_bwd_delta_kernel: D = rowsum(dO o), one warp per row.
 //   2. dK/dV: one block per (batch, KV head, tile of 64 keys). It holds its
-//      K and V tile and loops over the G = H / KV query heads of its group
-//      and, for each, over the query tiles of 32 rows that can see a key of
-//      the tile: S = Q K^T, P, dP = dO V^T, dS = P (dP - D); dV += P^T dO
-//      and dK += dS^T Q stay in registers across the whole loop, so the
-//      group's sum needs no atomics and dk, dv are written once.
-//   3. dQ: one block per (batch, head, tile of 64 query rows), looping over
-//      the visible key tiles of 32: dQ += dS K.
-// Every sum is taken in one fixed order, so two launches give the same bits.
+//      K and V tile and visits, for each of the G = H / KV query heads of
+//      its group, the query tiles that can see a key of the tile: S = Q K^T,
+//      P, dP = dO V^T, dS = P (dP - D); dV += P^T dO and dK += dS^T Q stay in
+//      registers across the whole loop, so the group's sum needs no atomics
+//      and dk, dv are written once.
+//   3. dQ: one block per (batch, head, tile of 64 query rows), over the
+//      visible key tiles: dQ += dS K. dQ is not summed with float atomics
+//      (as FlashAttention-3 does) but recomputed here, so that every sum is
+//      taken in one fixed order and two launches give the same bits.
 //
 // What bounds it: at the training path's (4, 24, 8, 512, 128) bf16 causal,
 // the five products over the visible pairs are about 16.1 GFLOP (16 us on
 // the bf16 tensor cores) and q, o, dO, dq, k, v, dk, dv about 67 MB (20 us
-// at 3.35 TB/s): bytes bound it. Two designs, one per type:
+// at 3.35 TB/s): bytes bound it, by a little. Two designs, one per type:
 //
-// * bfloat16: the tensor cores through mma.sync m16n8k16 with fp32 sums
-//   (flash_bwd_dkdv_mma_kernel, flash_bwd_dq_mma_kernel), four warps a
-//   block, each over 16 rows (keys for dK/dV, query rows for dQ). Tiles are
-//   staged in shared memory as bf16 with rows padded by 16 bytes and read by
-//   ldmatrix (transposed for the operands that lie [k][n]). The dK/dV
-//   kernel computes S^T = K Q^T and dP^T = V dO^T, so that P^T and dS^T
-//   come out as accumulator fragments that, rounded to bf16 in pairs, are
-//   the A fragments of dV += P^T dO and dK += dS^T Q; the dQ kernel does the
-//   same with S = Q K^T. Shared memory at hd 128: 52,480 and 52,736 bytes.
-//   P and dS are rounded to bf16 for the tensor cores, as FA2 rounds them.
+// * bfloat16: wgmma fed by TMA, warp-specialised (namespace wg;
+//   flash_bwd_dkdv_wgmma_kernel, flash_bwd_dq_wgmma_kernel). A block is
+//   three warpgroups: warpgroup 0 produces (setmaxnreg down to 24 registers;
+//   one thread issues every copy), warpgroups 1 and 2 consume (setmaxnreg
+//   up to 240: at hd 128 the dK and dV sums alone are 128 fp32 registers a
+//   thread). The producer loads the block's two fixed tiles once (dK/dV: K,
+//   V; dQ: Q, dO) and keeps the streamed tiles (dK/dV: Q, dO and the 64
+//   rows' lse and D; dQ: K, V) in flight through a ring of 4 stages, each
+//   with a full and an empty mbarrier. Tiles land by TMA with the 128-byte
+//   swizzle (hopper.cuh), the strided views' addressing done by the tensor
+//   maps, rows past S zero-filled; lse (in log2 units) and D come by plain
+//   bulk copies from rows padded to a multiple of 64 (the delta kernel
+//   writes them so). The two score-like products (dK/dV: S^T = K Q^T and
+//   dP^T = V dO^T; dQ: S = Q K^T and dP = dO V^T) are m64n64k16 wgmmas with
+//   both operands K-major in shared memory; P and dS are rounded to bf16 in
+//   registers, where the accumulator fragment of a 64 x 64 result is, pair
+//   for pair, the A fragment of the next wgmma, so dV += P^T dO, dK += dS^T
+//   Q and dQ += dS K are m64n{hd}k16 wgmmas with A from registers and B
+//   (dO, Q or K, lying [row][hd]) read MN-major. dV's product runs while dS
+//   is computed.
+//   Grid fill: the two consumers of a block share its tile and split its
+//   items (dK/dV: (query head, query tile) pairs; dQ: key tiles) even and
+//   odd, each into its own fp32 sums; consumer 1 hands its sums to consumer
+//   0 through shared memory, which adds them in that one order. So at the
+//   LiteModel's (4, 4, 4, 512, 64), whose 64-row tiles give 128 blocks for
+//   132 SMs, every block is on an SM of its own with two warpgroups on its
+//   triangle of work, and the longest causal chain (key tile 0 and its 8
+//   query tiles; query tile 7 and its 8 key tiles) takes 4 items per
+//   warpgroup, not 8. dK/dV blocks run key tile 0 first and dQ blocks query
+//   tile S/64 - 1 first: the longest causal extents start first and the
+//   short ones fill the last wave.
+//   Shared memory (one block an SM): 1024 (alignment) + 2 fixed tiles + 4
+//   stages of 2 tiles + 4 x 512 bytes of lse and D + 72 of barriers =
+//   166,984 bytes at hd 128, 85,064 at hd 64. Registers (ptxas of CUDA
+//   12.8): 168 a thread at launch for all four kernels (384 threads, one
+//   block an SM), no spills; setmaxnreg then moves them to the consumers.
+//   TIMES_NOTE
 // * float32: SIMT (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel), since the
 //   tensor cores would take fp32 only as TF32; its floor is near 16.1 GFLOP
 //   / 67 TFLOP/s = 0.24 ms. Tiles are staged as fp32 with rows padded to
@@ -49,19 +76,13 @@
 //   dV, dQ) patch of outputs in registers. Shared memory at hd 128: 107,648
 //   bytes (dK/dV) and 108,032 (dQ), two blocks per SM.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
+
 #include <math.h>
-#include <stdint.h>
 
 #include <type_traits>
 
 namespace {
-
-// element strides of one (batch, head, row, hd) view; hd's stride is 1
-struct Strides {
-  long long b, h, s;
-};
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -175,18 +196,30 @@ __device__ __forceinline__ bool visible(int i, int j, int S, int causal,
          (window <= 0 || j > i - window);
 }
 
-// D[(b H + h) S + i] = sum_d dO[b, h, i, d] o[b, h, i, d]; one warp a row
+// D[row] = sum_d dO[b, h, i, d] o[b, h, i, d] for row = (b H + h) pitch +
+// i, one warp a row; rows i in [S, pitch) get 0. Given lse2, also lse2[row]
+// = lse[(b H + h) S + i] log2(e) (0 past S): the wgmma kernels' lse in log2
+// units on the same padded rows, which they copy 64 at a time.
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dO,
-                           float* __restrict__ D, Strides so, Strides sdo,
-                           int H, int S, long long rows) {
+                           const float* __restrict__ lse,
+                           float* __restrict__ D, float* __restrict__ lse2,
+                           Strides so, Strides sdo, int H, int S, int pitch,
+                           long long rows) {
   const long long row =
       static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int lane = threadIdx.x & 31;
-  const long long bh = row / S;
-  const int i = static_cast<int>(row % S);
+  const long long bh = row / pitch;
+  const int i = static_cast<int>(row % pitch);
+  if (i >= S) {
+    if (lane == 0) {
+      D[row] = 0.f;
+      if (lse2 != nullptr) lse2[row] = 0.f;
+    }
+    return;
+  }
   const int b = static_cast<int>(bh / H), h = static_cast<int>(bh % H);
   const T* orow = o + b * so.b + h * so.h + i * so.s;
   const T* grow = dO + b * sdo.b + h * sdo.h + i * sdo.s;
@@ -198,7 +231,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int mask = 16; mask > 0; mask >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, mask);
-  if (lane == 0) D[row] = s;
+  if (lane == 0) {
+    D[row] = s;
+    if (lse2 != nullptr) lse2[row] = lse[bh * S + i] * 1.4426950408889634f;
+  }
 }
 
 template <typename T, int HD>
@@ -378,383 +414,449 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // ------------------------------------------------------------------------
-// bfloat16: the tensor cores through mma.sync (m16n8k16, fp32 sums)
+// bfloat16: wgmma fed by TMA, one producer and two consumer warpgroups
 // ------------------------------------------------------------------------
-namespace tc {
+namespace wg {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kKvBK = 64;    // dK/dV block: keys, 16 per warp
-constexpr int kKvBQ = 32;    // query rows per inner tile
-constexpr int kQBQ = 64;     // dQ block: query rows, 16 per warp
-constexpr int kQBK = 32;     // keys per inner tile
+using namespace hopper;
 
-using bf16 = __nv_bfloat16;
+constexpr int kStages = 4;             // ring stages of streamed tiles
+constexpr int kConsumers = 2;          // consumer warpgroups a block
+constexpr int kThreads = 128 * (1 + kConsumers);   // warpgroup 0 produces
+// registers a thread after setmaxnreg: 128 x 24 + 256 x 240 <= 65,536
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+// shared-memory layout, in bytes from a 1024-aligned base
+template <int HD>
+struct Layout {
+  static constexpr int kTile = kTileRows * HD * 2;    // one bf16 tile
+  // two fixed tiles (dK/dV: K, V; dQ: Q, dO), then the ring, whose stage s
+  // holds two streamed tiles (dK/dV: Q, dO; dQ: K, V)
+  static constexpr int kRing = 2 * kTile;
+  static constexpr int kStage = 2 * kTile;
+  // dK/dV: per stage the lse2 and D of its 64 query rows
+  static constexpr int kRows = kRing + kStages * kStage;
+  static constexpr int kRowBytesF = kTileRows * 4;
+  static constexpr int kBar = kRows + kStages * 2 * kRowBytesF;
+  // fixed_full, then per stage full and empty
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
+  static constexpr int kAlloc = kBytes + 1024;         // room to align the base
+  // after the loop the ring holds consumer 1's fp32 partial sums
+  static_assert(kStages * kStage >= 2 * kTileRows * HD * 4, "partials fit");
+};
+
+// a 64-row tile of a (B, N, S, hd) map at (row, head, batch), panel by panel
+template <int HD>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int row, int head,
+                                          int batch) {
+#pragma unroll
+  for (int p = 0; p < HD / kPanel; ++p)
+    tma_load(dst + p * kTileRows * kRowBytes, map, bar, p * kPanel, row, head,
+             batch);
+}
 
 template <int HD>
-constexpr int kLd = HD + 8;  // bf16 a staged row: 16 bytes of padding, so
-                             // the 8 rows of an ldmatrix hit 8 bank groups
-
-template <int HD>
-constexpr int dkdv_smem_bytes() {
-  return (2 * kKvBK + 2 * kKvBQ) * kLd<HD> * 2 + 2 * kKvBQ * 4;
-}
-template <int HD>
-constexpr int dq_smem_bytes() {
-  return (2 * kQBQ + 2 * kQBK) * kLd<HD> * 2 + 2 * kQBQ * 4;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d (16 x 8, fp32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&t);
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16), g = lane / 4, t = lane % 4:
-// A (16 x 16): a0 (g, 2t..2t+1), a1 (g + 8, ...), a2 (g, 2t + 8..), a3
-// (g + 8, 2t + 8..); B (16 x 8): b0 (k 2t..2t+1, n g), b1 (k 2t + 8..);
-// C (16 x 8): c0, c1 (g, 2t..2t+1), c2, c3 (g + 8, ...). The C fragments
-// of two neighbouring n-tiles, rounded to bf16 in pairs, are the A
-// fragment of one k-step, so P and dS feed the next products from
-// registers.
-
-// the A fragment of rows [r0, r0 + 16) x cols [c0, c0 + 16) of a staged
-// row-major matrix
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* m,
-                                       int r0, int c0, int lane) {
-  const int q = lane >> 3;
-  ldsm_x4(a, m + (r0 + (q & 1) * 8 + (lane & 7)) * LD + c0 + (q >> 1) * 8);
-}
-
-// the B fragments of n-tiles n0 and n0 + 8 for k-step [k0, k0 + 16) of a
-// matrix staged as [n][k]: (b0, b1) of the first in b[0..1], of the second
-// in b[2..3]
-template <int LD>
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* m,
-                                          int n0, int k0, int lane) {
-  const int q = lane >> 3;
-  ldsm_x4(b, m + (n0 + (q >> 1) * 8 + (lane & 7)) * LD + k0 + (q & 1) * 8);
-}
-
-// the same of a matrix staged as [k][n], transposed by ldmatrix
-template <int LD>
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* m,
-                                          int k0, int n0, int lane) {
-  const int q = lane >> 3;
-  ldsm_x4_trans(b,
-                m + (k0 + (q & 1) * 8 + (lane & 7)) * LD + n0 + (q >> 1) * 8);
-}
-
-// rows [row0, row0 + NROWS) of an (S, HD) bf16 matrix whose rows lie `rs`
-// elements apart into shared memory, LD elements a row; rows at or past S
-// become zeros. 16-byte copies.
-template <int HD, int NROWS, int LD>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src,
-                                      long long rs, int row0, int S) {
-  constexpr int kPerRow = HD / 8;
-  for (int idx = threadIdx.x; idx < NROWS * kPerRow; idx += kThreads) {
-    const int r = idx / kPerRow, c = (idx % kPerRow) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      v = *reinterpret_cast<const uint4*>(src + (row0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
-  }
-}
-
-// out[n] (n-tiles over the rows of `bm`) = A rows of `am` (from row r0) .
-// rows of `bm`, over HD: S = A B^T for two [row][hd] matrices
-template <int HD, int NT, int LD>
-__device__ __forceinline__ void rows_dot(float (&out)[NT][4], const bf16* am,
-                                         int r0, const bf16* bm, int lane) {
+__device__ __forceinline__ void store_tile(const CUtensorMap* map,
+                                           uint32_t src, int row, int head,
+                                           int batch) {
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) out[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t a[4];
-    load_a<LD>(a, am, r0, kk * 16, lane);
-#pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      uint32_t b[4];
-      load_b_nk<LD>(b, bm, n * 8, kk * 16, lane);
-      mma(out[n], a, b[0], b[1]);
-      mma(out[n + 1], a, b[2], b[3]);
+  for (int p = 0; p < HD / kPanel; ++p)
+    tma_store(map, src + p * kTileRows * kRowBytes, p * kPanel, row, head,
+              batch);
+}
+
+// whether a (64 query rows from q0) x (64 keys from k0) tile holds a pair
+// that the masks hide or that lies past S
+__device__ __forceinline__ bool tile_masked(int q0, int k0, int S, int causal,
+                                            int window) {
+  return q0 + kTileRows > S || k0 + kTileRows > S ||
+         (causal && k0 + kTileRows - 1 > q0) ||
+         (window > 0 && k0 <= q0 + kTileRows - 1 - window);
+}
+
+// The 1024-aligned base of the dynamic shared memory, as a pointer and a
+// shared-space address; thread 0 initialises the barriers at `bar`:
+// fixed_full, then per stage full (the producer's arrival with its bytes)
+// and empty (lane 0 of each warp of the consuming warpgroup).
+__device__ __forceinline__ uint32_t setup(uint8_t* raw_ptr, uint8_t*& smem,
+                                          int bar_offset) {
+  const uint32_t raw = smem_u32(raw_ptr);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  smem = raw_ptr + (base - raw);
+  if (threadIdx.x == 0) {
+    const uint32_t bar = base + bar_offset;
+    mbar_init(bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar + 8 * (1 + s), 1);
+      mbar_init(bar + 8 * (1 + kStages + s), 4);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
+  return base;
 }
 
-// acc (16 x HD) += C (16 x 16 KT, the C fragments c) . X (16 KT x HD, a
-// [row][hd] matrix staged as [k][n])
-template <int HD, int KT, int LD>
-__device__ __forceinline__ void acc_cx(float (&acc)[HD / 8][4],
-                                       const float (&c)[2 * KT][4],
-                                       const bf16* xm, int lane) {
+template <int N>
+__device__ __forceinline__ void put_partial(const float (&a)[N], float* red,
+                                            int tid) {
 #pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    const uint32_t a[4] = {pack(c[2 * kk][0], c[2 * kk][1]),
-                           pack(c[2 * kk][2], c[2 * kk][3]),
-                           pack(c[2 * kk + 1][0], c[2 * kk + 1][1]),
-                           pack(c[2 * kk + 1][2], c[2 * kk + 1][3])};
+  for (int i = 0; i < N; ++i) red[i * 128 + tid] = a[i];
+}
+template <int N>
+__device__ __forceinline__ void add_partial(float (&a)[N], const float* red,
+                                            int tid) {
 #pragma unroll
-    for (int n = 0; n < HD / 8; n += 2) {
-      uint32_t b[4];
-      load_b_kn<LD>(b, xm, kk * 16, n * 8, lane);
-      mma(acc[n], a, b[0], b[1]);
-      mma(acc[n + 1], a, b[2], b[3]);
-    }
-  }
+  for (int i = 0; i < N; ++i) a[i] += red[i * 128 + tid];
 }
 
-// a warp's 16 rows x HD of fp32 sums times `mul`, stored as bf16 pairs at
-// rows row0 + g (+ 8) of a view with row stride rs, rows past S skipped
+// dK/dV: one block per (batch, KV head, 64 keys); key tile 0, the longest
+// causal extent, first. The producer loads K and V once, then streams the
+// items (query head g of the group, query tile qt) that can see a key of
+// the tile: Q, dO and their rows' lse2 and D, item `it` into stage it %
+// kStages. Consumer c takes items c, c + 2, ... and for each computes S^T =
+// K Q^T and dP^T = V dO^T (both operands K-major in shared memory), P^T =
+// exp2(S^T scale log2(e) - lse2) and dS^T = P^T (dP^T - D) in registers,
+// then dV += P^T dO and dK += dS^T Q with P^T, dS^T as bf16 register A
+// operands and dO, Q read MN-major. Consumer 1's dK, dV partial sums go
+// through shared memory to consumer 0, which adds them to its own (one
+// fixed order) and stores dk, dv by TMA.
 template <int HD>
-__device__ __forceinline__ void store_rows(bf16* dst, long long rs,
-                                           const float (&acc)[HD / 8][4],
-                                           int row0, int S, float mul,
-                                           int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + g + 8 * h;
-    if (row >= S) continue;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dst + row * rs + n * 8 + 2 * t) =
-          pack(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
-  }
-}
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo,
+                                const __grid_constant__ CUtensorMap tdk,
+                                const __grid_constant__ CUtensorMap tdv,
+                                const float* __restrict__ lse2,
+                                const float* __restrict__ D, int H, int KV,
+                                int S, int pitch, int causal, int window,
+                                float scale_log2, float sm_scale) {
+  using L = Layout<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem;
+  const uint32_t base = setup(smem_raw, smem, L::kBar);
+  const uint32_t sk = base, sv = base + L::kTile;
+  const uint32_t fixed_full = base + L::kBar;
+  auto full = [&](int s) { return fixed_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return fixed_full + 8 * (1 + kStages + s); };
 
-// One block per (batch, KV head, 64 keys): warp w owns keys 16w..16w+15
-// and computes S^T = K Q^T, dP^T = V dO^T for each query tile, so that
-// P^T and dS^T come out in registers as the A operands of dV += P^T dO and
-// dK += dS^T Q.
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dO,
-                const float* __restrict__ lse, const float* __restrict__ D,
-                bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sq,
-                Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
-                int H, int KV, int S, int causal, int window,
-                float sm_scale) {
-  constexpr int LD = kLd<HD>;
-  constexpr int NT = kKvBQ / 8;
-  extern __shared__ uint4 smem_tc[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_tc);
-  bf16* Vs = Ks + kKvBK * LD;
-  bf16* Qs = Vs + kKvBK * LD;
-  bf16* dOs = Qs + kKvBQ * LD;
-  float* ls = reinterpret_cast<float*>(dOs + kKvBQ * LD);
-  float* Ds = ls + kKvBQ;
+  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV, G = H / KV;
+  const int k0 = blockIdx.y * kTileRows;
+  // the query tiles some key of the tile can see, for each head of the
+  // group: [qt_lo, qt_lo + nq); item it = (it / nq, qt_lo + it % nq)
+  const int qt_lo = causal ? static_cast<int>(blockIdx.y) : 0;
+  const int i_hi = window > 0 ? min(S, k0 + kTileRows - 1 + window) : S;
+  const int nq = (i_hi + kTileRows - 1) / kTileRows - qt_lo;
+  const int n_items = G * nq;
 
-  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
-  const int k0 = blockIdx.y * kKvBK;   // the longest causal extents first
-  const int G = H / KV;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3, jr = 16 * warp;
-  stage<HD, kKvBK, LD>(Ks, k + b * sk.b + kvh * sk.h, sk.s, k0, S);
-  stage<HD, kKvBK, LD>(Vs, v + b * sv.b + kvh * sv.h, sv.s, k0, S);
-
-  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  const int i_lo = causal ? k0 : 0;
-  const int i_hi = window > 0 ? min(S, k0 + kKvBK - 1 + window) : S;
-  for (int gh = 0; gh < G; ++gh) {
-    const int h = kvh * G + gh;
-    const bf16* qb = q + b * sq.b + h * sq.h;
-    const bf16* gb = dO + b * sdo.b + h * sdo.h;
-    const float* lb = lse + (static_cast<long long>(b) * H + h) * S;
-    const float* Db = D + (static_cast<long long>(b) * H + h) * S;
-    for (int q0 = (i_lo / kKvBQ) * kKvBQ; q0 < i_hi; q0 += kKvBQ) {
-      __syncthreads();   // the last tile's Q and dO are read (K, V staged)
-      stage<HD, kKvBQ, LD>(Qs, qb, sq.s, q0, S);
-      stage<HD, kKvBQ, LD>(dOs, gb, sdo.s, q0, S);
-      if (threadIdx.x < kKvBQ) {
-        const int i = q0 + threadIdx.x;
-        ls[threadIdx.x] = i < S ? lb[i] : 0.f;
-        Ds[threadIdx.x] = i < S ? Db[i] : 0.f;
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every copy ----
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(fixed_full, 2 * L::kTile);
+      load_tile<HD>(sk, &tk, fixed_full, k0, kvh, b);
+      load_tile<HD>(sv, &tv, fixed_full, k0, kvh, b);
+      for (int it = 0; it < n_items; ++it) {
+        const int s = it % kStages;
+        const int h = kvh * G + it / nq, q0 = (qt_lo + it % nq) * kTileRows;
+        const uint32_t sq = base + L::kRing + s * L::kStage;
+        const uint32_t rows = base + L::kRows + s * 2 * L::kRowBytesF;
+        const long long r0 = static_cast<long long>(b * H + h) * pitch + q0;
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * L::kTile + 2 * L::kRowBytesF);
+        load_tile<HD>(sq, &tq, full(s), q0, h, b);
+        load_tile<HD>(sq + L::kTile, &tdo, full(s), q0, h, b);
+        bulk_load(rows, lse2 + r0, L::kRowBytesF, full(s));
+        bulk_load(rows + L::kRowBytesF, D + r0, L::kRowBytesF, full(s));
       }
-      __syncthreads();
-      float p[NT][4], ds[NT][4];
-      rows_dot<HD, NT, LD>(p, Ks, jr, Qs, lane);    // S^T
-      rows_dot<HD, NT, LD>(ds, Vs, jr, dOs, lane);  // dP^T
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = k0 + jr + g + (e >> 1) * 8;
-          const int il = n * 8 + 2 * t + (e & 1);
-          const float pv = visible(q0 + il, j, S, causal, window)
-                               ? expf(p[n][e] * sm_scale - ls[il])
-                               : 0.f;
-          p[n][e] = pv;
-          ds[n][e] = pv * (ds[n][e] - Ds[il]);
-        }
-      acc_cx<HD, NT / 2, LD>(dv_acc, p, dOs, lane);   // dV += P^T dO
-      acc_cx<HD, NT / 2, LD>(dk_acc, ds, Qs, lane);   // dK += dS^T Q
     }
+    return;
   }
-  store_rows<HD>(dk + b * sdk.b + kvh * sdk.h, sdk.s, dk_acc, k0 + jr, S,
-                 sm_scale, lane);
-  store_rows<HD>(dv + b * sdv.b + kvh * sdv.h, sdv.s, dv_acc, k0 + jr, S,
-                 1.f, lane);
+
+  // ---- consumer warpgroup c over the tile's 64 keys ----
+  regs_inc<kConsumerRegs>();
+  const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int key = k0 + 16 * warp + lane / 4;   // and key + 8
+  float dv[HD / 2], dk[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dv[i] = dk[i] = 0.f;
+  float st[kTileRows / 2], dpt[kTileRows / 2];
+  uint32_t pa[kTileRows / 16][4], da[kTileRows / 16][4];
+
+  mbar_wait(fixed_full, 0);
+  for (int it = c; it < n_items; it += kConsumers) {
+    const int s = it % kStages;
+    const int q0 = (qt_lo + it % nq) * kTileRows;
+    const uint32_t sq = base + L::kRing + s * L::kStage, sdo = sq + L::kTile;
+    const float* lrow = reinterpret_cast<const float*>(
+        smem + L::kRows + s * 2 * L::kRowBytesF);
+    const float* drow = lrow + kTileRows;
+    mbar_wait(full(s), (it / kStages) & 1);
+    __syncwarp();
+    wgmma_fence();
+    issue_abt<HD>(st, sk, sq);      // S^T = K Q^T
+    issue_abt<HD>(dpt, sv, sdo);    // dP^T = V dO^T
+    fence_regs(dpt);
+    wgmma_wait<1>();                // groups retire in order: S^T is done
+    fence_regs(st);
+    // P^T: register r is key `key` + 8 ((r / 2) % 2), query q0 + col(r)
+    const bool masked = tile_masked(q0, k0, S, causal, window);
+#pragma unroll
+    for (int r = 0; r < kTileRows / 2; r += 2) {
+      const int col = 8 * (r / 4) + 2 * (lane % 4);
+      const int j = key + 8 * ((r / 2) % 2);
+      const float2 l2 = *reinterpret_cast<const float2*>(lrow + col);
+      float p0 = exp2f(st[r] * scale_log2 - l2.x);
+      float p1 = exp2f(st[r + 1] * scale_log2 - l2.y);
+      if (masked) {
+        if (!visible(q0 + col, j, S, causal, window)) p0 = 0.f;
+        if (!visible(q0 + col + 1, j, S, causal, window)) p1 = 0.f;
+      }
+      st[r] = p0;
+      st[r + 1] = p1;
+    }
+    to_a_fragments(st, pa);
+    wgmma_fence();
+    issue_pb<HD>(dv, pa, sdo);      // dV += P^T dO
+    fence_regs(dv);
+    wgmma_wait<1>();                // dP^T is done
+    fence_regs(dpt);
+#pragma unroll
+    for (int r = 0; r < kTileRows / 2; r += 2) {
+      const int col = 8 * (r / 4) + 2 * (lane % 4);
+      const float2 d2 = *reinterpret_cast<const float2*>(drow + col);
+      dpt[r] = st[r] * (dpt[r] - d2.x);
+      dpt[r + 1] = st[r + 1] * (dpt[r + 1] - d2.y);
+    }
+    to_a_fragments(dpt, da);
+    wgmma_fence();
+    issue_pb<HD>(dk, da, sq);       // dK += dS^T Q
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(pa);
+    fence_regs(da);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+  // ---- epilogue: consumer 0 adds consumer 1's sums, then TMA stores ----
+  named_sync(1, 128 * kConsumers);   // both are done with the ring
+  float* red = reinterpret_cast<float*>(smem + L::kRing);
+  if (c == 1) {
+    put_partial(dv, red, tid);
+    put_partial(dk, red + (HD / 2) * 128, tid);
+  }
+  named_sync(1, 128 * kConsumers);
+  if (c == 1) return;
+  add_partial(dv, red, tid);
+  add_partial(dk, red + (HD / 2) * 128, tid);
+  const float one[2] = {1.f, 1.f}, scale[2] = {sm_scale, sm_scale};
+  write_tile<HD>(smem, dk, scale, warp, lane);            // over K
+  write_tile<HD>(smem + L::kTile, dv, one, warp, lane);   // over V
+  fence_async_smem();
+  named_sync(2, 128);
+  if (tid == 0) {
+    store_tile<HD>(&tdk, sk, k0, kvh, b);
+    store_tile<HD>(&tdv, sv, k0, kvh, b);
+    tma_store_wait();
+  }
 }
 
-// One block per (batch, head, 64 query rows): warp w owns rows 16w..16w+15;
-// S = Q K^T and dP = dO V^T for each key tile give dS in registers, the A
-// operand of dQ += dS K.
+// dQ: one block per (batch, head, 64 query rows); the longest causal rows
+// first. The producer loads Q and dO once, then streams the visible K and V
+// tiles, tile kt_lo + it into stage it % kStages. Consumer c takes tiles
+// c, c + 2, ... and for each computes S = Q K^T and dP = dO V^T (K-major in
+// shared memory), P and dS = P (dP - D) in registers (its rows' lse2 and D
+// held in registers), then dQ += dS K with dS a bf16 register A operand
+// and K read MN-major. Consumer 1's partial dQ goes to consumer 0 through
+// shared memory, as in dK/dV.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dO,
-              const float* __restrict__ lse, const float* __restrict__ D,
-              bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv,
-              Strides sdo, Strides sdq, int H, int KV, int S, int causal,
-              int window, float sm_scale) {
-  constexpr int LD = kLd<HD>;
-  constexpr int NT = kQBK / 8;
-  extern __shared__ uint4 smem_tc[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);
-  bf16* dOs = Qs + kQBQ * LD;
-  bf16* Ks = dOs + kQBQ * LD;
-  bf16* Vs = Ks + kQBK * LD;
-  float* ls = reinterpret_cast<float*>(Vs + kQBK * LD);
-  float* Ds = ls + kQBQ;
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const __grid_constant__ CUtensorMap tdq,
+                              const float* __restrict__ lse2,
+                              const float* __restrict__ D, int H, int KV,
+                              int S, int pitch, int causal, int window,
+                              float scale_log2, float sm_scale) {
+  using L = Layout<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem;
+  const uint32_t base = setup(smem_raw, smem, L::kBar);
+  const uint32_t sq = base, sdo = base + L::kTile;
+  const uint32_t fixed_full = base + L::kBar;
+  auto full = [&](int s) { return fixed_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return fixed_full + 8 * (1 + kStages + s); };
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H, kvh = h / (H / KV);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kQBQ;   // longest rows first
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3, ir = 16 * warp;
-  stage<HD, kQBQ, LD>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S);
-  stage<HD, kQBQ, LD>(dOs, dO + b * sdo.b + h * sdo.h, sdo.s, q0, S);
-  if (threadIdx.x < kQBQ) {
-    const int i = q0 + threadIdx.x;
-    ls[threadIdx.x] = i < S ? lse[static_cast<long long>(bh) * S + i] : 0.f;
-    Ds[threadIdx.x] = i < S ? D[static_cast<long long>(bh) * S + i] : 0.f;
-  }
-  const bf16* kb = k + b * sk.b + kvh * sk.h;
-  const bf16* vb = v + b * sv.b + kvh * sv.h;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTileRows;
+  // the key tiles some row of the tile can see: [kt_lo, kt_lo + n_items)
+  const int kt_lo = (window > 0 ? max(0, q0 - window + 1) : 0) / kTileRows;
+  const int k_end = causal ? min(S, q0 + kTileRows) : S;
+  const int n_items = (k_end + kTileRows - 1) / kTileRows - kt_lo;
 
-  float dq_acc[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
-
-  const int k_end = causal ? min(S, q0 + kQBQ) : S;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  for (int k0 = (k_begin / kQBK) * kQBK; k0 < k_end; k0 += kQBK) {
-    __syncthreads();   // the last tile's K and V are read (Q, dO staged)
-    stage<HD, kQBK, LD>(Ks, kb, sk.s, k0, S);
-    stage<HD, kQBK, LD>(Vs, vb, sv.s, k0, S);
-    __syncthreads();
-    float p[NT][4], ds[NT][4];
-    rows_dot<HD, NT, LD>(p, Qs, ir, Ks, lane);    // S
-    rows_dot<HD, NT, LD>(ds, dOs, ir, Vs, lane);  // dP
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int il = ir + g + (e >> 1) * 8;
-        const int j = k0 + n * 8 + 2 * t + (e & 1);
-        const float pv = visible(q0 + il, j, S, causal, window)
-                             ? expf(p[n][e] * sm_scale - ls[il])
-                             : 0.f;
-        ds[n][e] = pv * (ds[n][e] - Ds[il]);
+  if (threadIdx.x < 128) {
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(fixed_full, 2 * L::kTile);
+      load_tile<HD>(sq, &tq, fixed_full, q0, h, b);
+      load_tile<HD>(sdo, &tdo, fixed_full, q0, h, b);
+      for (int it = 0; it < n_items; ++it) {
+        const int s = it % kStages, k0 = (kt_lo + it) * kTileRows;
+        const uint32_t sk = base + L::kRing + s * L::kStage;
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * L::kTile);
+        load_tile<HD>(sk, &tk, full(s), k0, kvh, b);
+        load_tile<HD>(sk + L::kTile, &tv, full(s), k0, kvh, b);
       }
-    acc_cx<HD, NT / 2, LD>(dq_acc, ds, Ks, lane);   // dQ += dS K
+    }
+    return;
   }
-  store_rows<HD>(dq + b * sdq.b + h * sdq.h, sdq.s, dq_acc, q0 + ir, S,
-                 sm_scale, lane);
+
+  regs_inc<kConsumerRegs>();
+  const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int row = q0 + 16 * warp + lane / 4;   // and row + 8
+  const long long r0 = static_cast<long long>(bh) * pitch + row;
+  const float lr[2] = {lse2[r0], lse2[r0 + 8]};   // rows < pitch
+  const float dr[2] = {D[r0], D[r0 + 8]};
+  float dq[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+  float sc[kTileRows / 2], dp[kTileRows / 2];
+  uint32_t da[kTileRows / 16][4];
+
+  mbar_wait(fixed_full, 0);
+  for (int it = c; it < n_items; it += kConsumers) {
+    const int s = it % kStages, k0 = (kt_lo + it) * kTileRows;
+    const uint32_t sk = base + L::kRing + s * L::kStage, sv = sk + L::kTile;
+    mbar_wait(full(s), (it / kStages) & 1);
+    __syncwarp();
+    wgmma_fence();
+    issue_abt<HD>(sc, sq, sk);      // S = Q K^T
+    issue_abt<HD>(dp, sdo, sv);     // dP = dO V^T
+    fence_regs(dp);
+    wgmma_wait<1>();
+    fence_regs(sc);
+    const bool masked = tile_masked(q0, k0, S, causal, window);
+#pragma unroll
+    for (int r = 0; r < kTileRows / 2; ++r) {
+      float p = exp2f(sc[r] * scale_log2 - lr[(r / 2) % 2]);
+      if (masked && !visible(row + 8 * ((r / 2) % 2),
+                             k0 + 8 * (r / 4) + 2 * (lane % 4) + r % 2, S,
+                             causal, window))
+        p = 0.f;
+      sc[r] = p;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int r = 0; r < kTileRows / 2; ++r)
+      dp[r] = sc[r] * (dp[r] - dr[(r / 2) % 2]);
+    to_a_fragments(dp, da);
+    wgmma_fence();
+    issue_pb<HD>(dq, da, sk);       // dQ += dS K
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(da);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+  named_sync(1, 128 * kConsumers);
+  float* red = reinterpret_cast<float*>(smem + L::kRing);
+  if (c == 1) put_partial(dq, red, tid);
+  named_sync(1, 128 * kConsumers);
+  if (c == 1) return;
+  add_partial(dq, red, tid);
+  const float scale[2] = {sm_scale, sm_scale};
+  write_tile<HD>(smem, dq, scale, warp, lane);   // over Q
+  fence_async_smem();
+  named_sync(2, 128);
+  if (tid == 0) {
+    store_tile<HD>(&tdq, sq, q0, h, b);
+    tma_store_wait();
+  }
 }
 
+// the two kernels after the delta kernel; D and lse2 as it wrote them
 template <int HD>
-int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* dO,
-           const float* lse, const float* D, bf16* dq, bf16* dk, bf16* dv,
-           const Strides* st, int B, int H, int KV, int S, int causal,
-           int window, float sm_scale, cudaStream_t stream) {
-  constexpr int kSmemKv = dkdv_smem_bytes<HD>();
+int launch(const void* q, const void* k, const void* v, const void* dO,
+           const float* lse2, const float* D, void* dq, void* dk, void* dv,
+           const Strides* st, int B, int H, int KV, int S, int pitch,
+           int causal, int window, float sm_scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo, mdq, mdk, mdv;
+  int res = make_map(&mq, q, st[0], B, H, S, HD, kTileRows);
+  if (res == 0) res = make_map(&mk, k, st[1], B, KV, S, HD, kTileRows);
+  if (res == 0) res = make_map(&mv, v, st[2], B, KV, S, HD, kTileRows);
+  if (res == 0) res = make_map(&mdo, dO, st[4], B, H, S, HD, kTileRows);
+  if (res == 0) res = make_map(&mdq, dq, st[5], B, H, S, HD, kTileRows);
+  if (res == 0) res = make_map(&mdk, dk, st[6], B, KV, S, HD, kTileRows);
+  if (res == 0) res = make_map(&mdv, dv, st[7], B, KV, S, HD, kTileRows);
+  if (res != 0) return kTensorMapError + res;
+  constexpr int kSmem = Layout<HD>::kAlloc;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_mma_kernel<HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemKv);
+      flash_bwd_dkdv_wgmma_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_kv(B * KV, (S + kKvBK - 1) / kKvBK);
-  flash_bwd_dkdv_mma_kernel<HD><<<grid_kv, kThreads, kSmemKv, stream>>>(
-      q, k, v, dO, lse, D, dk, dv, st[0], st[1], st[2], st[4], st[6], st[7],
-      H, KV, S, causal, window, sm_scale);
+  const int tiles = (S + kTileRows - 1) / kTileRows;
+  const float scale_log2 = sm_scale * 1.4426950408889634f;
+  flash_bwd_dkdv_wgmma_kernel<HD>
+      <<<dim3(B * KV, tiles), kThreads, kSmem, stream>>>(
+          mq, mk, mv, mdo, mdk, mdv, lse2, D, H, KV, S, pitch, causal,
+          window, scale_log2, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int kSmemQ = dq_smem_bytes<HD>();
-  err = cudaFuncSetAttribute(
-      flash_bwd_dq_mma_kernel<HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemQ);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_q(B * H, (S + kQBQ - 1) / kQBQ);
-  flash_bwd_dq_mma_kernel<HD><<<grid_q, kThreads, kSmemQ, stream>>>(
-      q, k, v, dO, lse, D, dq, st[0], st[1], st[2], st[4], st[5], H, KV, S,
-      causal, window, sm_scale);
+  flash_bwd_dq_wgmma_kernel<HD>
+      <<<dim3(B * H, tiles), kThreads, kSmem, stream>>>(
+          mq, mk, mv, mdo, mdq, lse2, D, H, KV, S, pitch, causal, window,
+          scale_log2, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace tc
+}  // namespace wg
 
+// D (and for bf16 lse2), then the type's dK/dV and dQ kernels. fp32: D is
+// (B H, S); bf16: D and then lse2, each (B H, pitch) with pitch S rounded
+// up to 64, so that the wgmma kernels copy whole 64-row slices of them.
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dO, const float* lse, float* D, void* dq, void* dk,
            void* dv, const Strides* st, int B, int H, int KV, int S,
            int causal, int window, float sm_scale, cudaStream_t stream) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
+  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
+  const int pitch = kBf16 ? (S + hopper::kTileRows - 1) / hopper::kTileRows *
+                                hopper::kTileRows
+                          : S;
+  const long long rows = static_cast<long long>(B) * H * pitch;
+  float* lse2 = kBf16 ? D + rows : nullptr;
   const T* gt = static_cast<const T*>(dO);
-  const long long rows = static_cast<long long>(B) * H * S;
   flash_bwd_delta_kernel<T, HD><<<static_cast<unsigned>(
                                       (rows + kWarps - 1) / kWarps),
                                   kThreads, 0, stream>>>(
-      static_cast<const T*>(o), gt, D, st[3], st[4], H, S, rows);
+      static_cast<const T*>(o), gt, lse, D, lse2, st[3], st[4], H, S, pitch,
+      rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if constexpr (std::is_same_v<T, __nv_bfloat16>)
-    return tc::launch<HD>(qt, kt, vt, gt, lse, D, static_cast<T*>(dq),
-                          static_cast<T*>(dk), static_cast<T*>(dv), st, B, H,
-                          KV, S, causal, window, sm_scale, stream);
-  else {
+  if constexpr (kBf16) {
+    return wg::launch<HD>(q, k, v, dO, lse2, D, dq, dk, dv, st, B, H, KV, S,
+                          pitch, causal, window, sm_scale, stream);
+  } else {
+    const T* qt = static_cast<const T*>(q);
+    const T* kt = static_cast<const T*>(k);
+    const T* vt = static_cast<const T*>(v);
     constexpr int kSmemKv = dkdv_smem_floats<HD>() * sizeof(float);
     err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, HD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -786,9 +888,12 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dO, dq, dk, dv all of it);
 // hd 64 or 128. `strides` holds 24 element strides, (batch, head, row) of
 // q, k, v, o, dO, dq, dk and dv in turn; hd's stride is 1, every pointer
-// and stride a multiple of 16 bytes. lse (B, H, S) fp32 is the forward's;
-// D is an fp32 scratch of B * H * S. Returns cudaGetLastError() after the
-// launches (0 on success); they run on `stream` and do not sync.
+// and stride a multiple of 16 bytes. lse (B, H, S) fp32 is the forward's.
+// D is an fp32 scratch of B H S floats (float32) or 2 B H pitch floats,
+// pitch = S rounded up to a multiple of 64 (bfloat16). Returns
+// cudaGetLastError() after the launches (0 on success), or, where a tensor
+// map is refused, 10000 + its CUresult; they run on `stream` and do not
+// sync.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dO, const void* lse, void* D,

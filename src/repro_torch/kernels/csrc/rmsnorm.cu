@@ -62,6 +62,9 @@ namespace {
 constexpr int kMaxThreads = 1024;
 constexpr int kBaseThreads = 128;  // threads per row while PPT <= kMaxPPT
 constexpr int kMaxPPT = 8;         // packs per thread held in registers
+constexpr int kBwdBaseThreads = 384;  // the backward's threads per row
+constexpr int kStages = 2;            // rows a team holds: current and next
+constexpr int kMaxBwdThreads = 512;   // ... at most, with 16-byte packs
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -150,76 +153,214 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// The backward of one row per iteration over rows blockIdx.x + k gridDim.x.
-// ADD: g_s (the upstream gradient of s) is added to dx. partial gets this
-// block's sum over its rows of dy xhat, per column.
-template <typename T, int VEC, int PPT, bool ADD>
-__global__ void __launch_bounds__(VEC == 1 ? kMaxThreads : 256)
+// dscale[c] = the sum over the blocks of their acc[c], in one order for a
+// given grid. Each block writes its acc as row blockIdx.x of `scratch`
+// (n_blocks x d fp32) and waits at a grid barrier; then block b sums the
+// columns of slice b, [b w, (b + 1) w) for w = ceil(d / n_blocks), over
+// all n rows: its threads are (row lane, column) pairs, the column
+// fastest, so that a warp reads whole runs of a row; lane l sums rows l,
+// l + R, ... in order, and the R lanes of a column meet in a fixed tree in
+// shared memory. So every block shares the last step, and two launches give
+// the same bits. The launch is cooperative: every block is resident at
+// once, or the launch is refused.
+// The barrier: counters[0] counts arrivals and counters[kGenWord] (on
+// another cache line) is a generation number; the last block to arrive
+// sets counters[0] back to 0 (so the launch can be replayed, as from a
+// CUDA graph) and then moves the generation on, which the others wait for.
+constexpr int kGenWord = 32;
+
+__device__ void grid_barrier(unsigned* counters) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = counters + kGenWord;
+    const unsigned seen = *gen;
+    // this block's stores, then its arrival: thread 0's fence after the
+    // barrier orders every thread's stores (the fence is cumulative)
+    __threadfence();
+    if (atomicAdd(counters, 1u) == gridDim.x - 1) {
+      counters[0] = 0u;
+      __threadfence();
+      atomicAdd(counters + kGenWord, 1u);
+    } else {
+      while (*gen == seen) __nanosleep(32);
+    }
+    __threadfence();   // the other blocks' rows, before this block's reads
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__device__ void reduce_dscale(const float* acc, float* scratch,
+                              unsigned* counters, T* dscale, int n, int d) {
+  if (n == 1) {   // one block: its acc is dscale
+    for (int c = threadIdx.x; c < d; c += blockDim.x)
+      dscale[c] = from_f32<T>(acc[c]);
+    return;
+  }
+  float* row = scratch + static_cast<size_t>(blockIdx.x) * d;
+  for (int c = threadIdx.x; c < d; c += blockDim.x) row[c] = acc[c];
+  grid_barrier(counters);
+  __shared__ float part[kMaxThreads];
+  const int w = (d + n - 1) / n;
+  const int lo = min(d, static_cast<int>(blockIdx.x) * w);
+  const int hi = min(d, lo + w);
+  const int nt = blockDim.x;
+  for (int c0 = lo; c0 < hi; c0 += nt) {
+    const int cw = min(hi - c0, nt);
+    int lanes = 1;   // row lanes: a power of 2, lanes x cw <= threads
+    while (2 * lanes * cw <= nt) lanes *= 2;
+    const int c = threadIdx.x % cw, rl = threadIdx.x / cw;
+    __syncthreads();   // part is free
+    if (rl < lanes) {
+      float t = 0.f;
+#pragma unroll 4
+      for (int r = rl; r < n; r += lanes)
+        t += __ldcg(scratch + static_cast<size_t>(r) * d + c0 + c);
+      part[rl * cw + c] = t;
+    }
+    for (int half = lanes / 2; half > 0; half /= 2) {
+      __syncthreads();
+      if (rl < half) part[rl * cw + c] += part[(rl + half) * cw + c];
+    }
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) < cw)
+      dscale[c0 + threadIdx.x] = from_f32<T>(part[threadIdx.x]);
+  }
+}
+
+// one pack of a row into this thread's slot of the shared ring: cp.async
+// for a 16-byte pack (it lands while the thread works on the row before),
+// a plain copy otherwise
+template <typename T, int VEC>
+__device__ __forceinline__ void copy_pack(T* dst, const T* src) {
+  if constexpr (sizeof(T) * VEC == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                     static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                 "l"(src)
+                 : "memory");
+  } else {
+    *reinterpret_cast<Pack<T, VEC>*>(dst) =
+        *reinterpret_cast<const Pack<T, VEC>*>(src);
+  }
+}
+
+// The backward, one launch. A persistent grid of blocks, each of TEAMS
+// teams (a whole block, or one warp each when a row takes one warp's
+// packs); a team walks rows team_id, team_id + teams in all, .... Each
+// thread copies the packs of the team's next row (x or s, dy and, ADD,
+// g_s) into its own slots of a two-stage ring in shared memory with
+// cp.async while it reduces and writes the current row, and waits only for
+// its own copies (cp.async.wait_group): no barrier guards the ring. (Four
+// stages, with two blocks of 384 threads an SM, measured no faster.) ADD:
+// g_s (the upstream gradient of s) is added to dx before its one rounding.
+// Each thread sums dy xhat for the columns of its packs in registers; at
+// the end the teams' sums are added in team order, and dscale is reduced
+// across the blocks (reduce_dscale).
+template <typename T, int VEC, int PPT, int TEAMS, bool ADD>
+__global__ void __launch_bounds__(VEC == 1 ? kMaxThreads : kMaxBwdThreads)
     norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ scale,
                     const T* __restrict__ dy, const T* __restrict__ g_s,
-                    T* __restrict__ dx, float* __restrict__ partial, int N,
-                    int d, float eps) {
+                    T* __restrict__ dx, float* __restrict__ scratch,
+                    unsigned* __restrict__ counters, T* __restrict__ dscale,
+                    int N, int d, float eps) {
   using P = Pack<T, VEC>;
+  constexpr int kTensors = ADD ? 3 : 2;
   const int n_pack = d / VEC;
+  const int tpt = blockDim.x / TEAMS;   // threads a team
+  const int team = threadIdx.x / tpt, tt = threadIdx.x % tpt;
+  extern __shared__ float4 smem4[];
+  // this team's ring: stage s, tensor j at ring + (s * kTensors + j) * d
+  T* ring = reinterpret_cast<T*>(smem4) + team * kStages * kTensors * d;
   const P* sr = reinterpret_cast<const P*>(scale);
   P sc[PPT];
-  float acc[PPT][VEC];
+  float acc[PPT][VEC];   // this thread's columns of sum dy xhat
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const int i = threadIdx.x + k * blockDim.x;
+    const int i = tt + k * tpt;
     if (i < n_pack) sc[k] = sr[i];
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[k][e] = 0.f;
   }
+  auto issue = [&](int n, int s) {
+    const size_t row = static_cast<size_t>(n) * d;
+    T* st = ring + s * kTensors * d;
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const int i = tt + k * tpt;
+      if (i < n_pack) {
+        copy_pack<T, VEC>(st + i * VEC, x + row + i * VEC);
+        copy_pack<T, VEC>(st + d + i * VEC, dy + row + i * VEC);
+        if constexpr (ADD)
+          copy_pack<T, VEC>(st + 2 * d + i * VEC, g_s + row + i * VEC);
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
   __shared__ float2 red[kMaxThreads / 32];
   __shared__ float2 tot;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int n = blockIdx.x; n < N; n += gridDim.x) {
-    const size_t row = static_cast<size_t>(n) * d;
-    const P* xr = reinterpret_cast<const P*>(x + row);
-    const P* gr = reinterpret_cast<const P*>(dy + row);
-    P v[PPT], g[PPT];
+  const int stride = gridDim.x * TEAMS;
+  int n = blockIdx.x * TEAMS + team;
+  // rows n, n + stride, ... alternate between the two stages: the next
+  // row is in flight while this one is reduced; a group is committed for
+  // every row slot, empty past N, so that waiting for all but the newest
+  // group is waiting for the current row
+  if (n < N) issue(n, 0);
+  for (int s = 0; n < N; n += stride, s ^= 1) {
+    if (n + stride < N)
+      issue(n + stride, s ^ 1);
+    else
+      asm volatile("cp.async.commit_group;" ::: "memory");
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    const T* xs = ring + s * kTensors * d;
     float ss = 0.f, sd = 0.f;   // sum x^2, sum dy w x
 #pragma unroll
     for (int k = 0; k < PPT; ++k) {
-      const int i = threadIdx.x + k * blockDim.x;
+      const int i = tt + k * tpt;
       if (i < n_pack) {
-        v[k] = xr[i];
-        g[k] = gr[i];
+        const P v = *reinterpret_cast<const P*>(xs + i * VEC);
+        const P g = *reinterpret_cast<const P*>(xs + d + i * VEC);
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
-          const float f = to_f32(v[k].v[e]);
+          const float f = to_f32(v.v[e]);
           ss += f * f;
-          sd += to_f32(g[k].v[e]) * to_f32(sc[k].v[e]) * f;
+          sd += to_f32(g.v[e]) * to_f32(sc[k].v[e]) * f;
         }
       }
     }
     ss = warp_sum(ss);
     sd = warp_sum(sd);
-    if (lane == 0) red[warp] = make_float2(ss, sd);
-    __syncthreads();
-    if (warp == 0) {
-      float2 t = lane < static_cast<int>(blockDim.x >> 5)
-                     ? red[lane] : make_float2(0.f, 0.f);
-      t.x = warp_sum(t.x);
-      t.y = warp_sum(t.y);
-      if (lane == 0) tot = t;
+    if constexpr (TEAMS == 1) {
+      if (lane == 0) red[warp] = make_float2(ss, sd);
+      __syncthreads();
+      if (warp == 0) {
+        float2 t = lane < static_cast<int>(blockDim.x >> 5)
+                       ? red[lane] : make_float2(0.f, 0.f);
+        t.x = warp_sum(t.x);
+        t.y = warp_sum(t.y);
+        if (lane == 0) tot = t;
+      }
+      __syncthreads();
+      ss = tot.x;
+      sd = tot.y;
     }
-    __syncthreads();
-    const float r = rsqrtf(tot.x / static_cast<float>(d) + eps);
+    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
     // mean(dy w xhat) = r sum(dy w x) / d
-    const float c = r * tot.y / static_cast<float>(d);
+    const float c = r * sd / static_cast<float>(d);
+    const size_t row = static_cast<size_t>(n) * d;
 #pragma unroll
     for (int k = 0; k < PPT; ++k) {
-      const int i = threadIdx.x + k * blockDim.x;
+      const int i = tt + k * tpt;
       if (i < n_pack) {
+        const P v = *reinterpret_cast<const P*>(xs + i * VEC);
+        const P g = *reinterpret_cast<const P*>(xs + d + i * VEC);
         P gs;
-        if constexpr (ADD) gs = reinterpret_cast<const P*>(g_s + row)[i];
+        if constexpr (ADD) gs = *reinterpret_cast<const P*>(xs + 2 * d + i * VEC);
         P o;
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
-          const float xh = to_f32(v[k].v[e]) * r;
-          const float gy = to_f32(g[k].v[e]);
+          const float xh = to_f32(v.v[e]) * r;
+          const float gy = to_f32(g.v[e]);
           float t = r * (gy * to_f32(sc[k].v[e]) - xh * c);
           if constexpr (ADD) t = to_f32(gs.v[e]) + t;
           o.v[e] = from_f32<T>(t);
@@ -229,43 +370,30 @@ __global__ void __launch_bounds__(VEC == 1 ? kMaxThreads : 256)
       }
     }
   }
-  float* pr = partial + static_cast<size_t>(blockIdx.x) * d;
+  // the teams' sums, as rows of d floats over the ring
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+  float* block_acc = reinterpret_cast<float*>(smem4);
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const int i = threadIdx.x + k * blockDim.x;
+    const int i = tt + k * tpt;
     if (i < n_pack) {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) pr[i * VEC + e] = acc[k][e];
+      for (int e = 0; e < VEC; ++e)
+        block_acc[team * d + i * VEC + e] = acc[k][e];
     }
   }
-}
-
-// dscale[c] = sum over b < n_blocks of partial[b][c]: a block of 32
-// columns x kRedSlices slices, slice i summing rows b = i mod kRedSlices in
-// order, then the slices' sums added in order of slice
-constexpr int kRedCols = 32;
-constexpr int kRedSlices = 16;
-
-template <typename T>
-__global__ void __launch_bounds__(kRedCols * kRedSlices)
-    dscale_kernel(const float* __restrict__ partial, T* __restrict__ dscale,
-                  int n_blocks, int d) {
-  __shared__ float part[kRedSlices][kRedCols + 1];
-  const int c = blockIdx.x * kRedCols + threadIdx.x;
-  float s = 0.f;
-  if (c < d) {
-#pragma unroll 4
-    for (int b = threadIdx.y; b < n_blocks; b += kRedSlices)
-      s += partial[static_cast<size_t>(b) * d + c];
-  }
-  part[threadIdx.y][threadIdx.x] = s;
   __syncthreads();
-  if (threadIdx.y == 0 && c < d) {
-    float t = 0.f;
+  if constexpr (TEAMS > 1) {
+    for (int col = threadIdx.x; col < d; col += blockDim.x) {
+      float t = block_acc[col];
 #pragma unroll
-    for (int i = 0; i < kRedSlices; ++i) t += part[i][threadIdx.x];
-    dscale[c] = from_f32<T>(t);
+      for (int j = 1; j < TEAMS; ++j) t += block_acc[j * d + col];
+      block_acc[col] = t;
+    }
+    __syncthreads();
   }
+  reduce_dscale<T>(block_acc, scratch, counters, dscale, gridDim.x, d);
 }
 
 inline bool aligned16(const void* p) {
@@ -334,57 +462,120 @@ int dispatch(const void* x, const void* delta, const void* scale,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The backward's block: kBwdBaseThreads threads while the row fits in
+// bwd_max_ppt(VEC) packs each, more beyond, a multiple of 32; a row of one
+// warp's packs goes to a team of one warp, four teams a block.
+// repro_torch/kernels/rmsnorm.py::bwd_threads computes the same.
+constexpr int bwd_max_ppt(int vec) { return vec == 1 ? kMaxPPT : 4; }
+constexpr int kTeams = 4;
+
+template <typename T, int VEC, int PPT, int TEAMS, bool ADD>
+int launch_bwd_kernel(const T* x, const T* scale, const T* dy, const T* g_s,
+                      T* dx, float* scratch, unsigned* counters, T* dscale,
+                      int N, int d, float eps, int n_blocks, int threads,
+                      cudaStream_t s) {
+  // the teams' rings, which at the end hold their sums (d floats each)
+  const int smem = TEAMS * d * kStages * (ADD ? 3 : 2) *
+                   static_cast<int>(sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(
+      norm_bwd_kernel<T, VEC, PPT, TEAMS, ADD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // cooperative: all blocks resident at once, or an error (the grid
+  // barrier of reduce_dscale needs every block running); n_blocks is cut
+  // to what fits the card, a function of the kernel and the card alone
+  int per_sm = 0, device = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, norm_bwd_kernel<T, VEC, PPT, TEAMS, ADD>, threads, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  n_blocks = min(n_blocks, per_sm * sms);
+  if (n_blocks <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, norm_bwd_kernel<T, VEC, PPT, TEAMS, ADD>,
+                           x, scale, dy, g_s, dx, scratch, counters, dscale,
+                           N, d, eps);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int VEC, bool ADD>
 int launch_bwd_packs(const void* x, const void* scale, const void* dy,
-                     const void* g_s, void* dx, float* partial, void* dscale,
-                     int N, int d, float eps, int n_blocks, cudaStream_t s) {
+                     const void* g_s, void* dx, float* scratch,
+                     unsigned* counters, void* dscale, int N, int d,
+                     float eps, int n_blocks, cudaStream_t s) {
   const int n_pack = d / VEC;
-  int ppt = (n_pack + kBaseThreads - 1) / kBaseThreads;
-  if (ppt > kMaxPPT) ppt = kMaxPPT;
+  int ppt = (n_pack + kBwdBaseThreads - 1) / kBwdBaseThreads;
+  if (ppt > bwd_max_ppt(VEC)) ppt = bwd_max_ppt(VEC);
   const int threads = ((n_pack + ppt - 1) / ppt + 31) / 32 * 32;
-  if (threads > (VEC == 1 ? kMaxThreads : 256))
+  if (threads > (VEC == 1 ? kMaxThreads : kMaxBwdThreads))
     return static_cast<int>(cudaErrorInvalidValue);
   const T* xt = static_cast<const T*>(x);
   const T* st = static_cast<const T*>(scale);
   const T* gt = static_cast<const T*>(dy);
   const T* gst = static_cast<const T*>(g_s);
   T* dt = static_cast<T*>(dx);
+  T* ds = static_cast<T*>(dscale);
+  if (threads == 32)
+    return launch_bwd_kernel<T, VEC, 1, kTeams, ADD>(
+        xt, st, gt, gst, dt, scratch, counters, ds, N, d, eps, n_blocks,
+        32 * kTeams, s);
   switch (ppt) {
 #define REPRO_NORM_BWD_CASE(K)                                              \
   case K:                                                                   \
-    norm_bwd_kernel<T, VEC, K, ADD><<<n_blocks, threads, 0, s>>>(           \
-        xt, st, gt, gst, dt, partial, N, d, eps);                           \
-    break;
+    return launch_bwd_kernel<T, VEC, K, 1, ADD>(xt, st, gt, gst, dt,        \
+                                                scratch, counters, ds, N, d, \
+                                                eps, n_blocks, threads, s);
     REPRO_NORM_BWD_CASE(1)
     REPRO_NORM_BWD_CASE(2)
     REPRO_NORM_BWD_CASE(3)
     REPRO_NORM_BWD_CASE(4)
-    REPRO_NORM_BWD_CASE(5)
-    REPRO_NORM_BWD_CASE(6)
-    REPRO_NORM_BWD_CASE(7)
-    REPRO_NORM_BWD_CASE(8)
 #undef REPRO_NORM_BWD_CASE
   }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dscale_kernel<T><<<(d + kRedCols - 1) / kRedCols,
-                     dim3(kRedCols, kRedSlices), 0, s>>>(
-      partial, static_cast<T*>(dscale), n_blocks, d);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (VEC == 1) {
+    switch (ppt) {
+#define REPRO_NORM_BWD_CASE(K)                                              \
+  case K:                                                                   \
+    return launch_bwd_kernel<T, 1, K, 1, ADD>(xt, st, gt, gst, dt, scratch, \
+                                              counters, ds, N, d, eps,      \
+                                              n_blocks, threads, s);
+      REPRO_NORM_BWD_CASE(5)
+      REPRO_NORM_BWD_CASE(6)
+      REPRO_NORM_BWD_CASE(7)
+      REPRO_NORM_BWD_CASE(8)
+#undef REPRO_NORM_BWD_CASE
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T, bool ADD>
 int launch_bwd(const void* x, const void* scale, const void* dy,
-               const void* g_s, void* dx, float* partial, void* dscale,
-               int N, int d, float eps, int n_blocks, cudaStream_t s) {
+               const void* g_s, void* dx, float* scratch, unsigned* counters,
+               void* dscale, int N, int d, float eps, int n_blocks,
+               cudaStream_t s) {
   constexpr int kVec = 16 / sizeof(T);
   bool vec = d % kVec == 0 && aligned16(x) && aligned16(scale) &&
              aligned16(dy) && aligned16(dx);
   if (ADD) vec = vec && aligned16(g_s);
-  return vec ? launch_bwd_packs<T, kVec, ADD>(x, scale, dy, g_s, dx, partial,
-                                              dscale, N, d, eps, n_blocks, s)
-             : launch_bwd_packs<T, 1, ADD>(x, scale, dy, g_s, dx, partial,
-                                           dscale, N, d, eps, n_blocks, s);
+  return vec ? launch_bwd_packs<T, kVec, ADD>(x, scale, dy, g_s, dx, scratch,
+                                              counters, dscale, N, d, eps,
+                                              n_blocks, s)
+             : launch_bwd_packs<T, 1, ADD>(x, scale, dy, g_s, dx, scratch,
+                                           counters, dscale, N, d, eps,
+                                           n_blocks, s);
 }
 
 }  // namespace
@@ -409,29 +600,33 @@ extern "C" int add_rmsnorm_fwd(const void* x, const void* delta,
 
 // The backward of rmsnorm_fwd (g_s null) or of add_rmsnorm_fwd (x is then
 // the saved s, and g_s, which may be null when s went unused, the upstream
-// gradient of s): dx (N, d) and dscale (d,) in the call's dtype. partial is
-// an fp32 scratch of n_blocks x d, n_blocks in [1, N], the number of blocks
-// the rows are spread over (the caller fixes it from N alone, so that two
-// calls sum in one order).
+// gradient of s): dx (N, d) and dscale (d,) in the call's dtype, in one
+// launch of at most n_blocks blocks, n_blocks in [1, N] (the caller fixes
+// it from N, d and the card, so that two calls sum in one order; a block of
+// 32-thread rows holds 4 of them), fewer if not all of them fit the card at
+// once. scratch is fp32, n_blocks x d; counters 64 uint32: the first
+// zeroed (and left zeroed), the 33rd the grid barrier's generation, any
+// value.
 extern "C" int rmsnorm_bwd(const void* x, const void* scale, const void* dy,
-                           const void* g_s, void* dx, void* partial,
-                           void* dscale, int N, int d, float eps,
-                           int n_blocks, int dtype, void* stream) {
+                           const void* g_s, void* dx, void* scratch,
+                           void* counters, void* dscale, int N, int d,
+                           float eps, int n_blocks, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N <= 0 || d <= 0 || n_blocks <= 0 || n_blocks > N)
     return static_cast<int>(cudaErrorInvalidValue);
-  float* p = static_cast<float*>(partial);
+  float* p = static_cast<float*>(scratch);
+  unsigned* c = static_cast<unsigned*>(counters);
   if (dtype == 0)
-    return g_s ? launch_bwd<float, true>(x, scale, dy, g_s, dx, p, dscale, N,
-                                         d, eps, n_blocks, s)
-               : launch_bwd<float, false>(x, scale, dy, g_s, dx, p, dscale,
-                                          N, d, eps, n_blocks, s);
+    return g_s ? launch_bwd<float, true>(x, scale, dy, g_s, dx, p, c, dscale,
+                                         N, d, eps, n_blocks, s)
+               : launch_bwd<float, false>(x, scale, dy, g_s, dx, p, c,
+                                          dscale, N, d, eps, n_blocks, s);
   if (dtype == 1)
-    return g_s ? launch_bwd<__nv_bfloat16, true>(x, scale, dy, g_s, dx, p,
+    return g_s ? launch_bwd<__nv_bfloat16, true>(x, scale, dy, g_s, dx, p, c,
                                                  dscale, N, d, eps, n_blocks,
                                                  s)
                : launch_bwd<__nv_bfloat16, false>(x, scale, dy, g_s, dx, p,
-                                                  dscale, N, d, eps,
+                                                  c, dscale, N, d, eps,
                                                   n_blocks, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

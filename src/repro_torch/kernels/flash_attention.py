@@ -31,6 +31,10 @@ launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (64, 128)
 
+#: rows of the bf16 backward's tiles; its D and lse scratch rows are padded
+#: to a multiple of it
+TILE_ROWS = 64
+
 
 def reset_launches() -> None:
     for k in launches:
@@ -88,10 +92,21 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     return (o, lse) if with_lse else o
 
 
+def bwd_scratch_shape(B: int, H: int, S: int, dtype: torch.dtype):
+    """The fp32 scratch of the backward: D = rowsum(dO o) per query row,
+    (B H, S) for float32; for bfloat16 D and the rows' lse in log2 units,
+    each (B H, S rounded up to TILE_ROWS), which the wgmma kernels copy a
+    whole tile's rows at a time."""
+    if dtype == torch.float32:
+        return (B * H, S)
+    return (2, B * H, -(-S // TILE_ROWS) * TILE_ROWS)
+
+
 def _launch_bwd(q, k, v, o, lse, do, causal: bool, sliding_window: int):
     B, H, S, hd = q.shape
     dq, dk, dv = _bshd_like(q), _bshd_like(k), _bshd_like(v)
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty(bwd_scratch_shape(B, H, S, q.dtype),
+                        dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*(
         st for t in (q, k, v, o, do, dq, dk, dv) for st in t.stride()[:3]))
     with torch.cuda.device(q.device):

@@ -13,7 +13,7 @@ backward kernel; elsewhere (serving, under no_grad) the launch runs alone.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -27,9 +27,12 @@ launches: Dict[str, int] = {"rmsnorm": 0, "add_rmsnorm": 0,
 #: the longest row the kernels hold in registers
 MAX_D = 8192
 
-#: the most blocks a backward spreads its rows over (four of 128 threads
-#: per SM of an H100); each writes one fp32 row of dscale partial sums
-BWD_BLOCKS = 528
+#: threads per SM the backward's persistent grid aims at (two blocks of
+#: 384 at d = 3072 in bf16)
+BWD_THREADS_PER_SM = 768
+
+#: rows a block of the backward holds at once when a row takes one warp
+BWD_TEAMS = 4
 
 
 def reset_launches() -> None:
@@ -43,7 +46,8 @@ def _lib() -> ctypes.CDLL:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rmsnorm_fwd.argtypes = [P, P, P, I, I, F, I, P]
         lib.add_rmsnorm_fwd.argtypes = [P, P, P, P, P, I, I, F, I, P]
-        lib.rmsnorm_bwd.argtypes = [P, P, P, P, P, P, P, I, I, F, I, I, P]
+        lib.rmsnorm_bwd.argtypes = [P, P, P, P, P, P, P, P, I, I, F, I, I,
+                                    P]
         lib.rmsnorm_fwd.restype = lib.add_rmsnorm_fwd.restype = ctypes.c_int
         lib.rmsnorm_bwd.restype = ctypes.c_int
     return lib
@@ -208,21 +212,77 @@ def _launch_add(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
     return s, y
 
 
+def bwd_threads(d: int, elt: int) -> int:
+    """Threads a row of the backward, for rows of d elements of elt bytes,
+    as ``csrc/rmsnorm.cu``'s launch_bwd_packs picks them: 16-byte packs when
+    d allows, at most 4 of them a thread (8 single elements), 384 threads
+    while that holds the row, a multiple of 32."""
+    vec = 16 // elt if d % (16 // elt) == 0 else 1
+    n_pack = d // vec
+    ppt = min(-(-n_pack // 384), 8 if vec == 1 else 4)
+    return -(-(-(-n_pack // ppt)) // 32) * 32
+
+
+def bwd_teams(d: int, elt: int) -> int:
+    """Rows a block of the backward holds at once: BWD_TEAMS when a row
+    takes one warp, else 1."""
+    return BWD_TEAMS if bwd_threads(d, elt) == 32 else 1
+
+
+def bwd_grid(N: int, d: int, elt: int, sm_count: int) -> int:
+    """Blocks of the backward's persistent grid: BWD_THREADS_PER_SM threads'
+    worth a SM (1 to 16 blocks), at most one row for each team. Fixed by N,
+    d and the card, so that two calls sum dscale in one order."""
+    teams = bwd_teams(d, elt)
+    block = bwd_threads(d, elt) * teams
+    per_sm = max(1, min(16, BWD_THREADS_PER_SM // block))
+    return min(-(-N // teams), per_sm * sm_count)
+
+
+def dscale_slices(n_blocks: int, d: int) -> List[Tuple[int, int]]:
+    """The columns [lo, hi) of dscale that each block of the backward sums
+    over the blocks' partial rows after its grid barrier (the kernel's
+    reduce_dscale): slices of ceil(d / n_blocks) columns, in block order."""
+    w = -(-d // n_blocks)
+    return [(min(d, b * w), min(d, (b + 1) * w)) for b in range(n_blocks)]
+
+
+#: per device, the backward's grid-barrier words: an arrival count (word 0),
+#: which each launch leaves at 0 (so one launch at a time may use it: the
+#: port runs on one stream; a CUDA graph may replay it), and a generation
+#: number (word 32, on another 128-byte line)
+_counters: Dict[torch.device, torch.Tensor] = {}
+_sm_count: Dict[torch.device, int] = {}
+
+
+def _bwd_counters(device: torch.device) -> torch.Tensor:
+    buf = _counters.get(device)
+    if buf is None:
+        buf = _counters[device] = torch.zeros(64, dtype=torch.int32,
+                                              device=device)
+    return buf
+
+
 def _launch_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                 g_s: Optional[torch.Tensor], eps: float,
                 name: str) -> Tuple[torch.Tensor, torch.Tensor]:
     N, d = x.shape
-    n_blocks = min(N, BWD_BLOCKS)
+    if x.device not in _sm_count:
+        _sm_count[x.device] = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+    # at most n_blocks: the kernel takes fewer if not all fit the card
+    n_blocks = bwd_grid(N, d, x.element_size(), _sm_count[x.device])
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale)
-    partial = torch.empty((n_blocks, d), dtype=torch.float32,
+    scratch = torch.empty((n_blocks, d), dtype=torch.float32,
                           device=x.device)
+    counters = _bwd_counters(x.device)
     with torch.cuda.device(x.device):
         err = _lib().rmsnorm_bwd(
             x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
             None if g_s is None else g_s.data_ptr(), dx.data_ptr(),
-            partial.data_ptr(), dscale.data_ptr(), N, d, float(eps),
-            n_blocks, _build.DTYPE_CODE[x.dtype],
+            scratch.data_ptr(), counters.data_ptr(), dscale.data_ptr(), N, d,
+            float(eps), n_blocks, _build.DTYPE_CODE[x.dtype],
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, name)
     launches[name] += 1

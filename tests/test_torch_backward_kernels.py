@@ -207,3 +207,57 @@ def test_backward_wrappers_check_their_inputs():
     with pytest.raises(TypeError):        # mixed dtypes
         trms.add_rmsnorm_bwd(torch.zeros((4, 8)), torch.ones(8),
                              None, torch.zeros((4, 8), dtype=torch.float64))
+
+
+# The launch shapes of the backward kernels, decided on the host: the norm
+# backward's persistent grid and the column slices of its dscale reduction,
+# and the flash backward's D / lse scratch.
+
+@pytest.mark.parametrize("d,elt,threads,teams", [
+    (3072, 2, 384, 1), (256, 2, 32, 4), (3072, 4, 384, 1), (256, 4, 64, 1),
+    (777, 2, 288, 1), (777, 4, 288, 1), (8192, 2, 352, 1), (8192, 4, 512, 1),
+    (64, 4, 32, 4), (4100, 2, 544, 1)])
+def test_norm_bwd_block_follows_the_kernels_rule(d, elt, threads, teams):
+    """csrc/rmsnorm.cu's launch_bwd_packs: 16-byte packs when d allows, at
+    most 4 a thread (8 single elements), 384 threads while that holds the
+    row, rounded up to a multiple of 32; rows of one warp go four to a
+    block."""
+    assert trms.bwd_threads(d, elt) == threads
+    assert trms.bwd_teams(d, elt) == teams
+
+
+@pytest.mark.parametrize("N,d,elt,sms,blocks", [
+    (2048, 3072, 2, 132, 264),     # the training path: 2 x 384 threads an SM
+    (2048, 256, 2, 132, 512),      # 4 rows a block, one each
+    (1000, 3072, 2, 132, 264),     # not a multiple of the grid
+    (1000, 256, 2, 132, 250),
+    (100, 3072, 2, 132, 100),      # at most one block a row
+    (2048, 8192, 4, 132, 132),
+    (1, 64, 4, 132, 1)])
+def test_norm_bwd_grid(N, d, elt, sms, blocks):
+    assert trms.bwd_grid(N, d, elt, sms) == blocks
+
+
+@pytest.mark.parametrize("n_blocks,d", [(264, 3072), (512, 256),
+                                        (250, 256), (132, 8192), (7, 5),
+                                        (2, 3072)])
+def test_norm_bwd_dscale_slices_cover_every_column(n_blocks, d):
+    """After the grid barrier block b sums slice b of dscale's columns over
+    every block's partial row: the slices cover each column once, in
+    order, so the sum of the partial rows over the slices is dscale."""
+    slices = trms.dscale_slices(n_blocks, d)
+    assert len(slices) == n_blocks
+    cols = [c for lo, hi in slices for c in range(lo, hi)]
+    assert cols == list(range(d))
+    partials = _normal((n_blocks, d), n_blocks + d)
+    got = np.concatenate([partials[:, lo:hi].sum(0) for lo, hi in slices])
+    np.testing.assert_allclose(got, partials.sum(0), **TOL)
+
+
+@pytest.mark.parametrize("S,dtype,shape", [
+    (512, torch.bfloat16, (2, 96, 512)), (300, torch.bfloat16, (2, 96, 320)),
+    (1, torch.bfloat16, (2, 96, 64)), (300, torch.float32, (96, 300))])
+def test_flash_bwd_scratch_shape(S, dtype, shape):
+    """fp32: D, (B H, S); bf16: D and lse in log2 units, each (B H, S)
+    padded to whole tiles of TILE_ROWS, the rows the wgmma kernels copy."""
+    assert tflash.bwd_scratch_shape(4, 24, S, dtype) == shape

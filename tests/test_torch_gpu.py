@@ -1,7 +1,8 @@
 """On the card: the port's CUDA kernels against their plain versions, one
 cohort trained through them against the same cohort on the CPU, the
 serving path on the card against the CPU, the norm and flash backward
-kernels against their plain versions, and gradients and training steps on
+kernels against their plain versions (and the norm backward under a CUDA
+graph against its eager launch), and gradients and training steps on
 the card against the CPU. Every test
 here is marked gpu and skips inside its fixture on a machine without CUDA.
 The file imports no JAX, so it runs where only PyTorch is installed:
@@ -169,6 +170,37 @@ def _flash_inputs(B, H, KV, S, hd, dtype, layout, device):
             np.float32)).to(device, tdt)
         out.append(t if layout == "bhsd" else t.transpose(1, 2))
     return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,d", [(2048, 3072), (1000, 3072), (2048, 256)])
+@pytest.mark.parametrize("variant", ["rmsnorm", "add"])
+def test_cuda_rmsnorm_bwd_graph_replay_is_eager_bitwise(cuda, N, d, variant):
+    """The norm backward is one launch whose dscale reduction resets its
+    counters: replayed from a CUDA graph, again and again, it gives the
+    bits of an eager launch on the same inputs."""
+    rng = np.random.default_rng(N + d)
+    x, dy, gs = (torch.from_numpy(rng.standard_normal((N, d)).astype(
+        np.float32)).to(cuda, torch.bfloat16) for _ in range(3))
+    sc = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    if variant == "rmsnorm":
+        run = lambda: trms.rmsnorm_bwd(x, sc, dy)
+    else:
+        run = lambda: trms.add_rmsnorm_bwd(x, sc, gs, dy)
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, eager))
 
 
 @pytest.mark.gpu

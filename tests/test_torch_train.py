@@ -4,7 +4,10 @@ loss-chunked), the in-place AdamW step, clip_by_global_norm and the
 schedules, `launch/train.py::token_batches`, remat, and `fl/llm_fleet.py`'s
 client streams and rounds. Params are made by the reference and carried
 over through numpy; the config is the fp32 smoke cut of llama3.2-3b with 2
-KV heads of 4 (GQA) and its LiteModel.
+KV heads of 4 (GQA) and its LiteModel. The train step is also held, plain
+and loss-chunked, on the smoke cuts of granite-3-8b (untied embeddings),
+granite-20b (layernorm, GELU, one KV head) and olmo-1b (non-parametric
+layernorm).
 
 Tolerances: loss, metrics, grad norm and gradients atol 1e-5, rtol 1e-4.
 New params are compared only where the reference's gradient is at least
@@ -40,13 +43,15 @@ from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
 TOL = dict(atol=1e-5, rtol=1e-4)
 
 
-def _cfgs():
-    """(reference local, lite), (port local, lite): the fp32 smoke
-    llama3.2-3b with GQA and its LiteModel, as the reference's fleet and
-    launch/train.py --smoke cut them."""
+def _cfgs(arch="llama3.2-3b"):
+    """(reference local, lite), (port local, lite): the fp32 smoke cut of
+    `arch` and its LiteModel, as the reference's fleet and launch/train.py
+    --smoke cut them; llama3.2-3b with 2 KV heads of 4 (GQA)."""
     out = []
     for get, dt in ((jget_config, jnp.float32), (tget_config, torch.float32)):
-        cfg = dataclasses.replace(get("llama3.2-3b").smoke(), n_kv_heads=2)
+        cfg = get(arch).smoke()
+        if arch == "llama3.2-3b":
+            cfg = dataclasses.replace(cfg, n_kv_heads=2)
         lite = dataclasses.replace(cfg.lite(), dtype=dt, remat=False,
                                    scan_layers=False)
         out.append((cfg, lite))
@@ -72,15 +77,35 @@ def _paths(tree, prefix=()):
 
 
 @pytest.fixture(scope="module")
-def setup():
-    (jcfg, jlite), (tcfg_, tlite) = _cfgs()
-    jstate = jstep.make_train_state(jax.random.PRNGKey(0), jcfg, jlite)
-    return jcfg, jlite, tcfg_, tlite, jax.device_get(jstate["params"])
+def setups():
+    """arch -> (reference local, lite, port local, lite, reference params),
+    each made once for the module."""
+    made = {}
+
+    def get(arch):
+        if arch not in made:
+            (jcfg, jlite), (tcfg_, tlite) = _cfgs(arch)
+            jstate = jstep.make_train_state(jax.random.PRNGKey(0), jcfg,
+                                            jlite)
+            made[arch] = (jcfg, jlite, tcfg_, tlite,
+                          jax.device_get(jstate["params"]))
+        return made[arch]
+    return get
 
 
-@pytest.mark.parametrize("mode", ["plain", "microbatch", "loss_chunk"])
-def test_train_step_matches_reference(setup, mode):
-    jcfg, jlite, tcfg_, tlite, jparams = setup
+@pytest.fixture(scope="module")
+def setup(setups):
+    return setups("llama3.2-3b")
+
+
+@pytest.mark.parametrize("arch,mode", [
+    pytest.param("llama3.2-3b", m, id=m)
+    for m in ("plain", "microbatch", "loss_chunk")] + [
+    pytest.param(a, m, id=f"{a}-{m}")
+    for a in ("granite-3-8b", "granite-20b", "olmo-1b")
+    for m in ("plain", "loss_chunk")])
+def test_train_step_matches_reference(setups, arch, mode):
+    jcfg, jlite, tcfg_, tlite, jparams = setups(arch)
     kw = {"plain": {}, "microbatch": {"microbatch": 2},
           "loss_chunk": {"loss_chunk": 8}}[mode]
     jt = jstep.TrainStepConfig(**kw)
