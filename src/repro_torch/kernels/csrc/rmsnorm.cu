@@ -39,18 +39,34 @@
 //   dx = r (dy w - xhat mean(dy w xhat)),   dscale = sum_rows dy xhat,
 // in fp32; the add variant takes s (the saved x + delta) for x and adds the
 // upstream gradient g_s of s, so d_s = g_s + dx, the gradient of both x and
-// delta, is rounded once. norm_bwd_kernel keeps the forward's layout (the
-// row, dy and the scale in registers, the same packs per thread) and walks
-// rows blockIdx.x, blockIdx.x + gridDim.x, ...; each thread sums dy xhat
-// for the columns it owns in registers and writes them to its block's row
-// of an fp32 scratch (n_blocks, d) at the end. dscale is then the sum of
-// those rows (dscale_kernel: 16 slices of rows per column, each summed in
-// order, then the slices in order): a fixed assignment and a fixed order,
-// no float atomics, so two launches give the same bits. The caller fixes
-// n_blocks from N alone (min(N, 528), four blocks of 128 threads per SM).
-// What bounds it: x (or s), dy and g_s read and dx written once, plus the
-// scratch: at (2048, 3072) bf16 the add variant moves 50.3 MB (15.0 us at
-// 3.35 TB/s) and the scratch 2 x 6.5 MB more, read back from L2 mostly.
+// delta, is rounded once.
+//
+// What bounds it: x (or s), dy and g_s read and dx written once: at (2048,
+// 3072) bf16 37.7 MB (11.3 us at 3.35 TB/s), the add variant 50.3 MB (15.0
+// us). Rows are independent but dscale sums over all of them, so the
+// blocks must meet once, and that meeting is on the critical path.
+//
+// Design (norm_bwd_kernel), one launch: a persistent grid, two blocks of
+// 384 threads an SM (rmsnorm.py::bwd_grid; fewer if they do not all fit),
+// each block three 128-thread teams at d = 3072, a team a row with the
+// forward's packs per thread; a team's warps meet at a named barrier of
+// their own, so a block reduces three rows at once. A thread copies the
+// packs of its team's next row into a two-stage ring in shared memory with
+// cp.async while it reduces the current one, and waits only for its own
+// copies; x, dy and g_s are read from device memory once. dy xhat is summed
+// per thread in registers over the team's rows, then over the teams, into
+// one fp32 row a block; after a grid barrier (the launch is cooperative, so
+// every block is resident; its counter resets itself, so the launch
+// replays in a CUDA graph) every block sums its slice of columns over the
+// blocks' rows, in row order and a fixed tree: no float atomics, one order
+// for a given grid, two launches with the same bits.
+// Measured against the first designs (chip_smoke.py's kernel_split and
+// throwaway variants, NVIDIA H100 80GB HBM3, 700.00 W, (2048, 3072) bf16):
+// the parent's two launches took 30.5 + 3.6 us; a last-block tree of
+// 8-row groups, 3 levels deep, cost 10 us after the slowest block, the grid
+// barrier with coalesced slices 4.3; one 384-thread row a block left the
+// row pass at 18.7 us, three 128-thread rows 17.7.
+// TIMES_NOTE
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,9 +78,9 @@ namespace {
 constexpr int kMaxThreads = 1024;
 constexpr int kBaseThreads = 128;  // threads per row while PPT <= kMaxPPT
 constexpr int kMaxPPT = 8;         // packs per thread held in registers
-constexpr int kBwdBaseThreads = 384;  // the backward's threads per row
-constexpr int kStages = 2;            // rows a team holds: current and next
-constexpr int kMaxBwdThreads = 512;   // ... at most, with 16-byte packs
+constexpr int kBwdBlock = 384;       // the backward's block: whole rows
+constexpr int kStages = 2;           // rows a team holds: current and next
+constexpr int kMaxBwdThreads = 512;  // a row's threads at most, 16-byte packs
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -84,6 +100,11 @@ template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
+
+// named barrier `id` over `threads` threads (id 0 is __syncthreads')
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
 
 __device__ __forceinline__ float warp_sum(float s) {
 #pragma unroll
@@ -244,9 +265,11 @@ __device__ __forceinline__ void copy_pack(T* dst, const T* src) {
   }
 }
 
-// The backward, one launch. A persistent grid of blocks, each of TEAMS
-// teams (a whole block, or one warp each when a row takes one warp's
-// packs); a team walks rows team_id, team_id + teams in all, .... Each
+// The backward, one launch. A persistent grid of blocks, each of `teams`
+// teams of tpt threads, one row's worth (a team's warps meet at a named
+// barrier of their own); a team walks rows team_id, team_id + teams in
+// all, ...: so a block reduces several rows at once, while its sums of
+// dscale are one partial row. Each
 // thread copies the packs of the team's next row (x or s, dy and, ADD,
 // g_s) into its own slots of a two-stage ring in shared memory with
 // cp.async while it reduces and writes the current row, and waits only for
@@ -256,17 +279,17 @@ __device__ __forceinline__ void copy_pack(T* dst, const T* src) {
 // Each thread sums dy xhat for the columns of its packs in registers; at
 // the end the teams' sums are added in team order, and dscale is reduced
 // across the blocks (reduce_dscale).
-template <typename T, int VEC, int PPT, int TEAMS, bool ADD>
+template <typename T, int VEC, int PPT, bool ADD>
 __global__ void __launch_bounds__(VEC == 1 ? kMaxThreads : kMaxBwdThreads)
     norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ scale,
                     const T* __restrict__ dy, const T* __restrict__ g_s,
                     T* __restrict__ dx, float* __restrict__ scratch,
                     unsigned* __restrict__ counters, T* __restrict__ dscale,
-                    int N, int d, float eps) {
+                    int N, int d, int tpt, float eps) {
   using P = Pack<T, VEC>;
   constexpr int kTensors = ADD ? 3 : 2;
   const int n_pack = d / VEC;
-  const int tpt = blockDim.x / TEAMS;   // threads a team
+  const int teams = blockDim.x / tpt;   // tpt: threads a team, a row's
   const int team = threadIdx.x / tpt, tt = threadIdx.x % tpt;
   extern __shared__ float4 smem4[];
   // this team's ring: stage s, tensor j at ring + (s * kTensors + j) * d
@@ -297,10 +320,11 @@ __global__ void __launch_bounds__(VEC == 1 ? kMaxThreads : kMaxBwdThreads)
     asm volatile("cp.async.commit_group;" ::: "memory");
   };
   __shared__ float2 red[kMaxThreads / 32];
-  __shared__ float2 tot;
+  __shared__ float2 tot[kMaxThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int stride = gridDim.x * TEAMS;
-  int n = blockIdx.x * TEAMS + team;
+  const int team_warps = tpt >> 5, first_warp = team * team_warps;
+  const int stride = gridDim.x * teams;
+  int n = blockIdx.x * teams + team;
   // rows n, n + stride, ... alternate between the two stages: the next
   // row is in flight while this one is reduced; a group is committed for
   // every row slot, empty past N, so that waiting for all but the newest
@@ -330,19 +354,19 @@ __global__ void __launch_bounds__(VEC == 1 ? kMaxThreads : kMaxBwdThreads)
     }
     ss = warp_sum(ss);
     sd = warp_sum(sd);
-    if constexpr (TEAMS == 1) {
+    if (team_warps > 1) {   // the team's warps meet at its own barrier
       if (lane == 0) red[warp] = make_float2(ss, sd);
-      __syncthreads();
-      if (warp == 0) {
-        float2 t = lane < static_cast<int>(blockDim.x >> 5)
-                       ? red[lane] : make_float2(0.f, 0.f);
+      named_sync(1 + team, tpt);
+      if (warp == first_warp) {
+        float2 t = lane < team_warps ? red[first_warp + lane]
+                                     : make_float2(0.f, 0.f);
         t.x = warp_sum(t.x);
         t.y = warp_sum(t.y);
-        if (lane == 0) tot = t;
+        if (lane == 0) tot[team] = t;
       }
-      __syncthreads();
-      ss = tot.x;
-      sd = tot.y;
+      named_sync(1 + team, tpt);
+      ss = tot[team].x;
+      sd = tot[team].y;
     }
     const float r = rsqrtf(ss / static_cast<float>(d) + eps);
     // mean(dy w xhat) = r sum(dy w x) / d
@@ -384,11 +408,10 @@ __global__ void __launch_bounds__(VEC == 1 ? kMaxThreads : kMaxBwdThreads)
     }
   }
   __syncthreads();
-  if constexpr (TEAMS > 1) {
+  if (teams > 1) {
     for (int col = threadIdx.x; col < d; col += blockDim.x) {
       float t = block_acc[col];
-#pragma unroll
-      for (int j = 1; j < TEAMS; ++j) t += block_acc[j * d + col];
+      for (int j = 1; j < teams; ++j) t += block_acc[j * d + col];
       block_acc[col] = t;
     }
     __syncthreads();
@@ -462,23 +485,25 @@ int dispatch(const void* x, const void* delta, const void* scale,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The backward's block: kBwdBaseThreads threads while the row fits in
-// bwd_max_ppt(VEC) packs each, more beyond, a multiple of 32; a row of one
-// warp's packs goes to a team of one warp, four teams a block.
-// repro_torch/kernels/rmsnorm.py::bwd_threads computes the same.
+// The backward's teams: kBaseThreads threads a row while it fits in
+// bwd_max_ppt(VEC) packs each, more beyond, a multiple of 32 (as the
+// forward), and as many rows a block as fit in kBwdBlock threads.
+// repro_torch/kernels/rmsnorm.py::bwd_threads and bwd_teams compute the
+// same.
 constexpr int bwd_max_ppt(int vec) { return vec == 1 ? kMaxPPT : 4; }
-constexpr int kTeams = 4;
+inline int bwd_teams(int tpt) { return tpt < kBwdBlock ? kBwdBlock / tpt : 1; }
 
-template <typename T, int VEC, int PPT, int TEAMS, bool ADD>
+template <typename T, int VEC, int PPT, bool ADD>
 int launch_bwd_kernel(const T* x, const T* scale, const T* dy, const T* g_s,
                       T* dx, float* scratch, unsigned* counters, T* dscale,
-                      int N, int d, float eps, int n_blocks, int threads,
+                      int N, int d, float eps, int n_blocks, int tpt,
                       cudaStream_t s) {
+  const int threads = bwd_teams(tpt) * tpt;
   // the teams' rings, which at the end hold their sums (d floats each)
-  const int smem = TEAMS * d * kStages * (ADD ? 3 : 2) *
+  const int smem = bwd_teams(tpt) * d * kStages * (ADD ? 3 : 2) *
                    static_cast<int>(sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
-      norm_bwd_kernel<T, VEC, PPT, TEAMS, ADD>,
+      norm_bwd_kernel<T, VEC, PPT, ADD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // cooperative: all blocks resident at once, or an error (the grid
@@ -486,7 +511,7 @@ int launch_bwd_kernel(const T* x, const T* scale, const T* dy, const T* g_s,
   // to what fits the card, a function of the kernel and the card alone
   int per_sm = 0, device = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, norm_bwd_kernel<T, VEC, PPT, TEAMS, ADD>, threads, smem);
+      &per_sm, norm_bwd_kernel<T, VEC, PPT, ADD>, threads, smem);
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
@@ -504,9 +529,9 @@ int launch_bwd_kernel(const T* x, const T* scale, const T* dy, const T* g_s,
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, norm_bwd_kernel<T, VEC, PPT, TEAMS, ADD>,
-                           x, scale, dy, g_s, dx, scratch, counters, dscale,
-                           N, d, eps);
+  err = cudaLaunchKernelEx(&cfg, norm_bwd_kernel<T, VEC, PPT, ADD>, x, scale,
+                           dy, g_s, dx, scratch, counters, dscale, N, d, tpt,
+                           eps);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -517,10 +542,10 @@ int launch_bwd_packs(const void* x, const void* scale, const void* dy,
                      unsigned* counters, void* dscale, int N, int d,
                      float eps, int n_blocks, cudaStream_t s) {
   const int n_pack = d / VEC;
-  int ppt = (n_pack + kBwdBaseThreads - 1) / kBwdBaseThreads;
+  int ppt = (n_pack + kBaseThreads - 1) / kBaseThreads;
   if (ppt > bwd_max_ppt(VEC)) ppt = bwd_max_ppt(VEC);
-  const int threads = ((n_pack + ppt - 1) / ppt + 31) / 32 * 32;
-  if (threads > (VEC == 1 ? kMaxThreads : kMaxBwdThreads))
+  const int tpt = ((n_pack + ppt - 1) / ppt + 31) / 32 * 32;
+  if (tpt > (VEC == 1 ? kMaxThreads : kMaxBwdThreads))
     return static_cast<int>(cudaErrorInvalidValue);
   const T* xt = static_cast<const T*>(x);
   const T* st = static_cast<const T*>(scale);
@@ -528,16 +553,12 @@ int launch_bwd_packs(const void* x, const void* scale, const void* dy,
   const T* gst = static_cast<const T*>(g_s);
   T* dt = static_cast<T*>(dx);
   T* ds = static_cast<T*>(dscale);
-  if (threads == 32)
-    return launch_bwd_kernel<T, VEC, 1, kTeams, ADD>(
-        xt, st, gt, gst, dt, scratch, counters, ds, N, d, eps, n_blocks,
-        32 * kTeams, s);
   switch (ppt) {
 #define REPRO_NORM_BWD_CASE(K)                                              \
   case K:                                                                   \
-    return launch_bwd_kernel<T, VEC, K, 1, ADD>(xt, st, gt, gst, dt,        \
-                                                scratch, counters, ds, N, d, \
-                                                eps, n_blocks, threads, s);
+    return launch_bwd_kernel<T, VEC, K, ADD>(xt, st, gt, gst, dt, scratch,  \
+                                             counters, ds, N, d, eps,       \
+                                             n_blocks, tpt, s);
     REPRO_NORM_BWD_CASE(1)
     REPRO_NORM_BWD_CASE(2)
     REPRO_NORM_BWD_CASE(3)
@@ -548,9 +569,9 @@ int launch_bwd_packs(const void* x, const void* scale, const void* dy,
     switch (ppt) {
 #define REPRO_NORM_BWD_CASE(K)                                              \
   case K:                                                                   \
-    return launch_bwd_kernel<T, 1, K, 1, ADD>(xt, st, gt, gst, dt, scratch, \
-                                              counters, ds, N, d, eps,      \
-                                              n_blocks, threads, s);
+    return launch_bwd_kernel<T, 1, K, ADD>(xt, st, gt, gst, dt, scratch,    \
+                                           counters, ds, N, d, eps,         \
+                                           n_blocks, tpt, s);
       REPRO_NORM_BWD_CASE(5)
       REPRO_NORM_BWD_CASE(6)
       REPRO_NORM_BWD_CASE(7)

@@ -28,11 +28,11 @@ launches: Dict[str, int] = {"rmsnorm": 0, "add_rmsnorm": 0,
 MAX_D = 8192
 
 #: threads per SM the backward's persistent grid aims at (two blocks of
-#: 384 at d = 3072 in bf16)
+#: three 128-thread rows at d = 3072 in bf16)
 BWD_THREADS_PER_SM = 768
 
-#: rows a block of the backward holds at once when a row takes one warp
-BWD_TEAMS = 4
+#: threads of a backward block, filled with whole rows
+BWD_BLOCK = 384
 
 
 def reset_launches() -> None:
@@ -214,25 +214,27 @@ def _launch_add(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
 
 def bwd_threads(d: int, elt: int) -> int:
     """Threads a row of the backward, for rows of d elements of elt bytes,
-    as ``csrc/rmsnorm.cu``'s launch_bwd_packs picks them: 16-byte packs when
-    d allows, at most 4 of them a thread (8 single elements), 384 threads
-    while that holds the row, a multiple of 32."""
+    as ``csrc/rmsnorm.cu``'s launch_bwd_packs picks them (as the forward
+    does): 16-byte packs when d allows, at most 4 of them a thread (8
+    single elements), 128 threads while that holds the row, a multiple of
+    32."""
     vec = 16 // elt if d % (16 // elt) == 0 else 1
     n_pack = d // vec
-    ppt = min(-(-n_pack // 384), 8 if vec == 1 else 4)
+    ppt = min(-(-n_pack // 128), 8 if vec == 1 else 4)
     return -(-(-(-n_pack // ppt)) // 32) * 32
 
 
 def bwd_teams(d: int, elt: int) -> int:
-    """Rows a block of the backward holds at once: BWD_TEAMS when a row
-    takes one warp, else 1."""
-    return BWD_TEAMS if bwd_threads(d, elt) == 32 else 1
+    """Rows a block of the backward reduces at once: as many as fit in
+    BWD_BLOCK threads, at least one."""
+    return max(1, BWD_BLOCK // bwd_threads(d, elt))
 
 
 def bwd_grid(N: int, d: int, elt: int, sm_count: int) -> int:
     """Blocks of the backward's persistent grid: BWD_THREADS_PER_SM threads'
     worth a SM (1 to 16 blocks), at most one row for each team. Fixed by N,
-    d and the card, so that two calls sum dscale in one order."""
+    d and the card, so that two calls sum dscale in one order (the kernel
+    takes fewer if not all fit the card at once)."""
     teams = bwd_teams(d, elt)
     block = bwd_threads(d, elt) * teams
     per_sm = max(1, min(16, BWD_THREADS_PER_SM // block))
