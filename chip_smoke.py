@@ -1659,10 +1659,11 @@ def _backward_ms(torch, fwd, nxt, iters):
 
 
 def kernel_split(torch, label, call, iters):
-    """Device ms per call of each kernel that `call()` launches: `iters`
-    eager calls under torch.profiler, each kernel's device time summed by
-    name and divided by `iters`; beside it the whole call's device ms from
-    CUDA events around a graph of `iters` calls. Returns {kernel: ms}."""
+    """Device ms per launch of each kernel that `call()` launches (each
+    launches once a call): `iters` eager calls under torch.profiler, each
+    kernel's device time summed by name and divided by the launches the
+    profiler recorded; beside it the whole call's device ms from CUDA events
+    around a graph of `iters` calls. Returns {kernel: ms}."""
     from torch.profiler import ProfilerActivity, profile
     total = _graph_ms(torch, call, iters)
     for _ in range(3):
@@ -1672,7 +1673,7 @@ def kernel_split(torch, label, call, iters):
         for _ in range(iters):
             call()
         torch.cuda.synchronize()
-    split = {ev.key: ev.self_device_time_total / 1e3 / iters
+    split = {ev.key: ev.self_device_time_total / 1e3 / ev.count
              for ev in prof.key_averages()
              if ev.device_type == torch.autograd.DeviceType.CUDA
              and ev.self_device_time_total > 0}

@@ -14,7 +14,9 @@
 //
 // FA2's scheme, in three kernels, with P = exp(S - lse) recomputed from the
 // scores (nothing of size S x S is stored):
-//   1. flash_bwd_delta_kernel: D = rowsum(dO o), one warp per row.
+//   1. D = rowsum(dO o): flash_bwd_delta_kernel (fp32, one warp a row) or
+//      flash_bwd_prep_kernel (bf16, 16-byte packs, which also writes the
+//      lse in log2 units on rows padded to whole tiles).
 //   2. dK/dV: one block per (batch, KV head, tile of 64 keys). It holds its
 //      K and V tile and visits, for each of the G = H / KV query heads of
 //      its group, the query tiles that can see a key of the tile: S = Q K^T,
@@ -196,30 +198,18 @@ __device__ __forceinline__ bool visible(int i, int j, int S, int causal,
          (window <= 0 || j > i - window);
 }
 
-// D[row] = sum_d dO[b, h, i, d] o[b, h, i, d] for row = (b H + h) pitch +
-// i, one warp a row; rows i in [S, pitch) get 0. Given lse2, also lse2[row]
-// = lse[(b H + h) S + i] log2(e) (0 past S): the wgmma kernels' lse in log2
-// units on the same padded rows, which they copy 64 at a time.
+// D[(b H + h) S + i] = sum_d dO[b, h, i, d] o[b, h, i, d]; one warp a row
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dO,
-                           const float* __restrict__ lse,
-                           float* __restrict__ D, float* __restrict__ lse2,
-                           Strides so, Strides sdo, int H, int S, int pitch,
-                           long long rows) {
+                           float* __restrict__ D, Strides so, Strides sdo,
+                           int H, int S, long long rows) {
   const long long row =
       static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int lane = threadIdx.x & 31;
-  const long long bh = row / pitch;
-  const int i = static_cast<int>(row % pitch);
-  if (i >= S) {
-    if (lane == 0) {
-      D[row] = 0.f;
-      if (lse2 != nullptr) lse2[row] = 0.f;
-    }
-    return;
-  }
+  const long long bh = row / S;
+  const int i = static_cast<int>(row % S);
   const int b = static_cast<int>(bh / H), h = static_cast<int>(bh % H);
   const T* orow = o + b * so.b + h * so.h + i * so.s;
   const T* grow = dO + b * sdo.b + h * sdo.h + i * sdo.s;
@@ -231,9 +221,52 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int mask = 16; mask > 0; mask >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, mask);
-  if (lane == 0) {
-    D[row] = s;
-    if (lse2 != nullptr) lse2[row] = lse[bh * S + i] * 1.4426950408889634f;
+  if (lane == 0) D[row] = s;
+}
+
+// The bf16 kernels' D and lse in log2 units, for rows (b H + h) pitch + i:
+// D = sum_d dO o and lse2 = lse log2(e) for i < S, 0 on the rows of [S,
+// pitch), which the wgmma kernels copy 64 at a time. A row is HD / 8 lanes,
+// each one 16-byte pack of o and of dO; a warp holds 32 / (HD / 8) rows.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
+                          const __nv_bfloat16* __restrict__ dO,
+                          const float* __restrict__ lse,
+                          float* __restrict__ D, float* __restrict__ lse2,
+                          Strides so, Strides sdo, int H, int S, int pitch,
+                          long long rows) {
+  constexpr int kLanes = HD / 8, kRowsPerWarp = 32 / kLanes;
+  const int lane = threadIdx.x & 31, l = lane % kLanes;
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) *
+          kRowsPerWarp + lane / kLanes;
+  const long long bh = row / pitch;
+  const int i = static_cast<int>(row % pitch);
+  const bool live = row < rows && i < S;
+  float s = 0.f;
+  if (live) {
+    const int b = static_cast<int>(bh / H), h = static_cast<int>(bh % H);
+    const uint4 a = *reinterpret_cast<const uint4*>(
+        o + b * so.b + h * so.h + i * so.s + 8 * l);
+    const uint4 g = *reinterpret_cast<const uint4*>(
+        dO + b * sdo.b + h * sdo.h + i * sdo.s + 8 * l);
+    const uint32_t av[4] = {a.x, a.y, a.z, a.w}, gv[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 af = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&av[j]));
+      const float2 gf = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&gv[j]));
+      s += af.x * gf.x + af.y * gf.y;
+    }
+  }
+#pragma unroll
+  for (int mask = kLanes / 2; mask > 0; mask >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, mask);
+  if (row < rows && l == 0) {
+    D[row] = live ? s : 0.f;
+    lse2[row] = live ? lse[bh * S + i] * 1.4426950408889634f : 0.f;
   }
 }
 
@@ -837,23 +870,31 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            void* dv, const Strides* st, int B, int H, int KV, int S,
            int causal, int window, float sm_scale, cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
-  const int pitch = kBf16 ? (S + hopper::kTileRows - 1) / hopper::kTileRows *
-                                hopper::kTileRows
-                          : S;
-  const long long rows = static_cast<long long>(B) * H * pitch;
-  float* lse2 = kBf16 ? D + rows : nullptr;
   const T* gt = static_cast<const T*>(dO);
-  flash_bwd_delta_kernel<T, HD><<<static_cast<unsigned>(
-                                      (rows + kWarps - 1) / kWarps),
-                                  kThreads, 0, stream>>>(
-      static_cast<const T*>(o), gt, lse, D, lse2, st[3], st[4], H, S, pitch,
-      rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
   if constexpr (kBf16) {
+    const int pitch = (S + hopper::kTileRows - 1) / hopper::kTileRows *
+                      hopper::kTileRows;
+    const long long rows = static_cast<long long>(B) * H * pitch;
+    constexpr int kRowsPerBlock = kWarps * 32 / (HD / 8);
+    float* lse2 = D + rows;
+    flash_bwd_prep_kernel<HD><<<static_cast<unsigned>(
+                                    (rows + kRowsPerBlock - 1) /
+                                    kRowsPerBlock),
+                                kThreads, 0, stream>>>(
+        static_cast<const T*>(o), gt, lse, D, lse2, st[3], st[4], H, S,
+        pitch, rows);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
     return wg::launch<HD>(q, k, v, dO, lse2, D, dq, dk, dv, st, B, H, KV, S,
                           pitch, causal, window, sm_scale, stream);
   } else {
+    const long long rows = static_cast<long long>(B) * H * S;
+    flash_bwd_delta_kernel<T, HD><<<static_cast<unsigned>(
+                                        (rows + kWarps - 1) / kWarps),
+                                    kThreads, 0, stream>>>(
+        static_cast<const T*>(o), gt, D, st[3], st[4], H, S, rows);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
     const T* qt = static_cast<const T*>(q);
     const T* kt = static_cast<const T*>(k);
     const T* vt = static_cast<const T*>(v);

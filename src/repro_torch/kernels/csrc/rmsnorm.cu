@@ -60,12 +60,11 @@
 // replays in a CUDA graph) every block sums its slice of columns over the
 // blocks' rows, in row order and a fixed tree: no float atomics, one order
 // for a given grid, two launches with the same bits.
-// Measured against the first designs (chip_smoke.py's kernel_split and
-// throwaway variants, NVIDIA H100 80GB HBM3, 700.00 W, (2048, 3072) bf16):
-// the parent's two launches took 30.5 + 3.6 us; a last-block tree of
-// 8-row groups, 3 levels deep, cost 10 us after the slowest block, the grid
-// barrier with coalesced slices 4.3; one 384-thread row a block left the
-// row pass at 18.7 us, three 128-thread rows 17.7.
+// Why a barrier and not a chain of last-arriving blocks: a tree of groups
+// puts several dependent round trips to L2 (a fence, an atomic, the
+// group's rows) after the slowest block; the barrier puts one, shared by
+// every block. Why teams: with one 384-thread row a block, an SM reduces
+// only two rows at once.
 // TIMES_NOTE
 
 #include <cuda_bf16.h>
@@ -502,22 +501,34 @@ int launch_bwd_kernel(const T* x, const T* scale, const T* dy, const T* g_s,
   // the teams' rings, which at the end hold their sums (d floats each)
   const int smem = bwd_teams(tpt) * d * kStages * (ADD ? 3 : 2) *
                    static_cast<int>(sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      norm_bwd_kernel<T, VEC, PPT, ADD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   // cooperative: all blocks resident at once, or an error (the grid
   // barrier of reduce_dscale needs every block running); n_blocks is cut
-  // to what fits the card, a function of the kernel and the card alone
-  int per_sm = 0, device = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, norm_bwd_kernel<T, VEC, PPT, ADD>, threads, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
+  // to what fits the card, a function of the kernel and the card alone.
+  // The shared-memory attribute and the fit are kept from the last launch
+  // of the same shape, as they cost host time a call.
+  static int last_device = -1, last_threads = 0, last_smem = -1, fit = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  n_blocks = min(n_blocks, per_sm * sms);
+  if (device != last_device || threads != last_threads ||
+      smem != last_smem) {
+    int per_sm = 0, sms = 0;
+    err = cudaFuncSetAttribute(norm_bwd_kernel<T, VEC, PPT, ADD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, norm_bwd_kernel<T, VEC, PPT, ADD>, threads, smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    last_device = device;
+    last_threads = threads;
+    last_smem = smem;
+    fit = per_sm * sms;
+  }
+  n_blocks = min(n_blocks, fit);
   if (n_blocks <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;

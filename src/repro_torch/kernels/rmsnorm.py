@@ -254,7 +254,8 @@ def dscale_slices(n_blocks: int, d: int) -> List[Tuple[int, int]]:
 #: port runs on one stream; a CUDA graph may replay it), and a generation
 #: number (word 32, on another 128-byte line)
 _counters: Dict[torch.device, torch.Tensor] = {}
-_sm_count: Dict[torch.device, int] = {}
+#: (device, N, d, element size) -> bwd_grid on that device's SMs
+_grids: Dict[Tuple[torch.device, int, int, int], int] = {}
 
 
 def _bwd_counters(device: torch.device) -> torch.Tensor:
@@ -269,11 +270,13 @@ def _launch_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                 g_s: Optional[torch.Tensor], eps: float,
                 name: str) -> Tuple[torch.Tensor, torch.Tensor]:
     N, d = x.shape
-    if x.device not in _sm_count:
-        _sm_count[x.device] = torch.cuda.get_device_properties(
-            x.device).multi_processor_count
+    key = (x.device, N, d, x.element_size())
+    if key not in _grids:
+        _grids[key] = bwd_grid(N, d, x.element_size(),
+                               torch.cuda.get_device_properties(
+                                   x.device).multi_processor_count)
     # at most n_blocks: the kernel takes fewer if not all fit the card
-    n_blocks = bwd_grid(N, d, x.element_size(), _sm_count[x.device])
+    n_blocks = _grids[key]
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale)
     scratch = torch.empty((n_blocks, d), dtype=torch.float32,
