@@ -61,14 +61,20 @@
 //   132 SMs, every block is on an SM of its own with two warpgroups on its
 //   triangle of work, and the longest causal chain (key tile 0 and its 8
 //   query tiles; query tile 7 and its 8 key tiles) takes 4 items per
-//   warpgroup, not 8. dK/dV blocks run key tile 0 first and dQ blocks query
+//   warpgroup, not 8. Where a dQ grid has two blocks an SM or more (the
+//   local model's 768), its blocks are short, and a block alone on its SM
+//   would leave it idle through its prologue and epilogue: there dQ runs
+//   with one consumer warpgroup and a producer warp (160 threads, a ring of
+//   2 stages, 98,344 bytes at hd 128, 126 registers, no setmaxnreg), two
+//   blocks an SM. dK/dV blocks run key tile 0 first and dQ blocks query
 //   tile S/64 - 1 first: the longest causal extents start first and the
 //   short ones fill the last wave.
 //   Shared memory (one block an SM): 1024 (alignment) + 2 fixed tiles + 4
 //   stages of 2 tiles + 4 x 512 bytes of lse and D + 72 of barriers =
 //   166,984 bytes at hd 128, 85,064 at hd 64. Registers (ptxas of CUDA
-//   12.8): 168 a thread at launch for all four kernels (384 threads, one
-//   block an SM), no spills; setmaxnreg then moves them to the consumers.
+//   12.8): 168 a thread at launch for the three-warpgroup kernels (384
+//   threads, one block an SM), no spills; setmaxnreg then moves them to
+//   the consumers.
 //   TIMES_NOTE
 // * float32: SIMT (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel), since the
 //   tensor cores would take fp32 only as TF32; its floor is near 16.1 GFLOP
@@ -461,7 +467,7 @@ constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 
 // shared-memory layout, in bytes from a 1024-aligned base
-template <int HD>
+template <int HD, int STAGES = kStages>
 struct Layout {
   static constexpr int kTile = kTileRows * HD * 2;    // one bf16 tile
   // two fixed tiles (dK/dV: K, V; dQ: Q, dO), then the ring, whose stage s
@@ -469,14 +475,12 @@ struct Layout {
   static constexpr int kRing = 2 * kTile;
   static constexpr int kStage = 2 * kTile;
   // dK/dV: per stage the lse2 and D of its 64 query rows
-  static constexpr int kRows = kRing + kStages * kStage;
+  static constexpr int kRows = kRing + STAGES * kStage;
   static constexpr int kRowBytesF = kTileRows * 4;
-  static constexpr int kBar = kRows + kStages * 2 * kRowBytesF;
+  static constexpr int kBar = kRows + STAGES * 2 * kRowBytesF;
   // fixed_full, then per stage full and empty
-  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * STAGES);
   static constexpr int kAlloc = kBytes + 1024;         // room to align the base
-  // after the loop the ring holds consumer 1's fp32 partial sums
-  static_assert(kStages * kStage >= 2 * kTileRows * HD * 4, "partials fit");
 };
 
 // a 64-row tile of a (B, N, S, hd) map at (row, head, batch), panel by panel
@@ -513,6 +517,7 @@ __device__ __forceinline__ bool tile_masked(int q0, int k0, int S, int causal,
 // shared-space address; thread 0 initialises the barriers at `bar`:
 // fixed_full, then per stage full (the producer's arrival with its bytes)
 // and empty (lane 0 of each warp of the consuming warpgroup).
+template <int STAGES>
 __device__ __forceinline__ uint32_t setup(uint8_t* raw_ptr, uint8_t*& smem,
                                           int bar_offset) {
   const uint32_t raw = smem_u32(raw_ptr);
@@ -521,9 +526,9 @@ __device__ __forceinline__ uint32_t setup(uint8_t* raw_ptr, uint8_t*& smem,
   if (threadIdx.x == 0) {
     const uint32_t bar = base + bar_offset;
     mbar_init(bar, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(bar + 8 * (1 + s), 1);
-      mbar_init(bar + 8 * (1 + kStages + s), 4);
+      mbar_init(bar + 8 * (1 + STAGES + s), 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -568,9 +573,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 int S, int pitch, int causal, int window,
                                 float scale_log2, float sm_scale) {
   using L = Layout<HD>;
+  static_assert(kStages * L::kStage >= 2 * kTileRows * HD * 4,
+                "consumer 1's dK and dV sums fit the ring");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem;
-  const uint32_t base = setup(smem_raw, smem, L::kBar);
+  const uint32_t base = setup<kStages>(smem_raw, smem, L::kBar);
   const uint32_t sk = base, sv = base + L::kTile;
   const uint32_t fixed_full = base + L::kBar;
   auto full = [&](int s) { return fixed_full + 8 * (1 + s); };
@@ -702,14 +709,20 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // dQ: one block per (batch, head, 64 query rows); the longest causal rows
 // first. The producer loads Q and dO once, then streams the visible K and V
-// tiles, tile kt_lo + it into stage it % kStages. Consumer c takes tiles
-// c, c + 2, ... and for each computes S = Q K^T and dP = dO V^T (K-major in
-// shared memory), P and dS = P (dP - D) in registers (its rows' lse2 and D
-// held in registers), then dQ += dS K with dS a bf16 register A operand
-// and K read MN-major. Consumer 1's partial dQ goes to consumer 0 through
-// shared memory, as in dK/dV.
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
+// tiles, tile kt_lo + it into stage it % STAGES. A consumer computes, for
+// each tile it takes, S = Q K^T and dP = dO V^T (K-major in shared memory),
+// P and dS = P (dP - D) in registers (its rows' lse2 and D held in
+// registers), then dQ += dS K with dS a bf16 register A operand and K read
+// MN-major. CONS = 2: warpgroup 0 produces and two consumers take tiles c,
+// c + 2, ..., consumer 1's partial dQ going to consumer 0 through shared
+// memory, as in dK/dV (one block an SM; for grids too small to fill the
+// card). CONS = 1: warpgroup 0 consumes every tile and warp 4 produces,
+// with a ring of 2 stages: 160 threads and 97 KB at hd 128, so that two
+// blocks share an SM and one's prologue and epilogue overlap the other's
+// products (for grids of two blocks an SM or more).
+template <int HD, int CONS>
+__global__ void __launch_bounds__(CONS == 2 ? kThreads : 160,
+                                  CONS == 2 ? 1 : 2)
     flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
                               const __grid_constant__ CUtensorMap tv,
@@ -719,14 +732,17 @@ __global__ void __launch_bounds__(kThreads, 1)
                               const float* __restrict__ D, int H, int KV,
                               int S, int pitch, int causal, int window,
                               float scale_log2, float sm_scale) {
-  using L = Layout<HD>;
+  constexpr int kSt = CONS == 2 ? kStages : 2;
+  using L = Layout<HD, kSt>;
+  static_assert(CONS == 1 || kSt * L::kStage >= kTileRows * HD * 4,
+                "consumer 1's dQ sums fit the ring");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem;
-  const uint32_t base = setup(smem_raw, smem, L::kBar);
+  const uint32_t base = setup<kSt>(smem_raw, smem, L::kBar);
   const uint32_t sq = base, sdo = base + L::kTile;
   const uint32_t fixed_full = base + L::kBar;
   auto full = [&](int s) { return fixed_full + 8 * (1 + s); };
-  auto empty = [&](int s) { return fixed_full + 8 * (1 + kStages + s); };
+  auto empty = [&](int s) { return fixed_full + 8 * (1 + kSt + s); };
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H, kvh = h / (H / KV);
@@ -736,16 +752,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int k_end = causal ? min(S, q0 + kTileRows) : S;
   const int n_items = (k_end + kTileRows - 1) / kTileRows - kt_lo;
 
-  if (threadIdx.x < 128) {
-    regs_dec<kProducerRegs>();
-    if (threadIdx.x == 0) {
+  const int producer = CONS == 2 ? 0 : 128;   // its first thread
+  if (threadIdx.x >= producer && threadIdx.x < producer + (CONS == 2 ? 128 : 32)) {
+    if constexpr (CONS == 2) regs_dec<kProducerRegs>();
+    if (threadIdx.x == producer) {
       mbar_expect_tx(fixed_full, 2 * L::kTile);
       load_tile<HD>(sq, &tq, fixed_full, q0, h, b);
       load_tile<HD>(sdo, &tdo, fixed_full, q0, h, b);
       for (int it = 0; it < n_items; ++it) {
-        const int s = it % kStages, k0 = (kt_lo + it) * kTileRows;
+        const int s = it % kSt, k0 = (kt_lo + it) * kTileRows;
         const uint32_t sk = base + L::kRing + s * L::kStage;
-        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        mbar_wait(empty(s), ((it / kSt) & 1) ^ 1);
         mbar_expect_tx(full(s), 2 * L::kTile);
         load_tile<HD>(sk, &tk, full(s), k0, kvh, b);
         load_tile<HD>(sk + L::kTile, &tv, full(s), k0, kvh, b);
@@ -754,8 +771,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     return;
   }
 
-  regs_inc<kConsumerRegs>();
-  const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+  if constexpr (CONS == 2) regs_inc<kConsumerRegs>();
+  const int c = CONS == 2 ? threadIdx.x / 128 - 1 : 0;
+  const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
   const int row = q0 + 16 * warp + lane / 4;   // and row + 8
   const long long r0 = static_cast<long long>(bh) * pitch + row;
@@ -768,10 +786,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint32_t da[kTileRows / 16][4];
 
   mbar_wait(fixed_full, 0);
-  for (int it = c; it < n_items; it += kConsumers) {
-    const int s = it % kStages, k0 = (kt_lo + it) * kTileRows;
+  for (int it = c; it < n_items; it += CONS) {
+    const int s = it % kSt, k0 = (kt_lo + it) * kTileRows;
     const uint32_t sk = base + L::kRing + s * L::kStage, sv = sk + L::kTile;
-    mbar_wait(full(s), (it / kStages) & 1);
+    mbar_wait(full(s), (it / kSt) & 1);
     __syncwarp();
     wgmma_fence();
     issue_abt<HD>(sc, sq, sk);      // S = Q K^T
@@ -804,12 +822,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) mbar_arrive(empty(s));
   }
 
-  named_sync(1, 128 * kConsumers);
-  float* red = reinterpret_cast<float*>(smem + L::kRing);
-  if (c == 1) put_partial(dq, red, tid);
-  named_sync(1, 128 * kConsumers);
-  if (c == 1) return;
-  add_partial(dq, red, tid);
+  if constexpr (CONS == 2) {
+    named_sync(1, 128 * CONS);
+    float* red = reinterpret_cast<float*>(smem + L::kRing);
+    if (c == 1) put_partial(dq, red, tid);
+    named_sync(1, 128 * CONS);
+    if (c == 1) return;
+    add_partial(dq, red, tid);
+  }
   const float scale[2] = {sm_scale, sm_scale};
   write_tile<HD>(smem, dq, scale, warp, lane);   // over Q
   fence_async_smem();
@@ -836,13 +856,23 @@ int launch(const void* q, const void* k, const void* v, const void* dO,
   if (res == 0) res = make_map(&mdv, dv, st[7], B, KV, S, HD, kTileRows);
   if (res != 0) return kTensorMapError + res;
   constexpr int kSmem = Layout<HD>::kAlloc;
+  constexpr int kSmemDq1 = Layout<HD, 2>::kAlloc;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkdv_wgmma_kernel<HD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<HD>,
+    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<HD, 2>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<HD, 1>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemDq1);
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (S + kTileRows - 1) / kTileRows;
   const float scale_log2 = sm_scale * 1.4426950408889634f;
@@ -852,10 +882,15 @@ int launch(const void* q, const void* k, const void* v, const void* dO,
           window, scale_log2, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_wgmma_kernel<HD>
-      <<<dim3(B * H, tiles), kThreads, kSmem, stream>>>(
-          mq, mk, mv, mdo, mdq, lse2, D, H, KV, S, pitch, causal, window,
-          scale_log2, sm_scale);
+  const dim3 grid_q(B * H, tiles);
+  if (B * H * tiles >= 2 * sms)   // two blocks an SM: one consumer each
+    flash_bwd_dq_wgmma_kernel<HD, 1><<<grid_q, 160, kSmemDq1, stream>>>(
+        mq, mk, mv, mdo, mdq, lse2, D, H, KV, S, pitch, causal, window,
+        scale_log2, sm_scale);
+  else
+    flash_bwd_dq_wgmma_kernel<HD, 2><<<grid_q, kThreads, kSmem, stream>>>(
+        mq, mk, mv, mdo, mdq, lse2, D, H, KV, S, pitch, causal, window,
+        scale_log2, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 

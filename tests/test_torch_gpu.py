@@ -412,7 +412,9 @@ def test_cuda_rmsnorm_bwd_matches_plain(cuda, N, d, dtype, variant):
     (2, 4, 2, 300, 64, 0, "bfloat16"),
     (1, 4, 4, 256, 128, 64, "float32"),
     (1, 4, 2, 300, 64, 64, "bfloat16"),
-    (1, 2, 2, 130, 64, 16, "float32")])
+    (1, 2, 2, 130, 64, 16, "float32"),
+    (4, 24, 8, 300, 128, 64, "bfloat16"),
+    (8, 16, 4, 300, 64, 48, "bfloat16")])
 def test_cuda_flash_attention_bwd_matches_plain(cuda, B, H, KV, S, hd, window,
                                                 dtype, layout):
     """The flash backward kernels against the plain closed form on the
