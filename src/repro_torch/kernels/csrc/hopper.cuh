@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu): mbarriers, TMA
+// Hopper (sm_90a) building blocks shared by the kernels of this directory,
+// above all the flash-attention forward (flash_attention.cu) and backward
+// (flash_attention_bwd.cu): named barriers, mbarriers, TMA
 // loads and stores through tensor maps and plain bulk copies, wgmma on bf16
 // with fp32 sums, the 128-byte-swizzled tile layout both kernels use, and
 // the host-side tensor-map encoding of a strided (B, N, S, hd) view.

@@ -67,12 +67,13 @@
 // only two rows at once.
 // TIMES_NOTE
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"   // named_sync
 
 #include <cstdint>
 
 namespace {
+
+using hopper::named_sync;
 
 constexpr int kMaxThreads = 1024;
 constexpr int kBaseThreads = 128;  // threads per row while PPT <= kMaxPPT
@@ -99,11 +100,6 @@ template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
-
-// named barrier `id` over `threads` threads (id 0 is __syncthreads')
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
 
 __device__ __forceinline__ float warp_sum(float s) {
 #pragma unroll

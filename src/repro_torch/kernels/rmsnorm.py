@@ -13,7 +13,7 @@ backward kernel; elsewhere (serving, under no_grad) the launch runs alone.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -232,21 +232,13 @@ def bwd_teams(d: int, elt: int) -> int:
 
 def bwd_grid(N: int, d: int, elt: int, sm_count: int) -> int:
     """Blocks of the backward's persistent grid: BWD_THREADS_PER_SM threads'
-    worth a SM (1 to 16 blocks), at most one row for each team. Fixed by N,
-    d and the card, so that two calls sum dscale in one order (the kernel
-    takes fewer if not all fit the card at once)."""
+    worth a SM (at least one block), at most one row for each team. Fixed by
+    N, d and the card, so that two calls sum dscale in one order (the
+    kernel takes fewer if not all fit the card at once)."""
     teams = bwd_teams(d, elt)
     block = bwd_threads(d, elt) * teams
-    per_sm = max(1, min(16, BWD_THREADS_PER_SM // block))
+    per_sm = max(1, BWD_THREADS_PER_SM // block)
     return min(-(-N // teams), per_sm * sm_count)
-
-
-def dscale_slices(n_blocks: int, d: int) -> List[Tuple[int, int]]:
-    """The columns [lo, hi) of dscale that each block of the backward sums
-    over the blocks' partial rows after its grid barrier (the kernel's
-    reduce_dscale): slices of ceil(d / n_blocks) columns, in block order."""
-    w = -(-d // n_blocks)
-    return [(min(d, b * w), min(d, (b + 1) * w)) for b in range(n_blocks)]
 
 
 #: per device, the backward's grid-barrier words: an arrival count (word 0),

@@ -210,8 +210,8 @@ def test_backward_wrappers_check_their_inputs():
 
 
 # The launch shapes of the backward kernels, decided on the host: the norm
-# backward's persistent grid and the column slices of its dscale reduction,
-# and the flash backward's D / lse scratch.
+# backward's persistent grid and its grid barrier's words, and the flash
+# backward's D / lse scratch.
 
 @pytest.mark.parametrize("d,elt,threads,teams", [
     (3072, 2, 128, 3), (256, 2, 32, 12), (3072, 4, 192, 2), (256, 4, 64, 6),
@@ -238,20 +238,14 @@ def test_norm_bwd_grid(N, d, elt, sms, blocks):
     assert trms.bwd_grid(N, d, elt, sms) == blocks
 
 
-@pytest.mark.parametrize("n_blocks,d", [(264, 3072), (512, 256),
-                                        (250, 256), (132, 8192), (7, 5),
-                                        (2, 3072)])
-def test_norm_bwd_dscale_slices_cover_every_column(n_blocks, d):
-    """After the grid barrier block b sums slice b of dscale's columns over
-    every block's partial row: the slices cover each column once, in
-    order, so the sum of the partial rows over the slices is dscale."""
-    slices = trms.dscale_slices(n_blocks, d)
-    assert len(slices) == n_blocks
-    cols = [c for lo, hi in slices for c in range(lo, hi)]
-    assert cols == list(range(d))
-    partials = _normal((n_blocks, d), n_blocks + d)
-    got = np.concatenate([partials[:, lo:hi].sum(0) for lo, hi in slices])
-    np.testing.assert_allclose(got, partials.sum(0), **TOL)
+def test_norm_bwd_barrier_words():
+    """The grid barrier's words, made once per device: an arrival count at
+    0, which every launch leaves at 0, and a generation number on another
+    128-byte line."""
+    words = trms._bwd_counters(torch.device("cpu"))
+    assert words.dtype == torch.int32 and words.shape == (64,)
+    assert not words.any()
+    assert trms._bwd_counters(torch.device("cpu")) is words
 
 
 @pytest.mark.parametrize("S,dtype,shape", [
