@@ -1914,7 +1914,7 @@ def main() -> int:
     phase_profile(torch, "training step",
                   lambda: step(state, train_batches[1]),
                   ("flash_bwd_dkdv", "flash_bwd_dq",
-                   "flash_bwd_delta_kernel", "norm_bwd_kernel",
+                   "flash_bwd_prep_kernel", "norm_bwd_kernel",
                    "norm_kernel", "flash_wgmma_kernel",
                    "kd_grad_row_kernel"))
     del state, step, train_batches

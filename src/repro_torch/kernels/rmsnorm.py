@@ -27,8 +27,9 @@ launches: Dict[str, int] = {"rmsnorm": 0, "add_rmsnorm": 0,
 #: the longest row the kernels hold in registers
 MAX_D = 8192
 
-#: threads per SM the backward's persistent grid aims at (two blocks of
-#: three 128-thread rows at d = 3072 in bf16)
+#: threads per SM the backward's persistent grid aims at: two blocks of
+#: three 128-thread rows at d = 3072 in bf16 (the kernel cuts the grid to
+#: what fits at once: there, one block an SM)
 BWD_THREADS_PER_SM = 768
 
 #: threads of a backward block, filled with whole rows
