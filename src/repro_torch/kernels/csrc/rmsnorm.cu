@@ -46,13 +46,13 @@
 // us). Rows are independent but dscale sums over all of them, so the
 // blocks must meet once, and that meeting is on the critical path.
 //
-// Design (norm_bwd_kernel), one launch: a persistent grid of up to two
-// blocks of 384 threads an SM (rmsnorm.py::bwd_grid), cut to what fits at
-// once (at d = 3072 in bf16, 83 and 88 registers a thread in ptxas of CUDA
-// 12.8 let one block fit, so 132 blocks run), each block three 128-thread
-// teams at d = 3072, a team a row with the
-// forward's packs per thread; a team's warps meet at a named barrier of
-// their own, so a block reduces three rows at once. A thread copies the
+// Design (norm_bwd_kernel), one launch: a persistent grid of one block of
+// 512 threads an SM (rmsnorm.py::bwd_grid; cut by the kernel to what fits
+// at once, should that be less), each block four 128-thread teams at d =
+// 3072, a team a row with the forward's packs per thread (83 and 88
+// registers a thread in ptxas of CUDA 12.8, no spills); a team's warps
+// meet at a named barrier of their own, so a block reduces four rows at
+// once. A thread copies the
 // packs of its team's next row into a two-stage ring in shared memory with
 // cp.async while it reduces the current one, and waits only for its own
 // copies; x, dy and g_s are read from device memory once. dy xhat is summed
@@ -65,10 +65,10 @@
 // Why a barrier and not a chain of last-arriving blocks: a tree of groups
 // puts several dependent round trips to L2 (a fence, an atomic, the
 // group's rows) after the slowest block; the barrier puts one, shared by
-// every block. Why teams: with one 384-thread row a block, an SM reduces
-// only two rows at once.
-// Shared memory: 4,608 static bytes and the teams' rings, 3 x 2 x 2 (the
-// add variant 3) rows of d, 73,728 (110,592) bytes at d = 3072 in bf16.
+// every block. Why teams: with one 384-thread row a block, an SM reduced
+// only one or two rows at once.
+// Shared memory: 4,608 static bytes and the teams' rings, 4 x 2 x 2 (the
+// add variant 3) rows of d, 98,304 (147,456) bytes at d = 3072 in bf16.
 // Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W), bf16: at
 // (2048, 3072) 0.0226 ms, 50% of its 0.0113 ms bound, against F.rms_norm's
 // backward at 0.0275 and the parent's two launches at 0.0305 + 0.0036; the
@@ -86,7 +86,7 @@ using hopper::named_sync;
 constexpr int kMaxThreads = 1024;
 constexpr int kBaseThreads = 128;  // threads per row while PPT <= kMaxPPT
 constexpr int kMaxPPT = 8;         // packs per thread held in registers
-constexpr int kBwdBlock = 384;       // the backward's block: whole rows
+constexpr int kBwdBlock = 512;       // the backward's block: whole rows
 constexpr int kStages = 2;           // rows a team holds: current and next
 constexpr int kMaxBwdThreads = 512;  // a row's threads at most, 16-byte packs
 
@@ -276,8 +276,7 @@ __device__ __forceinline__ void copy_pack(T* dst, const T* src) {
 // thread copies the packs of the team's next row (x or s, dy and, ADD,
 // g_s) into its own slots of a two-stage ring in shared memory with
 // cp.async while it reduces and writes the current row, and waits only for
-// its own copies (cp.async.wait_group): no barrier guards the ring. (Four
-// stages, with two blocks of 384 threads an SM, measured no faster.) ADD:
+// its own copies (cp.async.wait_group): no barrier guards the ring. ADD:
 // g_s (the upstream gradient of s) is added to dx before its one rounding.
 // Each thread sums dy xhat for the columns of its packs in registers; at
 // the end the teams' sums are added in team order, and dscale is reduced

@@ -27,13 +27,9 @@ launches: Dict[str, int] = {"rmsnorm": 0, "add_rmsnorm": 0,
 #: the longest row the kernels hold in registers
 MAX_D = 8192
 
-#: threads per SM the backward's persistent grid aims at: two blocks of
-#: three 128-thread rows at d = 3072 in bf16 (the kernel cuts the grid to
-#: what fits at once: there, one block an SM)
-BWD_THREADS_PER_SM = 768
-
-#: threads of a backward block, filled with whole rows
-BWD_BLOCK = 384
+#: threads of a backward block, filled with whole rows (four of 128 at
+#: d = 3072 in bf16)
+BWD_BLOCK = 512
 
 
 def reset_launches() -> None:
@@ -232,14 +228,11 @@ def bwd_teams(d: int, elt: int) -> int:
 
 
 def bwd_grid(N: int, d: int, elt: int, sm_count: int) -> int:
-    """Blocks of the backward's persistent grid: BWD_THREADS_PER_SM threads'
-    worth a SM (at least one block), at most one row for each team. Fixed by
-    N, d and the card, so that two calls sum dscale in one order (the
-    kernel takes fewer if not all fit the card at once)."""
-    teams = bwd_teams(d, elt)
-    block = bwd_threads(d, elt) * teams
-    per_sm = max(1, BWD_THREADS_PER_SM // block)
-    return min(-(-N // teams), per_sm * sm_count)
+    """Blocks of the backward's persistent grid: one an SM, at most one row
+    for each team. Fixed by N, d and the card, so that two calls sum dscale
+    in one order (the kernel takes fewer if not all fit the card at
+    once)."""
+    return min(-(-N // bwd_teams(d, elt)), sm_count)
 
 
 #: per device, the backward's grid-barrier words: an arrival count (word 0),

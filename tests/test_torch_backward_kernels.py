@@ -214,24 +214,24 @@ def test_backward_wrappers_check_their_inputs():
 # backward's D / lse scratch.
 
 @pytest.mark.parametrize("d,elt,threads,teams", [
-    (3072, 2, 128, 3), (256, 2, 32, 12), (3072, 4, 192, 2), (256, 4, 64, 6),
-    (777, 2, 128, 3), (777, 4, 128, 3), (8192, 2, 256, 1), (8192, 4, 512, 1),
-    (64, 4, 32, 12), (4100, 2, 544, 1)])
+    (3072, 2, 128, 4), (256, 2, 32, 16), (3072, 4, 192, 2), (256, 4, 64, 8),
+    (777, 2, 128, 4), (777, 4, 128, 4), (8192, 2, 256, 2), (8192, 4, 512, 1),
+    (64, 4, 32, 16), (4100, 2, 544, 1)])
 def test_norm_bwd_block_follows_the_kernels_rule(d, elt, threads, teams):
     """csrc/rmsnorm.cu's launch_bwd_packs: 16-byte packs when d allows, at
     most 4 a thread (8 single elements), 128 threads while that holds the
-    row, rounded up to a multiple of 32; as many rows a block as fit in 384
+    row, rounded up to a multiple of 32; as many rows a block as fit in 512
     threads."""
     assert trms.bwd_threads(d, elt) == threads
     assert trms.bwd_teams(d, elt) == teams
 
 
 @pytest.mark.parametrize("N,d,elt,sms,blocks", [
-    (2048, 3072, 2, 132, 264),     # the training path: 2 x 3 rows an SM
-    (2048, 256, 2, 132, 171),      # 12 rows a block, one each
-    (1000, 3072, 2, 132, 264),     # not a multiple of the grid
-    (1000, 256, 2, 132, 84),
-    (100, 3072, 2, 132, 34),       # at most one row a team
+    (2048, 3072, 2, 132, 132),     # the training path: 4 rows an SM
+    (2048, 256, 2, 132, 128),      # 16 rows a block, one each
+    (1000, 3072, 2, 132, 132),     # not a multiple of the grid
+    (1000, 256, 2, 132, 63),
+    (100, 3072, 2, 132, 25),       # at most one row a team
     (2048, 8192, 4, 132, 132),
     (1, 64, 4, 132, 1)])
 def test_norm_bwd_grid(N, d, elt, sms, blocks):
