@@ -70,10 +70,10 @@
 // Shared memory: 4,608 static bytes and the teams' rings, 4 x 2 x 2 (the
 // add variant 3) rows of d, 98,304 (147,456) bytes at d = 3072 in bf16.
 // Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W), bf16: at
-// (2048, 3072) 0.0226 ms, 50% of its 0.0113 ms bound, against F.rms_norm's
-// backward at 0.0275 and the parent's two launches at 0.0305 + 0.0036; the
-// add variant 0.0274, 55% of its 0.0150 ms bound; at (2048, 256) 0.0085
-// and 0.0089.
+// (2048, 3072) 0.0219 ms, 51% of its 0.0113 ms bound, against F.rms_norm's
+// backward at 0.0287 and the parent's two launches at 0.0304 + 0.0036; the
+// add variant 0.0281, 53% of its 0.0150 ms bound; at (2048, 256) 0.0086
+// and 0.0085.
 
 #include "hopper.cuh"   // named_sync
 
