@@ -365,6 +365,7 @@ def test_cuda_add_rmsnorm_gradients_match_cpu(cuda):
                                        (2048, 256, "bfloat16"),
                                        (2048, 3072, "float32"),
                                        (2048, 256, "float32"),
+                                       (1000, 3072, "bfloat16"),
                                        (1000, 3072, "float32"),
                                        (64, 777, "float32"),
                                        (64, 777, "bfloat16")])
