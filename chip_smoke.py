@@ -52,6 +52,30 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 exactly once per padded step of every size group, and
                 kd_loss_fwd / kd_loss_bwd never. A shape the path gave the
                 kernel that phase 3 did not check is checked now.
+  4b. baselines — FedAvg, FedProx, pFedMe and FedDdrl (paper §V.B) at the
+                same config through BaselineRunner on the card: 2 training
+                rounds each (FedDdrl after 5 latency-only rounds, so that
+                its PPO2 updates), seconds per round, acc_global and
+                summary() logged, every global finite and no kernel
+                launched (their loss is plain CE, no kd_loss). Then one
+                FedProx and one pFedMe round on the card and on the CPU from
+                the same globals: identical host records (clients,
+                straggling, wall time), globals at atol 1e-4 / rtol 1e-3.
+  4c. async   — examples/comm_efficient.py's setup at the same config: a
+                HAPFL server with cross-size aggregation and the topk+int8
+                codec (ratio 0.08, dense_min 256) under
+                EventScheduler(BufferedPolicy(buffer_m=3)) with
+                codec-priced links, fleet health and the tracer on, 4
+                waves. Counters are zeroed just before and read just after:
+                one kd_loss_grad per padded step of every wave; every
+                wave's record carries rl_diag; each upload is under a
+                quarter of its dense float32 bytes; the first aggregation
+                moves both sizes' globals (small does not cover large, so
+                the coverage-class path runs); globals finite. Then
+                codec="identity" equals codec=None bit for bit for a round,
+                and EventScheduler(SyncPolicy()).run(waves=2) equals
+                server.run(2) (records, and globals bit for bit). The wall
+                time of both phases is logged, and of the whole script.
   5. serve    — llama3.2-3b at full width (28 layers, d 3072, 24 heads, 8
                 KV heads, vocab 128256) in bf16, random weights from a
                 seeded generator on the card: ServeEngine(max_len=1024)
@@ -125,6 +149,7 @@ the repository, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -945,6 +970,237 @@ def phase_main_path(torch):
     log(f"[main] seconds per round after the first {seconds[1:]}, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
     return server, launches, shapes
+
+
+# ---------------------------------------------------------------------- #
+# 4b. the paper's baselines and 4c. the event-driven async HAPFL waves
+# ---------------------------------------------------------------------- #
+BASELINES = ("fedavg", "fedprox", "pfedme", "fedddrl")
+BASELINE_ROUNDS = 2       # training rounds per baseline
+FEDDDRL_WARMUP = 5        # latency-only rounds first: PPO2's buffer (B = 5)
+ASYNC_WAVES = 4
+
+
+def _host_record(rec):
+    """A BaselineRecord's host fields: what the latency model and the data
+    streams decide, not the trained params."""
+    return (rec.round_idx, sorted(rec.client_acc), rec.straggling,
+            rec.wall_time, rec.latency_only)
+
+
+def phase_baselines(torch):
+    """FedAvg, FedProx, pFedMe and FedDdrl (paper §V.B) at the main path's
+    config on the card: 2 training rounds each (FedDdrl after 5
+    latency-only rounds), finite globals and no kd_loss launch (their loss
+    is plain CE). Then one FedProx and one pFedMe round on the card and on
+    the CPU from the same globals: identical host records, globals at atol
+    1e-4 / rtol 1e-3."""
+    from repro_torch.fl import BaselineRunner, FLEnvironment
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+    t_phase = time.perf_counter()
+    reset_all_launches()
+    for algo in BASELINES:
+        runner = BaselineRunner(FLEnvironment(main_path_config()), algo,
+                                device="cuda")
+        if algo == "fedddrl":
+            for _ in range(FEDDDRL_WARMUP):
+                runner.run_round(latency_only=True)
+        seconds = []
+        for _ in range(BASELINE_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = runner.run_round()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            log(f"[baselines] {algo} round {rec.round_idx}: "
+                f"{seconds[-1]:.3f} s, straggling {rec.straggling:.3f}, "
+                f"acc_global {rec.acc_global:.4f}")
+        if not _finite(torch, runner.global_params):
+            raise SystemExit(f"chip_smoke: {algo}: non-finite global")
+        if algo == "fedddrl" and runner.intensity.agent.n_updates < 1:
+            raise SystemExit("chip_smoke: fedddrl: PPO2 never updated")
+        log(f"[baselines] {algo}: seconds per round {seconds}, summary "
+            f"{runner.summary()}")
+    launches = all_launches()
+    log(f"[baselines] launches {launches}")
+    if any(launches.values()):
+        raise SystemExit(f"chip_smoke: the baselines launched kernels "
+                         f"{launches}: their CE is no kd_loss")
+    for algo in ("fedprox", "pfedme"):
+        runners = {dev: BaselineRunner(FLEnvironment(main_path_config()),
+                                       algo, device=dev)
+                   for dev in ("cuda", "cpu")}
+        gpu, cpu = runners["cuda"], runners["cpu"]
+        cpu.global_params = tree_map(lambda t: t.cpu(), gpu.global_params)
+        if algo == "pfedme":
+            cpu.personal = {c: cpu.global_params for c in cpu.personal}
+        with full_fp32(torch):
+            recs = {dev: r.run_round() for dev, r in runners.items()}
+            torch.cuda.synchronize()
+        if _host_record(recs["cuda"]) != _host_record(recs["cpu"]):
+            raise SystemExit(f"chip_smoke: {algo}: card and CPU records "
+                             f"differ: {recs}")
+        err = 0.0
+        for a, b in zip(tree_leaves(gpu.global_params),
+                        tree_leaves(cpu.global_params)):
+            torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3)
+            err = max(err, float((a.cpu() - b).abs().max()))
+        log(f"[baselines] {algo} cuda vs cpu: host records identical, "
+            f"globals max|diff| {err:.3e} (atol 1e-4, rtol 1e-3)")
+    wall = time.perf_counter() - t_phase
+    log(f"[baselines] phase wall {wall:.2f} s")
+    return wall
+
+
+def _globals_equal(torch, a, b):
+    from repro_torch.utils.pytree import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(
+        tree_leaves([a.lite_params, a.global_by_size]),
+        tree_leaves([b.lite_params, b.global_by_size])))
+
+
+def phase_async(torch, grad_errs):
+    """examples/comm_efficient.py's setup on the main path's config: a
+    HAPFL server with cross-size aggregation and the topk+int8 codec under
+    the buffered policy (buffer 3) with codec-priced links, fleet health and
+    the tracer on, 4 waves. Counters are zeroed just before and read just
+    after: one kd_loss_grad per padded step of every wave. Every wave's
+    record carries rl_diag; each client's uplink is under a quarter of its
+    dense float32 bytes; the first aggregation moves both sizes' globals.
+    Then, on the card: codec="identity" equals no codec bit for bit for a
+    round, and the sync policy's 2 waves equal server.run(2). Each
+    (C, B, V) the waves gave kd_loss_grad is held against its plain version
+    (phase_kd_grad) unless phase 3 did."""
+    from repro_torch.comm import make_codec
+    from repro_torch.core.latency import make_comm_model
+    from repro_torch.core.nested import covers_all
+    from repro_torch.fl import FLEnvironment, HAPFLServer
+    from repro_torch.kernels import kd_loss as kd
+    from repro_torch.obs import trace
+    from repro_torch.sim import BufferedPolicy, EventScheduler, SyncPolicy
+    from repro_torch.utils.pytree import tree_leaves
+    t_phase = time.perf_counter()
+    env = FLEnvironment(main_path_config())
+    codec = make_codec("topk+int8", ratio=0.08, dense_min=256)
+    server = HAPFLServer(env, aggregation="cross_size", codec=codec,
+                         device="cuda")
+    comm = make_comm_model(
+        {s: float(c.num_params()) for s, c in env.pool.items()},
+        float(env.lite_cfg.num_params()), env.cfg.n_clients, codec=codec,
+        model_tensors={s: c.num_tensors() for s, c in env.pool.items()},
+        lite_tensors=env.lite_cfg.num_tensors())
+    if covers_all(env.pool["large"], env.pool["small"]):
+        raise SystemExit("chip_smoke: small covers large: the coverage-class "
+                         "path would not run")
+    before = {s: [t.clone() for t in tree_leaves(p)]
+              for s, p in server.global_by_size.items()}
+    moved, apply, wave_s = [], server.apply_updates, []
+
+    def first_moves(*a, **k):
+        n = apply(*a, **k)
+        if not moved:
+            moved.append({s: any(not torch.equal(x, y) for x, y in zip(
+                before[s], tree_leaves(server.global_by_size[s])))
+                for s in before})
+        return n
+    server.apply_updates = first_moves
+    train = server.train_wave
+
+    def timed_train(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train(*a, **k)
+        torch.cuda.synchronize()
+        wave_s.append(time.perf_counter() - t0)
+        return out
+    server.train_wave = timed_train
+    sched = EventScheduler(server, BufferedPolicy(buffer_m=3), comm=comm,
+                           health=True)
+    tracer = trace.enable()
+    try:
+        reset_all_launches()
+        t0 = time.perf_counter()
+        res = sched.run(waves=ASYNC_WAVES)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(kd.launches)
+    finally:
+        trace.disable()
+    server.apply_updates, server.train_wave = apply, train
+    shapes = {}
+    for rec in server.history:
+        for shape, n in padded_steps(server, rec).items():
+            shapes[shape] = shapes.get(shape, 0) + n
+    expected = {"kd_loss_fwd": 0, "kd_loss_bwd": 0,
+                "kd_loss_grad": sum(shapes.values())}
+    log(f"[async] {res.summary()}")
+    log(f"[async] {len(server.history)} waves in {run_s:.3f} s; train_wave "
+        f"(training + codec round trip + client eval) seconds {wave_s}; "
+        f"timing {res.timing}; trace events {len(tracer.events)}")
+    log(f"[async] launches {launches}, expected {expected}, by (C, B, V) "
+        f"{shapes}")
+    if len(server.history) != ASYNC_WAVES or launches != expected:
+        raise SystemExit(f"chip_smoke: async waves: launches {launches} != "
+                         f"{expected}: one kd_loss_grad per padded step")
+    if any(rec.rl_diag is None or set(rec.rl_diag) != {"ppo1", "ppo2"}
+           for rec in server.history):
+        raise SystemExit("chip_smoke: a traced wave has no rl_diag")
+    log(f"[async] rl_diag of the last wave {server.history[-1].rl_diag}")
+    ratios = []
+    for info in sched._waves.values():
+        plan = info["plan"]
+        for c, s, wire in zip(plan.clients, plan.sizes, plan.wire_bytes):
+            dense = 4.0 * (env.pool[s].num_params()
+                           + env.lite_cfg.num_params())
+            ratios.append(wire / dense)
+    log(f"[async] wire bytes / dense float32 bytes per client: min "
+        f"{min(ratios):.4f}, max {max(ratios):.4f} over {len(ratios)} "
+        f"uploads; up_bytes {res.up_bytes}")
+    if len(ratios) != res.n_updates or max(ratios) >= 0.25:
+        raise SystemExit("chip_smoke: an upload is not under a quarter of "
+                         "its dense bytes")
+    if not moved or not all(moved[0].values()):
+        raise SystemExit(f"chip_smoke: the first aggregation left a size's "
+                         f"global unmoved: {moved}")
+    if not (_finite(torch, server.lite_params)
+            and all(_finite(torch, p) for p in server.global_by_size.values())):
+        raise SystemExit("chip_smoke: async waves: non-finite globals")
+    log(f"[async] first aggregation moved {moved[0]}; globals finite")
+
+    # identity codec == no codec, and the sync policy == run(), on the card
+    servers = [HAPFLServer(FLEnvironment(main_path_config()), seed=5,
+                           codec=cd, device="cuda")
+               for cd in (None, "identity")]
+    recs = [srv.run_round() for srv in servers]
+    same = (recs[0].clients, recs[0].sizes, recs[0].intensities,
+            recs[0].acc_lite, recs[0].client_acc) == (
+        recs[1].clients, recs[1].sizes, recs[1].intensities,
+        recs[1].acc_lite, recs[1].client_acc)
+    if not (same and _globals_equal(torch, *servers)):
+        raise SystemExit("chip_smoke: codec='identity' is not bitwise "
+                         "codec=None on the card")
+    log("[async] codec='identity' == codec=None bit for bit (one round)")
+    plain = HAPFLServer(FLEnvironment(main_path_config()), seed=6,
+                        device="cuda")
+    plain.run(2)
+    synced = HAPFLServer(FLEnvironment(main_path_config()), seed=6,
+                         device="cuda")
+    EventScheduler(synced, SyncPolicy()).run(waves=2)
+    for a, b in zip(plain.history, synced.history):
+        if (dataclasses.asdict(a) != dataclasses.asdict(b)):
+            raise SystemExit(f"chip_smoke: the sync policy's records differ "
+                             f"from server.run's: {a} vs {b}")
+    if len(synced.history) != 2 or not _globals_equal(torch, plain, synced):
+        raise SystemExit("chip_smoke: the sync policy's globals are not "
+                         "server.run's bit for bit")
+    log("[async] EventScheduler(SyncPolicy()).run(waves=2) == "
+        "server.run(2): records identical, globals bit for bit")
+    grad_errs.update(phase_kd_grad(
+        torch, [(C, B, V, "float32") for C, B, V in sorted(shapes)
+                if (C, B, V, "float32") not in grad_errs]))
+    wall = time.perf_counter() - t_phase
+    log(f"[async] phase wall {wall:.2f} s")
+    return launches, shapes, wall
 
 
 def reset_all_launches():
@@ -1844,6 +2100,7 @@ def path_times(times, launches_by_key):
 # ---------------------------------------------------------------------- #
 def main() -> int:
     import torch
+    t_script = time.perf_counter()
     card = phase_device(torch)
     if not (ROOT / "src" / "repro_torch").is_dir():
         raise SystemExit("chip_smoke: src/repro_torch not found beside the "
@@ -1855,6 +2112,10 @@ def main() -> int:
     nf_errs = phase_norm_flash_kernels(torch)
     bwd_errs = phase_bwd_kernels(torch)
     server, launches, shapes = phase_main_path(torch)
+    baselines_s = phase_baselines(torch)
+    sim_launches, sim_shapes, async_s = phase_async(torch, grad_errs)
+    log(f"[main] the two new phases: baselines {baselines_s:.2f} s, async "
+        f"{async_s:.2f} s, {baselines_s + async_s:.2f} s together")
     grad_main = [(C, B, V, "float32") for C, B, V in sorted(shapes)]
     grad_errs.update(phase_kd_grad(
         torch, [s for s in grad_main if s not in grad_errs]))
@@ -1954,7 +2215,12 @@ def main() -> int:
         **path_times(grad_times, {("kd_loss_grad", C, B, V, "float32"): n
                                   for (C, B, V), n in shapes.items()}),
         "shapes": [[C, B, V, n] for (C, B, V), n in sorted(shapes.items())],
-        "dtype": "float32", "path": "HAPFL rounds"})
+        "dtype": "float32", "path": "HAPFL rounds",
+        "sim": {"launches": sim_launches["kd_loss_grad"],
+                "shapes": [[C, B, V, n]
+                           for (C, B, V), n in sorted(sim_shapes.items())],
+                "path": f"{ASYNC_WAVES} buffered waves, cross_size, "
+                        f"topk+int8"}})
     for name, source, replaces in (
             ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm.py:11"),
@@ -2007,6 +2273,7 @@ def main() -> int:
     next(r for r in record["kernels"] if r["name"] == "flash_attention")[
         "train"]["lse_ms"] = [[*k, v["ms"], v["ms_without"]]
                               for k, v in lse.items()]
+    log(f"[main] chip_smoke wall {time.perf_counter() - t_script:.1f} s")
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -16,6 +16,10 @@ the two models.
 Logits may carry a leading client axis, (C, B, V): each client's loss is its
 own batch mean, and the returned loss is the sum over clients, so one
 backward pass gives every client exactly its own gradient.
+
+`make_single_train_fns` is the baselines' plain-CE step (FedAvg, FedProx,
+pFedMe), with FedProx's proximal term; its CE is plain torch, no kernel,
+as the reference's is plain jnp.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ import torch
 
 from repro_torch.kernels.ops import kd_loss_grad_op, kd_loss_op
 from repro_torch.optim import sgd
-from repro_torch.utils.pytree import tree_add, tree_leaves, tree_unflatten
+from repro_torch.utils.pytree import (tree_add, tree_leaves, tree_map,
+                                      tree_unflatten)
 
 # Paper Table II defaults
 LAMBDAS = (0.4, 0.6, 0.5, 0.5)
@@ -95,5 +100,41 @@ def make_mutual_train_fns(apply_local: Callable, apply_lite: Callable,
                    "acc_lite": per[5],
                    "loss": (w * means[:4]).sum()}
         return params, opt_state, metrics
+
+    return step, opt.init
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over the batch axis: (..., B, V) logits and
+    (..., B) labels -> (...) (per client for stacked logits)."""
+    logp = torch.log_softmax(logits, -1)
+    return -logp.gather(-1, labels.long()[..., None])[..., 0].mean(-1)
+
+
+def make_single_train_fns(apply_fn: Callable, lr: float = 3e-4,
+                          prox_mu: float = 0.0):
+    """Plain-CE SGD step (FedAvg/pFedMe clients) and the optimizer init;
+    prox_mu adds FedProx's proximal term 0.5 * prox_mu * sum ||p - g||^2
+    against `global_params`. Written like `make_mutual_train_fns`: params
+    may be stacked over clients (C, ...) with images (C, B, ...) and
+    global_params unstacked, which broadcasts; the loss is then the sum
+    over clients, each client's gradient its own. Both terms' gradients
+    come from autograd, the prox term's being prox_mu * (p - g)."""
+    opt = sgd(lr, momentum=0.9)
+
+    def step(params, opt_state, images, labels, global_params):
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params)]
+        live = tree_unflatten(params, leaves)
+        with torch.enable_grad():
+            loss = _ce(apply_fn(live, images), labels).sum()
+            if prox_mu:
+                sq = tree_map(lambda a, b: torch.sum(torch.square(a - b)),
+                              live, global_params)
+                loss = loss + 0.5 * prox_mu * sum(tree_leaves(sq))
+            grads = torch.autograd.grad(loss, leaves)
+        updates, opt_state = opt.update(tree_unflatten(params, grads),
+                                        opt_state, params)
+        return tree_add(params, updates), opt_state, {"loss": loss.detach()}
 
     return step, opt.init

@@ -277,9 +277,8 @@ def make_comm_model(model_params: Dict[str, float], lite_params: float,
     rng.shuffle(up)
     up = up * (mean_mbps * 1e6 / 8.0) / up.mean()   # bytes/sec, given mean
     if isinstance(codec, str):
-        raise NotImplementedError(
-            "codec names need repro_torch.comm, not ported yet "
-            "(ROADMAP.md §1 item 9)")
+        from repro_torch.comm import make_codec   # lazy: keep core comm-free
+        codec = make_codec(codec)
     return CommModel(
         model_bytes={s: p * bytes_per_param for s, p in model_params.items()},
         lite_bytes=lite_params * bytes_per_param,

@@ -46,15 +46,17 @@ def masked_select(new, old, keep: torch.Tensor):
 
 
 def make_batched_trainer(raw_step, init_opt):
-    """(stacked_params, xs, ys, mask) -> trained stacked_params.
+    """(stacked_params, xs, ys, mask, *extra) -> trained stacked_params.
 
-    raw_step/init_opt come from make_mutual_train_fns. Shapes: xs (C, S, B,
-    ...), ys (C, S, B), mask (C, S) bool; params leaves carry a leading
-    client axis C."""
-    def train(params, xs, ys, mask):
+    raw_step/init_opt come from make_mutual_train_fns (or, with the global
+    params as `extra`, make_single_train_fns). Shapes: xs (C, S, B, ...),
+    ys (C, S, B), mask (C, S) bool; params leaves carry a leading client
+    axis C; `extra` goes to every step as it is."""
+    def train(params, xs, ys, mask, *extra):
         opt_state = init_opt(params)
         for t in range(xs.shape[1]):
-            p2, o2, _ = raw_step(params, opt_state, xs[:, t], ys[:, t])
+            p2, o2, _ = raw_step(params, opt_state, xs[:, t], ys[:, t],
+                                 *extra)
             params = masked_select(p2, params, mask[:, t])
             opt_state = masked_select(o2, opt_state, mask[:, t])
         return params

@@ -2,20 +2,21 @@
 
 Per round: assessment training -> PPO1 model allocation -> PPO2 intensity
 assignment -> client mutual-KD local training -> entropy+accuracy weighted
-aggregation (LiteModels globally; local models per size group) -> RL
-rewards and buffered PPO updates.
+aggregation (LiteModels globally; local models per size group, or
+cross-size nested with ``aggregation="cross_size"`` — DESIGN.md §12) ->
+RL rewards and buffered PPO updates.
 
 The round body is factored into the reference's wave-level callbacks
-(`plan_wave`, `train_wave`, `apply_updates`, `feedback_wave`,
-`record_wave`); `run_round` composes them into the synchronous barrier
+(`plan_wave`, `train_wave`, `wave_updates`, `apply_updates`,
+`feedback_wave`, `record_wave`), which the event-driven simulator
+(`repro_torch.sim`) drives on arbitrary client subsets at arbitrary
+virtual times; `run_round` composes them into the synchronous barrier
 round. Params, PPO agents and training live on `device` (CUDA unless the
-caller asks for the CPU); data, client selection and latency are host numpy,
-identical to the reference's.
+caller asks for the CPU); data, client selection, latency and the update
+codecs' wire format are host numpy, identical to the reference's.
 
-Not ported yet, and raising NotImplementedError where asked for:
-cross-size aggregation (``repro.core.nested``, ROADMAP.md §1 item 7), update
-codecs (``repro.comm``, item 9), the mesh-sharded engine (item 13) and the
-tracing-on PPO diagnostics (``repro.obs.rl``, item 12).
+Not ported yet, and raising NotImplementedError where asked for: the
+mesh-sharded engine (ROADMAP.md §1 item 13).
 """
 from __future__ import annotations
 
@@ -25,15 +26,18 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.comm import make_codec
 from repro_torch.core.allocation import ModelAllocator
 from repro_torch.core.aggregation import (fedavg_aggregate, group_aggregate,
                                           staleness_weights,
                                           weighted_aggregate)
 from repro_torch.core.intensity import IntensityAllocator
 from repro_torch.core.latency import straggling_latency
+from repro_torch.core.nested import nested_aggregate
 from repro_torch.fl.batched import BatchedClientEngine
 from repro_torch.fl.env import FLEnvironment
 from repro_torch.models.cnn import init_cnn
+from repro_torch.obs.rl import wave_diagnostics
 from repro_torch.obs.trace import current as _tracer
 from repro_torch.utils.device import resolve_device
 
@@ -54,7 +58,10 @@ class RoundRecord:
     acc_by_size: Dict[str, float]
     client_acc: Dict[int, Dict[str, float]]
     latency_only: bool = False
-    #: per-wave PPO diagnostics; None until repro.obs.rl is ported
+    #: per-wave PPO diagnostics (repro_torch.obs.rl) — populated only when
+    #: tracing is enabled (or a health tracker sets `collect_rl_diag`),
+    #: None otherwise, so untraced runs stay byte-identical to
+    #: uninstrumented ones
     rl_diag: Optional[Dict[str, Dict]] = None
 
 
@@ -95,15 +102,13 @@ class HAPFLServer:
             raise NotImplementedError(
                 "the mesh-sharded engine is not ported yet (ROADMAP.md §1 "
                 "item 13)")
-        if aggregation == "cross_size":
-            raise NotImplementedError(
-                "cross-size aggregation needs repro_torch.core.nested, not "
-                "ported yet (ROADMAP.md §1 item 7)")
-        if codec is not None:
-            raise NotImplementedError(
-                "update codecs need repro_torch.comm, not ported yet "
-                "(ROADMAP.md §1 item 9)")
         self.device = resolve_device(device)
+        # update codec (repro_torch.comm, DESIGN.md §13): every client
+        # update is round-tripped through it before aggregation sees it.
+        # None skips the round trip entirely; "identity" takes it but passes
+        # the tensors through untouched — both are bit-identical.
+        self.codec = None if codec is None else make_codec(codec)
+        self.codec_seed = seed
         if engine == "auto":
             # on a card the batched engine wins; on the CPU keep the
             # reference's rule: batching wins at small, dispatch-bound
@@ -111,8 +116,14 @@ class HAPFLServer:
             engine = ("batched" if self.device.type == "cuda"
                       or env.cfg.batch_size <= 8 else "sequential")
         # struct-of-arrays per-client state (DESIGN.md §15): latency
-        # queries route through it vectorized
+        # queries route through it vectorized, and the scheduler mirrors
+        # its in-flight slots into it
         self.store = env.store
+        # error-feedback residuals, keyed (client, kind, size) — "local"
+        # trees change shape when PPO1 reassigns sizes, so each (client,
+        # size) pair carries its own residual; "lite" is homogeneous. The
+        # store's sparse EF dict, aliased.
+        self._ef: Dict = self.store.ef
         self.env = env
         self.engine = engine
         self.aggregation = aggregation
@@ -137,6 +148,11 @@ class HAPFLServer:
                                                   device=self.device)
         self.history: List[RoundRecord] = []
         self._round = 0
+        self._last_rl_diag: Optional[Dict[str, Dict]] = None
+        # set by a scheduler with a FleetHealth attached: collect per-wave
+        # PPO diagnostics even when tracing is off (the trace counter emits
+        # stay no-ops; only RoundRecord.rl_diag fills in)
+        self.collect_rl_diag = False
 
     # ------------------------------------------------------------------ #
     def _client_train(self, client: int, size: str, intensity: int):
@@ -158,7 +174,7 @@ class HAPFLServer:
         return out
 
     # ------------------------------------------------------------------ #
-    # wave-level callbacks (driven by run_round)
+    # wave-level callbacks (driven by run_round and by repro_torch.sim)
     # ------------------------------------------------------------------ #
     def _pad(self, vals: Sequence):
         """Pad a per-client list to the PPO state dim k by repeating the
@@ -239,6 +255,7 @@ class HAPFLServer:
                 self._client_train(c, s, tau)
                 for c, s, tau in zip(plan.clients, plan.sizes,
                                      plan.intensities)]
+        self._encode_wave(plan)
         if eval_accuracy:
             plan.accs_local = [
                 env.client_test_accuracy(p["local"], env.pool[s], c)
@@ -251,6 +268,43 @@ class HAPFLServer:
             plan.accs_local = [0.0] * m
             plan.accs_lite = [0.0] * m
         return plan
+
+    def _encode_wave(self, plan: WavePlan) -> None:
+        """Round-trip the wave's trained params through the update codec:
+        encode each client's {local, lite} delta against the dispatch-time
+        globals (train_wave runs at dispatch, so the current globals ARE
+        the reference the client trained from), decode immediately, and
+        replace `plan.client_params` with the wire-faithful result — every
+        downstream consumer (accuracy eval, apply_updates, group or
+        cross_size) then sees exactly what survived the wire.
+        Error-feedback residuals persist in self._ef across rounds;
+        per-client wire bytes land in plan.wire_bytes."""
+        if self.codec is None or not plan.client_params:
+            return
+        with _tracer().span("server.encode_wave", round=plan.round_idx,
+                            n=len(plan.clients), codec=self.codec.name):
+            self._encode_wave_impl(plan)
+
+    def _encode_wave_impl(self, plan: WavePlan) -> None:
+        codec, wire = self.codec, []
+        for i, c in enumerate(plan.clients):
+            size = plan.sizes[i]
+            refs = (("local", size, self.global_by_size[size]),
+                    ("lite", "", self.lite_params))
+            dec, total = {}, 0.0
+            for kind, sz, ref in refs:
+                key = (c, kind, sz)
+                enc, state = codec.encode(
+                    plan.client_params[i][kind], ref, self._ef.get(key),
+                    seed=self.codec_seed, client=c,
+                    round_idx=plan.round_idx, tag=kind)
+                if state is not None:
+                    self._ef[key] = state
+                dec[kind] = codec.decode(enc, ref)
+                total += enc.wire_bytes
+            plan.client_params[i] = dec
+            wire.append(total)
+        plan.wire_bytes = wire
 
     def wave_updates(self, plan: WavePlan,
                      indices: Optional[Sequence[int]] = None,
@@ -265,12 +319,27 @@ class HAPFLServer:
                  "acc_lite": plan.accs_lite[i],
                  "staleness": staleness} for i in idx]
 
+    def _aggregate_local(self, locals_, sizes, ents, accs, stal,
+                         staleness_exponent, mix):
+        """Route the heterogeneous-model aggregation: per-size-group (Eq. 5)
+        or cross-size nested (HeteroFL-style coverage-weighted, DESIGN.md
+        §12). Both consume the same staleness tags."""
+        if self.aggregation == "cross_size":
+            return nested_aggregate(
+                self.global_by_size, self.env.pool, locals_, sizes, ents,
+                accs, staleness=stal, staleness_exponent=staleness_exponent,
+                mix=mix)
+        return group_aggregate(
+            self.global_by_size, locals_, sizes, ents, accs, staleness=stal,
+            staleness_exponent=staleness_exponent, mix=mix)
+
     def apply_updates(self, updates: List[Dict],
                       staleness_exponent: float = 0.5,
                       mix: float = 1.0) -> int:
-        """Step 5 generalized: fold client updates (possibly stale) into the
-        globals. With staleness=None on every update and mix=1 this is the
-        synchronous aggregation."""
+        """Step 5 generalized: fold client updates (possibly cross-wave,
+        possibly stale) into the globals. With staleness=None on every
+        update, mix=1 and aggregation="group" this is the synchronous
+        aggregation."""
         if not updates:
             return 0
         with _tracer().span("server.apply_updates", n=len(updates)):
@@ -288,7 +357,7 @@ class HAPFLServer:
             ents = [u["entropy"] for u in updates]
             accs_lite = [u["acc_lite"] for u in updates]
             accs_local = [u["acc_local"] for u in updates]
-        elif stal is None and mix == 1.0:
+        elif stal is None and mix == 1.0 and self.aggregation == "group":
             self.lite_params = fedavg_aggregate(lites)
             for s in set(sizes):
                 self.global_by_size[s] = fedavg_aggregate(
@@ -296,36 +365,42 @@ class HAPFLServer:
             return n
         else:
             # unweighted: uniform base weights (softmax of zeros), still
-            # staleness-discounted / server-mixed
+            # staleness-discounted / server-mixed / cross-size as configured
             ents = accs_lite = accs_local = [0.0] * n
         w = staleness_weights(ents, accs_lite, stal, staleness_exponent)
         self.lite_params = weighted_aggregate(self.lite_params, lites, w,
                                               mix=mix)
-        self.global_by_size = group_aggregate(
-            self.global_by_size, locals_, sizes, ents, accs_local,
-            staleness=stal, staleness_exponent=staleness_exponent, mix=mix)
+        self.global_by_size = self._aggregate_local(
+            locals_, sizes, ents, accs_local, stal, staleness_exponent, mix)
         return n
 
     def feedback_wave(self, plan: WavePlan):
-        """Step 6: RL rewards (Algorithm 1 lines 22-30)."""
+        """Step 6: RL rewards (Algorithm 1 lines 22-30). With tracing on
+        (or `collect_rl_diag` set by a health-tracking caller), also
+        collects both agents' PPO diagnostics (repro_torch.obs.rl), emits
+        them as trace counters, and stages them for `record_wave`."""
         tr = _tracer()
-        if tr.enabled and (self.use_ppo1 or self.use_ppo2):
-            raise NotImplementedError(
-                "PPO diagnostics under tracing need repro_torch.obs.rl, not "
-                "ported yet (ROADMAP.md §1 item 12)")
         with tr.span("server.feedback_wave", round=plan.round_idx):
             rw1 = (self.allocator.feedback(self._pad(plan.local_times),
                                            self._pad(plan.intensities))
                    if self.use_ppo1 else 0.0)
             rw2 = (self.intensity.feedback(self._pad(plan.local_times))
                    if self.use_ppo2 else 0.0)
+        if ((tr.enabled or self.collect_rl_diag)
+                and (self.use_ppo1 or self.use_ppo2)):
+            diag = wave_diagnostics(self)
+            for agent_name, d in diag.items():
+                tr.counter(f"rl.{agent_name}", d)
+            tr.counter("rl.reward", {"ppo1": rw1, "ppo2": rw2})
+            self._last_rl_diag = diag
         return rw1, rw2
 
     def record_wave(self, plan: WavePlan, rw1: float, rw2: float,
                     eval_accuracy: bool = True,
                     wall_time: Optional[float] = None) -> RoundRecord:
         """Step 7: bookkeeping. wall_time defaults to the synchronous
-        barrier (max assess+local)."""
+        barrier (max assess+local); the scheduler passes the measured
+        virtual-clock span instead."""
         env = self.env
         wall = (max(a + t for a, t in zip(plan.assess, plan.local_times))
                 if wall_time is None else wall_time)
@@ -347,7 +422,9 @@ class HAPFLServer:
                             "size": plan.sizes[i]}
                         for i, c in enumerate(plan.clients)},
             latency_only=plan.latency_only,
+            rl_diag=self._last_rl_diag,
         )
+        self._last_rl_diag = None
         self.history.append(rec)
         return rec
 

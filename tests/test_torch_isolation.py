@@ -61,9 +61,11 @@ def _default_device_cases():
     the default."""
     from repro_torch.convert import params_from_numpy
     from repro_torch.core.allocation import ModelAllocator
+    from repro_torch.core.nested import zeros_params
     from repro_torch.core.intensity import IntensityAllocator
     from repro_torch.core.ppo import PPOAgent, PPOConfig
-    from repro_torch.fl import BatchedClientEngine, FLEnvironment, FLSimConfig
+    from repro_torch.fl import (BaselineRunner, BatchedClientEngine,
+                                FLEnvironment, FLSimConfig)
     from repro_torch.configs import get_config
     from repro_torch.models.api import init_model
     from repro_torch.models.cnn import cnn_pool, init_cnn
@@ -83,13 +85,17 @@ def _default_device_cases():
         "init_model": lambda: init_model(gen, smoke),
         "serve_engine": lambda: ServeEngine(
             smoke, init_model(gen, smoke, device="cpu")),
+        "baseline_runner": lambda: BaselineRunner(FLEnvironment(FLSimConfig(
+            n_train=100, n_test=20, n_clients=4, k_per_round=2)), "fedprox"),
+        "zeros_params": lambda: zeros_params(cnn_pool("mnist")["small"]),
     }
 
 
 @pytest.mark.parametrize("name", ["engine", "ppo_agent", "model_allocator",
                                   "intensity_allocator", "init_cnn",
                                   "params_from_numpy", "init_model",
-                                  "serve_engine"])
+                                  "serve_engine", "baseline_runner",
+                                  "zeros_params"])
 def test_constructors_default_to_cuda(monkeypatch, name):
     """Left at its default, every entry point asks for the card, and
     without one it raises instead of running on the CPU."""

@@ -23,6 +23,18 @@ KW = dict(dataset="mnist", n_train=400, n_test=100, batches_per_epoch=1,
 ATOL, RTOL = 1e-4, 1e-3
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Run on one intra-op thread (the port's CPU tests import this): the
+    suite runs several workers at once, and the HAPFL path's thousands of
+    tiny ops slow down many times over when every worker's thread pool
+    spins on every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _assert_trees_close(got, exp, atol=ATOL, rtol=RTOL):
     """got: a tree of tensors; exp: the reference's tree, compared by path
     (JAX flattens dicts in sorted key order, the port in insertion order)."""
@@ -124,11 +136,16 @@ def test_pretrain_rl_matches_reference():
 
 
 def test_unported_options_raise():
+    """Only the mesh-sharded engine is still unported; cross-size
+    aggregation and codecs construct (tests/test_torch_nested.py and
+    tests/test_torch_comm.py hold them against the reference)."""
     env = tfl.FLEnvironment(tfl.FLSimConfig(**KW))
-    for kw in ({"aggregation": "cross_size"}, {"codec": "int8"},
-               {"engine": "sharded"}, {"mesh": object()}):
+    for kw in ({"engine": "sharded"}, {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tfl.HAPFLServer(env, device="cpu", **kw)
+    srv = tfl.HAPFLServer(env, device="cpu", aggregation="cross_size",
+                          codec="int8")
+    assert (srv.aggregation, srv.codec.name) == ("cross_size", "int8")
     with pytest.raises(ValueError):
         tfl.HAPFLServer(env, device="cpu", engine="warp-drive")
     assert resolve_device("cpu") == torch.device("cpu")
