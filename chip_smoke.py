@@ -76,6 +76,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 and EventScheduler(SyncPolicy()).run(waves=2) equals
                 server.run(2) (records, and globals bit for bit). The wall
                 time of both phases is logged, and of the whole script.
+  4d. service — the parameter service at launch/serve.py's defaults
+                (mnist, 16 clients, k 4, async, churn, 400 Poisson events
+                at 2 Hz) with the topk+int8 codec: serve.main into a
+                temporary directory with --checkpoint-dir, --health-report,
+                --prom-out and --events-jsonl, then a second main on the
+                same directory, which must resume. Then the kill/restore
+                pin of the buffered service, identity and topk+int8: one
+                run replays the whole trace; another replays to event 200,
+                checkpoints and is dropped; a fresh service restores and
+                replays the rest, and must equal the first bit for bit
+                (globals, LiteModel, both PPO agents, the generator, EF
+                residuals, env rng, records, counters, bytes). Updates/s,
+                dispatch and submit latency, checkpoint time and bytes,
+                wire over dense bytes, a cProfile of a replay and its
+                device busy share are logged; every kernel's launch count
+                must stay 0 (the service trains nothing).
   5. serve    — llama3.2-3b at full width (28 layers, d 3072, 24 heads, 8
                 KV heads, vocab 128256) in bf16, random weights from a
                 seeded generator on the card: ServeEngine(max_len=1024)
@@ -126,6 +142,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 twice forward), finite loss and grad norm; seconds per
                 step, tokens/s, peak memory; one more step under
                 torch.profiler.
+  9b. ckpt     — phase 9's trained params saved with save_checkpoint (as
+                launch/train.py --checkpoint does) under a temporary
+                directory and restored onto the card with
+                load_checkpoint(like=...): every leaf bitwise equal (bf16
+                through its 16-bit view); free space, bytes, save and load
+                seconds logged. One forward of the local model on the
+                training batch from the restored and from the live params:
+                bitwise-equal logits, exactly 1 rmsnorm, 2 L add_rmsnorm
+                and L flash_attention launches each, no other kernel.
  10. fleet    — two LLMFleet rounds on the card (one kd_loss_grad per
                 local step).
  11. parity   — one train step of a 2-layer fp32 cut of the full-width
@@ -1203,6 +1228,238 @@ def phase_async(torch, grad_errs):
     return launches, shapes, wall
 
 
+# ---------------------------------------------------------------------- #
+# 4d. the parameter service
+# ---------------------------------------------------------------------- #
+# launch/serve.py's defaults (mnist, 16 clients, k 4, async, churn, 400
+# Poisson events at 2 Hz) with the topk+int8 codec; the kill/restore pin
+# cuts the trace at event 200
+SERVICE = {"n_clients": 16, "k": 4, "events": 400, "rate_hz": 2.0,
+           "seed": 0, "codec": "topk+int8", "cut": 200}
+
+
+def _service_argv(ckpt_dir, out_dir=None):
+    argv = ["--n-clients", str(SERVICE["n_clients"]),
+            "--k-per-round", str(SERVICE["k"]), "--policy", "async",
+            "--codec", SERVICE["codec"], "--events", str(SERVICE["events"]),
+            "--rate-hz", str(SERVICE["rate_hz"]),
+            "--seed", str(SERVICE["seed"]), "--device", "cuda",
+            "--checkpoint-dir", str(ckpt_dir),
+            "--metrics-out", str(Path(ckpt_dir).parent / "metrics.json")]
+    if out_dir is not None:
+        argv += ["--health-report", str(out_dir / "health.md"),
+                 "--prom-out", str(out_dir / "metrics.prom"),
+                 "--events-jsonl", str(out_dir / "events.jsonl")]
+    return argv
+
+
+def _run_main(main, argv):
+    """main(argv) with its standard output captured and logged; returns
+    (the service, the output, seconds)."""
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        svc = main(argv)
+    seconds = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"[service]   | {line}")
+    return svc, buf.getvalue(), seconds
+
+
+def service_state_diff(torch, ref, other):
+    """The fields on which two services differ, of everything a restored
+    service must carry over bit for bit: globals, LiteModel, both PPO
+    agents (params, AdamW state, buffer, pending transition, rewards), the
+    server's generator, EF residuals, env rng, records, the deterministic
+    counters, the staleness histogram and the byte counts."""
+    import numpy as np
+    from repro_torch.utils.pytree import tree_leaves
+
+    def same(a, b):
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(
+            torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+            for x, y in zip(la, lb))
+    a, b = ref.server, other.server
+    checks = {
+        "lite": same(a.lite_params, b.lite_params),
+        "globals": same(a.global_by_size, b.global_by_size),
+        "generator": torch.equal(a.gen.get_state(), b.gen.get_state()),
+        "ef": (sorted(a._ef) == sorted(b._ef)
+               and all(same(a._ef[k], b._ef[k]) for k in a._ef)),
+        "env_rng": (a.env.rng.bit_generator.state
+                    == b.env.rng.bit_generator.state),
+        "version": ref.version == other.version,
+        "records": ref.records == other.records,
+        "counts": (ref.metrics.deterministic_counts()
+                   == other.metrics.deterministic_counts()),
+        "staleness": (dict(ref.metrics.staleness)
+                      == dict(other.metrics.staleness)),
+        "bytes": ((ref.metrics.up_bytes, ref.metrics.down_bytes)
+                  == (other.metrics.up_bytes, other.metrics.down_bytes)),
+    }
+    for name, oa, ob in (("ppo1", a.allocator, b.allocator),
+                         ("ppo2", a.intensity, b.intensity)):
+        ea, eb = oa.agent, ob.agent
+        checks[f"{name}.params"] = same(ea.params, eb.params)
+        checks[f"{name}.opt"] = same(ea.opt_state, eb.opt_state)
+        checks[f"{name}.buffer"] = len(ea.buffer) == len(eb.buffer) and all(
+            list(x) == list(y) and all(np.array_equal(x[k], y[k]) for k in x)
+            for x, y in zip(ea.buffer, eb.buffer))
+        checks[f"{name}.rewards"] = ea.reward_history == eb.reward_history
+        checks[f"{name}.pending"] = (
+            set(oa._pending) == set(ob._pending)
+            and all(np.array_equal(oa._pending[k], ob._pending[k])
+                    for k in oa._pending))
+    return sorted(k for k, ok in checks.items() if not ok)
+
+
+def _wire_over_dense(svc):
+    """Uplink wire bytes over the dense float32 bytes of the same
+    submitted updates (each submit's size from its dispatch event)."""
+    env = svc.server.env
+    sizes, dense = {}, 0.0
+    for ev in svc.metrics.events:
+        if ev["event"] == "dispatch":
+            sizes[(ev["client"], ev["wave"])] = ev["size"]
+        elif ev["event"] == "submit":
+            size = sizes[(ev["client"], ev["wave"])]
+            dense += 4.0 * (env.pool[size].num_params()
+                            + env.lite_cfg.num_params())
+    return svc.metrics.up_bytes / dense
+
+
+def phase_service(torch):
+    """launch/serve.py's main on the card twice over one checkpoint
+    directory (the second must resume), then the kill/restore pin of the
+    buffered service for the identity and topk+int8 codecs, bitwise on the
+    card; updates/s, dispatch and submit latency, checkpoint save and
+    restore time and bytes, and wire bytes over dense are logged. The
+    service trains nothing: every kernel's count must stay 0."""
+    import tempfile
+    from repro_torch.launch import serve
+    from repro_torch.service import LoadGenerator, poisson_trace
+    t_phase = time.perf_counter()
+    reset_all_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_service_") as tmp:
+        tmp = Path(tmp)
+        ckpt_dir = tmp / "ckpt"
+        svc, out, first_s = _run_main(serve.main,
+                                      _service_argv(ckpt_dir, tmp))
+        torch.cuda.synchronize()
+        snap = svc.metrics.snapshot()
+        missing = [n for n in ("metrics.json", "health.md", "health.json",
+                               "metrics.prom", "events.jsonl")
+                   if not (tmp / n).is_file() or not (tmp / n).stat().st_size]
+        if "resumed" in out or missing or svc.server.device.type != "cuda":
+            raise SystemExit(f"chip_smoke: serve.main: resumed on a fresh "
+                             f"directory, or outputs missing {missing}")
+        log(f"[service] serve.main on {svc.server.device}: {first_s:.2f} s, "
+            f"version {svc.version}, updates/s {snap['updates_per_sec']}, "
+            f"dispatch {snap['dispatch']}, submit {snap['submit']}, "
+            f"checkpoint {snap['checkpoint']}, staleness "
+            f"{snap['staleness_hist']}; wire / dense bytes "
+            f"{_wire_over_dense(svc):.4f} (up {svc.metrics.up_bytes}, down "
+            f"{svc.metrics.down_bytes})")
+        again, out, again_s = _run_main(serve.main, _service_argv(ckpt_dir))
+        torch.cuda.synchronize()
+        want = f"resumed from {ckpt_dir}/ckpt-{svc.version:08d}"
+        if want not in out or again.version <= svc.version:
+            raise SystemExit(f"chip_smoke: the second serve.main did not "
+                             f"resume ({want!r} not printed)")
+        log(f"[service] second serve.main resumed at version {svc.version} "
+            f"and reached {again.version} in {again_s:.2f} s")
+
+        trace = poisson_trace(SERVICE["events"], SERVICE["n_clients"],
+                              SERVICE["rate_hz"], seed=SERVICE["seed"])
+        cut = SERVICE["cut"]
+        for codec in ("identity", SERVICE["codec"]):
+            def build():
+                return serve.build_service(
+                    SERVICE["n_clients"], SERVICE["k"], "buffered", codec,
+                    SERVICE["seed"],
+                    min_deadline=1.5 * SERVICE["n_clients"]
+                    / SERVICE["rate_hz"],
+                    horizon=SERVICE["events"] / SERVICE["rate_hz"],
+                    device="cuda")
+            t_pin = time.perf_counter()
+            ref = build()
+            t0 = time.perf_counter()
+            LoadGenerator(ref, trace, seed=SERVICE["seed"]).replay()
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t0
+            first = build()
+            LoadGenerator(first, trace, seed=SERVICE["seed"]).replay(
+                stop=cut)
+            in_flight = (len(first.tickets), len(first.buffer),
+                         len(first._waves))
+            t0 = time.perf_counter()
+            path = first.checkpoint(str(tmp / f"pin-{codec}"))
+            save_s = time.perf_counter() - t0
+            nbytes = sum(Path(path + ext).stat().st_size
+                         for ext in (".npz", ".json", ".aux.json"))
+            del first                                  # the "kill"
+            second = build()
+            t0 = time.perf_counter()
+            second.restore(path)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            LoadGenerator(second, trace, seed=SERVICE["seed"]).replay(
+                start=cut)
+            torch.cuda.synchronize()
+            diff = service_state_diff(torch, ref, second)
+            ppo = (ref.server.allocator.agent.n_updates,
+                   ref.server.intensity.agent.n_updates)
+            log(f"[service] kill/restore pin, buffered, codec {codec}: "
+                f"uninterrupted {ref_s:.2f} s to version {ref.version} "
+                f"(PPO updates {ppo}); checkpoint at event {cut} with "
+                f"(tickets, buffered, open waves) {in_flight}: save "
+                f"{save_s * 1e3:.1f} ms, restore {restore_s * 1e3:.1f} ms, "
+                f"{nbytes} B; restored run differs in {diff or 'nothing'}; "
+                f"{time.perf_counter() - t_pin:.2f} s for the three runs")
+            if diff or min(ppo) < 1:
+                raise SystemExit(f"chip_smoke: the restored service is not "
+                                 f"the uninterrupted one bit for bit "
+                                 f"({diff}), or PPO never updated {ppo}")
+        t0 = time.perf_counter()
+        profile_service(torch, build, trace[:cut])
+        log(f"[service] profiles {time.perf_counter() - t0:.2f} s")
+    launches = all_launches()
+    if any(launches.values()):
+        raise SystemExit(f"chip_smoke: the service launched kernels "
+                         f"{launches}: it trains nothing")
+    wall = time.perf_counter() - t_phase
+    log(f"[service] launches {launches}; phase wall {wall:.2f} s")
+    return wall
+
+
+def profile_service(torch, build, trace):
+    """Where a replay's host time goes (cProfile: the top functions by
+    their own time) and how busy its first 60 events keep the card
+    (torch.profiler, whose own cost grows with the events it records)."""
+    import cProfile
+    import pstats
+    from repro_torch.service import LoadGenerator
+    svc = build()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(LoadGenerator(svc, trace, seed=SERVICE["seed"]).replay)
+    torch.cuda.synchronize()
+    log(f"[service] profile: {len(trace)} events in "
+        f"{time.perf_counter() - t0:.2f} s under cProfile; own time by "
+        f"function:")
+    stats = pstats.Stats(prof)
+    rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:14]
+    for (path, line, fn), (_, calls, own, cum, _) in rows:
+        log(f"[service]   {own:8.3f} s own {cum:8.3f} s cum {calls:7d}x "
+            f"{Path(path).name}:{line}({fn})")
+    svc = build()
+    trace = trace[:60]
+    phase_profile(torch, f"service replay ({len(trace)} events)",
+                  LoadGenerator(svc, trace, seed=SERVICE["seed"]).replay, ())
+
+
 def reset_all_launches():
     from repro_torch.kernels import flash_attention, kd_loss, rmsnorm
     for mod in (kd_loss, rmsnorm, flash_attention):
@@ -1711,6 +1968,88 @@ def phase_train(torch):
     return state, step, batches, launches, shapes
 
 
+# ---------------------------------------------------------------------- #
+# 9b. the training checkpoint
+# ---------------------------------------------------------------------- #
+def _bits_equal(torch, a, b):
+    """Same dtype, shape and bits (bf16 through its 16-bit view)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        return torch.equal(a.view(view), b.view(view))
+    return torch.equal(a, b)
+
+
+def phase_train_checkpoint(torch, state, batch):
+    """Phase 9's live params saved as launch/train.py --checkpoint saves
+    them, restored onto the card with load_checkpoint(like=...): every leaf
+    bitwise equal. Then one forward of the local model over the training
+    batch on the restored and on the live params: bitwise-equal logits,
+    and exactly 1 rmsnorm, 2 L add_rmsnorm and L flash_attention launches
+    (no other kernel) for each. Returns the forward's launches."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.utils.pytree import tree_leaves
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN["arch"])
+    params = state["params"]
+    leaves = tree_leaves(params)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        free = shutil.disk_usage(tmp).free
+        log(f"[ckpt] {len(leaves)} leaves, {nbytes} B of params; "
+            f"{free} B free under {tmp}")
+        path = Path(tmp) / "llama"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(path, params, step=TRAIN["steps"] + 1)
+        save_s = time.perf_counter() - t0
+        disk = sum(Path(f"{path}{ext}").stat().st_size
+                   for ext in (".npz", ".json"))
+        t0 = time.perf_counter()
+        restored, step = load_checkpoint(path, params, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    log(f"[ckpt] save {save_s:.2f} s ({disk / save_s / 1e9:.3f} GB/s), "
+        f"load onto the card {load_s:.2f} s ({disk / load_s / 1e9:.3f} "
+        f"GB/s), {disk} B on disk, step {step}")
+    got = tree_leaves(restored)
+    bad = [i for i, (a, b) in enumerate(zip(got, leaves))
+           if a.device != b.device or not _bits_equal(torch, a, b)]
+    if step != TRAIN["steps"] + 1 or len(got) != len(leaves) or bad:
+        raise SystemExit(f"chip_smoke: the restored checkpoint differs "
+                         f"(step {step}, leaves {bad[:8]})")
+    log(f"[ckpt] all {len(got)} leaves bitwise equal on the card")
+    expected = {k: 0 for k in all_launches()}
+    expected.update({"rmsnorm": 1, "add_rmsnorm": 2 * cfg.n_layers,
+                     "flash_attention": cfg.n_layers})
+    logits = []
+    with torch.no_grad():
+        for tree in (restored, params):
+            reset_all_launches()
+            logits.append(api.forward(tree["local"], cfg, batch)[0])
+            torch.cuda.synchronize()
+            launches = all_launches()
+            if launches != expected:
+                raise SystemExit(f"chip_smoke: the checkpoint forward "
+                                 f"launched {launches} != {expected}")
+    if not _bits_equal(torch, *logits):
+        raise SystemExit("chip_smoke: logits of the restored params are "
+                         "not the live params' bit for bit")
+    log(f"[ckpt] forward {tuple(logits[0].shape)} {logits[0].dtype}: "
+        f"restored == live bit for bit; launches each {launches}")
+    del restored, got, logits
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"[ckpt] phase wall {wall:.2f} s")
+    return launches, wall
+
+
 def phase_fleet(torch):
     """Two LLMFleet rounds on the card at the reference's own size (the fp32
     smoke cut): one kd_loss_grad launch per local step, finite globals."""
@@ -2114,8 +2453,9 @@ def main() -> int:
     server, launches, shapes = phase_main_path(torch)
     baselines_s = phase_baselines(torch)
     sim_launches, sim_shapes, async_s = phase_async(torch, grad_errs)
-    log(f"[main] the two new phases: baselines {baselines_s:.2f} s, async "
+    log(f"[main] phases 4b and 4c: baselines {baselines_s:.2f} s, async "
         f"{async_s:.2f} s, {baselines_s + async_s:.2f} s together")
+    service_s = phase_service(torch)
     grad_main = [(C, B, V, "float32") for C, B, V in sorted(shapes)]
     grad_errs.update(phase_kd_grad(
         torch, [s for s in grad_main if s not in grad_errs]))
@@ -2178,6 +2518,10 @@ def main() -> int:
                    "flash_bwd_prep_kernel", "norm_bwd_kernel",
                    "norm_kernel", "flash_wgmma_kernel",
                    "kd_grad_row_kernel"))
+    ckpt_launches, ckpt_s = phase_train_checkpoint(torch, state,
+                                                   train_batches[1])
+    log(f"[main] the two new phases: service {service_s:.2f} s, training "
+        f"checkpoint {ckpt_s:.2f} s")
     del state, step, train_batches
     torch.cuda.empty_cache()
     phase_fleet(torch)
@@ -2264,6 +2608,11 @@ def main() -> int:
             row["train"] = {
                 "launches": train_launches[row["name"]],
                 "shapes": [[*k[1:], n] for k, n in keys.items()]}
+    # the restored params' forward (phase 9b), one of each
+    for row in record["kernels"]:
+        if ckpt_launches.get(row["name"]):
+            row["checkpoint_forward"] = {
+                "launches": ckpt_launches[row["name"]]}
     kd_key = ("kd_loss_grad", *kd_train[0])
     next(r for r in record["kernels"] if r["name"] == "kd_loss_grad")[
         "train"].update({k: tr_times[kd_key][k] for k in

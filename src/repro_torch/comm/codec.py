@@ -47,6 +47,8 @@ from repro_torch.comm.quantize import (BYTES_AFFINE_MAP, QuantTensor,
                                        dequantize, quantize)
 from repro_torch.comm.sparsify import densify, topk_count, topk_select
 from repro_torch.obs.trace import current as _tracer
+from repro_torch.utils.pytree import (tree_flatten_sorted as _flatten,
+                                      tree_unflatten_sorted as _unflatten)
 
 # stable integer tags mixed into the stochastic-rounding entropy so the
 # "local" and "lite" halves of one client's update draw distinct streams
@@ -65,43 +67,6 @@ def _check_bits(bits: int) -> int:
     if not 1 <= bits <= 8:
         raise ValueError(f"quantization bits must be in [1, 8], got {bits}")
     return bits
-
-
-def _flatten(tree):
-    """(leaves, treedef) in jax.tree_util's order: a dict's children by
-    sorted key, lists and tuples in order, None an empty node. The leaf
-    index is part of each leaf's rounding entropy, so the encodings equal
-    the reference's only in this order (`utils.pytree` keeps insertion
-    order)."""
-    if isinstance(tree, dict):
-        keys = tuple(sorted(tree))
-        parts = [_flatten(tree[k]) for k in keys]
-        return ([x for leaves, _ in parts for x in leaves],
-                (dict, keys, tuple(d for _, d in parts)))
-    if isinstance(tree, (list, tuple)):
-        parts = [_flatten(x) for x in tree]
-        return ([x for leaves, _ in parts for x in leaves],
-                (type(tree), len(tree), tuple(d for _, d in parts)))
-    if tree is None:
-        return [], None
-    return [tree], "*"
-
-
-def _unflatten(treedef, leaves):
-    """Inverse of `_flatten` (dicts come back with sorted keys, as
-    jax.tree_util's do)."""
-    it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return None
-        if d == "*":
-            return next(it)
-        kind, keys, kids = d
-        if kind is dict:
-            return {k: build(c) for k, c in zip(keys, kids)}
-        return kind(build(c) for c in kids)
-    return build(treedef)
 
 
 def _host(leaves: List[torch.Tensor]) -> List[np.ndarray]:

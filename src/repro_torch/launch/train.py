@@ -5,13 +5,15 @@ Counterpart of ``repro.launch.train``, with its flags, and --device
 (CUDA unless given). Example (CPU):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
-      --smoke --steps 5 --batch 4 --seq 128 --device cpu
+      --smoke --steps 5 --batch 4 --seq 128 --device cpu \
+      --checkpoint /tmp/llama-smoke
 
 The step updates its state in place (`train/step.py`), as the reference's
-driver donates its state to the jitted step. Families the port has not
-ported yet (MoE, SSM, hybrid, VLM embeddings, audio codebooks) raise
-NotImplementedError, and so does --checkpoint until ``checkpoint/`` is
-ported (ROADMAP §1 item 11).
+driver donates its state to the jitted step. --checkpoint saves
+``state["params"]`` after the last step in the reference's format
+(``repro_torch.checkpoint``): either package restores it. Families the
+port has not ported yet (MoE, SSM, hybrid, VLM embeddings, audio
+codebooks) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Dict, Iterator
 
 import torch
 
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.data.synthetic import make_token_dataset
 from repro_torch.models.transformer import check_supported
@@ -59,9 +62,6 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.checkpoint:
-        raise NotImplementedError("--checkpoint: checkpoint/ is not ported "
-                                  "yet (ROADMAP §1 item 11)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -86,6 +86,9 @@ def main(argv=None):
                   f"ce_local={float(metrics['ce_local']):.4f} "
                   f"ce_lite={float(metrics['ce_lite']):.4f} "
                   f"({time.time() - t0:.1f}s)")
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint, state["params"], step=args.steps)
+        print("saved", args.checkpoint)
     return state
 
 

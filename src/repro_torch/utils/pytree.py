@@ -47,3 +47,60 @@ def tree_weighted_sum(trees, weights):
     for t, w in zip(trees[1:], weights[1:]):
         out = tree_add(out, tree_scale(t, w))
     return out
+
+
+# --------------------------------------------------------------------- #
+# jax.tree_util's leaf order
+# --------------------------------------------------------------------- #
+def tree_flatten_sorted(tree):
+    """(leaves, treedef) in jax.tree_util's order: a dict's children by
+    sorted key, lists and tuples in order, None an empty node. Where a
+    leaf's index feeds a random stream (the codecs' rounding entropy,
+    `service.loadgen.synth_update`'s noise), only this order draws what the
+    reference draws; `tree_leaves` keeps insertion order."""
+    if isinstance(tree, dict):
+        keys = tuple(sorted(tree))
+        parts = [tree_flatten_sorted(tree[k]) for k in keys]
+        return ([x for leaves, _ in parts for x in leaves],
+                (dict, keys, tuple(d for _, d in parts)))
+    if isinstance(tree, (list, tuple)):
+        parts = [tree_flatten_sorted(x) for x in tree]
+        return ([x for leaves, _ in parts for x in leaves],
+                (type(tree), len(tree), tuple(d for _, d in parts)))
+    if tree is None:
+        return [], None
+    return [tree], "*"
+
+
+def tree_unflatten_sorted(treedef, leaves):
+    """Inverse of `tree_flatten_sorted` (dicts come back with sorted keys,
+    as jax.tree_util's do)."""
+    it = iter(leaves)
+
+    def build(d):
+        if d is None:
+            return None
+        if d == "*":
+            return next(it)
+        kind, keys, kids = d
+        if kind is dict:
+            return {k: build(c) for k, c in zip(keys, kids)}
+        return kind(build(c) for c in kids)
+    return build(treedef)
+
+
+def tree_paths_sorted(tree, prefix: str = ""):
+    """[(path, leaf)] in `tree_flatten_sorted`'s order. A path joins the
+    dict keys and list indices above a leaf with "/", as the reference's
+    checkpoint keys do (a leaf at the root has the path "")."""
+    def join(k):
+        return f"{prefix}/{k}" if prefix else str(k)
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in tree_paths_sorted(tree[k], join(k))]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, x in enumerate(tree)
+                for kv in tree_paths_sorted(x, join(i))]
+    if tree is None:
+        return []
+    return [(prefix, tree)]

@@ -56,9 +56,10 @@ def test_server_defaults_to_cuda_and_never_falls_back(monkeypatch):
     assert HAPFLServer(env, device="cpu").device == torch.device("cpu")
 
 
-def _default_device_cases():
+def _default_device_cases(ckpt):
     """Each public constructor of the port, called with its device left at
-    the default."""
+    the default (`ckpt`: a path prefix for a checkpoint)."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
     from repro_torch.convert import params_from_numpy
     from repro_torch.core.allocation import ModelAllocator
     from repro_torch.core.nested import zeros_params
@@ -69,8 +70,14 @@ def _default_device_cases():
     from repro_torch.configs import get_config
     from repro_torch.models.api import init_model
     from repro_torch.models.cnn import cnn_pool, init_cnn
+    from repro_torch.launch.serve import build_service
     from repro_torch.serve import ServeEngine
     gen = torch.Generator().manual_seed(0)
+
+    def load_saved():
+        like = {"w": torch.zeros(2, 2)}
+        save_checkpoint(ckpt, like)
+        return load_checkpoint(ckpt, like)
     smoke = get_config("llama3.2-3b").smoke()
     return {
         "engine": lambda: BatchedClientEngine(FLEnvironment(FLSimConfig(
@@ -88,6 +95,9 @@ def _default_device_cases():
         "baseline_runner": lambda: BaselineRunner(FLEnvironment(FLSimConfig(
             n_train=100, n_test=20, n_clients=4, k_per_round=2)), "fedprox"),
         "zeros_params": lambda: zeros_params(cnn_pool("mnist")["small"]),
+        "build_service": lambda: build_service(
+            4, 2, "async", "identity", 0, min_deadline=1.0),
+        "load_checkpoint": load_saved,
     }
 
 
@@ -95,11 +105,12 @@ def _default_device_cases():
                                   "intensity_allocator", "init_cnn",
                                   "params_from_numpy", "init_model",
                                   "serve_engine", "baseline_runner",
-                                  "zeros_params"])
-def test_constructors_default_to_cuda(monkeypatch, name):
+                                  "zeros_params", "build_service",
+                                  "load_checkpoint"])
+def test_constructors_default_to_cuda(monkeypatch, tmp_path, name):
     """Left at its default, every entry point asks for the card, and
     without one it raises instead of running on the CPU."""
-    make = _default_device_cases()[name]
+    make = _default_device_cases(tmp_path / "ck")[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         make()
