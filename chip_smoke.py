@@ -44,6 +44,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 forward's o the same bits with and without its lse; the
                 norm backward, one launch, must replay under a CUDA graph
                 bit for bit as it runs eagerly.
+                qwen3-moe-30b-a3b's shapes (phases 5c and 9c) come first
+                too: rmsnorm and add_rmsnorm at (2048, 2048) and (4,
+                2048), their backwards at (2048, 2048), bf16 and fp32;
+                flash at (4, 32, 4, 512, 128), 32 heads over 4 KV heads,
+                both dtypes and layouts, and the 2-layer parity cut's (2,
+                32, 4, 128, 128) fp32; its backward at (4, 32, 4, 512,
+                128) bf16; kd_loss_grad at (1, 2048, 151936) fp32.
   4. HAPFL    — Algorithm 1 on the paper's cifar10 pool at full width
                 (small + large CNNs, 10 clients, 6 per round): 10
                 latency-only PPO pretraining rounds, then 3 training rounds
@@ -107,6 +114,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 buffer wraps under the graph. Prefill ms, decode ms per
                 step graphed and eager, the graph replay's device ms per
                 step, tokens/s and peak memory are printed.
+  5c. moe serve — phase 5 on qwen3-moe-30b-a3b at full width and depth (48
+                layers, d 2048, 32 heads over 4 KV heads, hd 128, 128
+                experts, top-8, moe_d_ff 768, vocab 151936, untied), bf16,
+                seeded weights drawn on the card after phase 5's engine is
+                freed (the free memory before init is logged): rmsnorm 33,
+                add_rmsnorm 2 * 48 * 33 = 3168, flash_attention 48 launches,
+                no other kernel; graphed == eager bit for bit; the times,
+                peak memory, the prefill's dropped_frac a layer, the decode
+                step's byte bound (the reference's capacity dispatch runs
+                every expert at every step) and a profiled graphed decode
+                loop. Its norm and flash shapes are timed as in phase 6.
+  5d. moe parity — a 2-layer fp32 cut of it, the same weights on the card
+                and on the CPU: prefill and 4 decode steps' logits at atol
+                and rtol 1e-3 with every layer's expert indices equal (a
+                mismatch names the token, the layer and its k-th / (k+1)-th
+                router probability gap; the least gap is logged), then one
+                loss_and_grads with its LiteModel: loss, lb_loss, metrics,
+                grad norm and the gradients of layer 0's router, w_up,
+                w_down and the embedding at 1e-3, routes equal again.
   6. timing   — each kernel, its plain version and, where one PyTorch call
                 computes the same function, that call (F.rms_norm,
                 x + delta then F.rms_norm, F.scaled_dot_product_attention),
@@ -142,6 +168,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 twice forward), finite loss and grad norm; seconds per
                 step, tokens/s, peak memory; one more step under
                 torch.profiler.
+  9c. moe train — phase 9 on qwen3-moe-30b-a3b at full width cut to 4 of
+                its 48 layers (AdamW's 12 B a parameter: 366 GB for all of
+                it), bf16, remat, with its dense LiteModel, AdamW at
+                TrainStepConfig()'s defaults (moe_aux_coef 0.01, z_loss_coef
+                1e-3): exact launches from the config, finite loss, grad
+                norm and lb_loss, seconds a step, tokens/s, peak memory; one
+                profiled step names the MoE operators' device time (bmm,
+                index_add, index_select, topk, cumsum). It runs after phase
+                9b's state is freed; its backward and kd_loss_grad shapes
+                are timed as in phase 12.
   9b. ckpt     — phase 9's trained params saved with save_checkpoint (as
                 launch/train.py --checkpoint does) under a temporary
                 directory and restored onto the card with
@@ -175,6 +211,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -200,7 +237,7 @@ TERMS = ("ce_x", "ce_y", "kl_xy", "kl_yx")
 GRAD_SHAPES = [(8, 32, 10, "float32"), (4, 32, 10, "float32"),
                (2, 32, 777, "float32"), (2, 32, 777, "bfloat16"),
                (4, 512, 32000, "float32"), (4, 512, 32000, "bfloat16"),
-               (1, 2048, 128256, "float32")]
+               (1, 2048, 128256, "float32"), (1, 2048, 151936, "float32")]
 GRAD_VOCAB = [(4, 512, 32000, "float32"), (4, 512, 32000, "bfloat16")]
 LAMBDAS = (0.4, 0.6, 0.5, 0.5)
 CHECK_SHAPES = [(128, 10, "float32"), (256, 10, "float32"),
@@ -221,7 +258,10 @@ NORM_SHAPES = [(2048, 3072, "bfloat16"), (4, 3072, "bfloat16"),
                (2048, 256, "bfloat16"),
                (2048, 3072, "float32"), (4, 3072, "float32"),
                (1000, 3072, "bfloat16"), (1000, 3072, "float32"),
-               (64, 777, "float32"), (64, 777, "bfloat16")]
+               (64, 777, "float32"), (64, 777, "bfloat16"),
+               # qwen3-moe-30b-a3b: prefill and training, decode
+               (2048, 2048, "bfloat16"), (4, 2048, "bfloat16"),
+               (2048, 2048, "float32"), (4, 2048, "float32")]
 FLASH_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16", "bshd"),
                 (4, 24, 8, 512, 128, 0, "float32", "bshd"),
                 (4, 24, 8, 512, 128, 0, "bfloat16", "bhsd"),
@@ -236,18 +276,36 @@ FLASH_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16", "bshd"),
                 (2, 8, 4, 300, 64, 48, "bfloat16", "bhsd"),
                 (2, 8, 8, 256, 128, 0, "float32", "bhsd"),
                 (2, 8, 8, 256, 128, 0, "bfloat16", "bhsd"),
-                (4, 4, 4, 512, 64, 0, "bfloat16", "bshd")]
+                (4, 4, 4, 512, 64, 0, "bfloat16", "bshd"),
+                # qwen3-moe-30b-a3b: 32 heads over 4 KV heads, a group of 8
+                (4, 32, 4, 512, 128, 0, "bfloat16", "bshd"),
+                (4, 32, 4, 512, 128, 0, "float32", "bshd"),
+                (4, 32, 4, 512, 128, 0, "bfloat16", "bhsd"),
+                (4, 32, 4, 512, 128, 0, "float32", "bhsd"),
+                (2, 32, 4, 128, 128, 0, "float32", "bshd")]
 
 # the training path: llama3.2-3b at full width (bf16, remat, the config's
 # own) with its LiteModel, batch 4 x seq 512, AdamW at TrainStepConfig()'s
 # defaults; one warm step, then TRAIN["steps"] counted and timed ones
 TRAIN = {"arch": "llama3.2-3b", "batch": 4, "seq": 512, "steps": 3,
          "seed": 0}
+# the MoE paths: qwen3-moe-30b-a3b served at full width and depth (SERVE's
+# batch, prompt and new tokens), a 2-layer fp32 cut of it on the card
+# against the CPU, and trained at full width on 4 of its 48 layers (TRAIN's
+# batch and steps): AdamW's 12 B a parameter makes the whole 30.5 B
+# parameters 366 GB of training state, the 4-layer cut's 3.1 B about 37 GB
+MOE = {"arch": "qwen3-moe-30b-a3b", "parity_layers": 2, "train_layers": 4}
+# the MoE routed FFN's own operators, whose device time phase 9c's profile
+# names (the expert products, the dispatch scatter and the combine gather,
+# forward and backward, and the routing's top-k and position count)
+MOE_OPS = ("aten::bmm", "aten::index_add", "aten::index_add_",
+           "aten::index_select", "aten::topk", "aten::cumsum")
 # backward checks: norms (N, d, dtype), flash as FLASH_SHAPES
 NORM_BWD_SHAPES = [(2048, 3072, "bfloat16"), (2048, 3072, "float32"),
                    (2048, 256, "bfloat16"), (2048, 256, "float32"),
                    (1000, 3072, "bfloat16"), (1000, 3072, "float32"),
-                   (64, 777, "float32"), (64, 777, "bfloat16")]
+                   (64, 777, "float32"), (64, 777, "bfloat16"),
+                   (2048, 2048, "bfloat16"), (2048, 2048, "float32")]
 FLASH_BWD_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16", "bshd"),
                     (4, 24, 8, 512, 128, 0, "float32", "bshd"),
                     (4, 4, 4, 512, 64, 0, "bfloat16", "bshd"),
@@ -257,7 +315,15 @@ FLASH_BWD_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16", "bshd"),
                     (2, 8, 4, 300, 64, 48, "float32", "bshd"),
                     # grids of two blocks an SM or more: one dQ consumer
                     (4, 24, 8, 300, 128, 64, "bfloat16", "bshd"),
-                    (8, 16, 4, 300, 64, 48, "bfloat16", "bhsd")]
+                    (8, 16, 4, 300, 64, 48, "bfloat16", "bhsd"),
+                    (4, 32, 4, 512, 128, 0, "bfloat16", "bshd")]
+
+def free_device_memory(torch):
+    """Collect what the caller dropped (reference cycles included) and hand
+    the allocator's cached blocks back to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
 
 def log(*a):
     print(*a, flush=True)
@@ -1526,7 +1592,7 @@ def eager_decode(torch, engine, batch, n_new):
     return torch.stack(toks, 1).cpu().numpy(), torch.stack(kept, 1), secs
 
 
-def check_graph_is_eager(torch, engine, batch, n_new, what):
+def check_graph_is_eager(torch, engine, batch, n_new, what, tag="serve"):
     """engine.generate (the captured decode step, replayed) against the
     eager loop of the same step from the same prefill: identical tokens and
     bitwise equal logits at every step. Returns the eager loop's seconds."""
@@ -1542,29 +1608,34 @@ def check_graph_is_eager(torch, engine, batch, n_new, what):
                          f"from the eager decode loop: tokens equal "
                          f"{np.array_equal(got, toks)}, max|diff| of logits "
                          f"per step {diffs}")
-    log(f"[serve] {what}: graphed generate == eager decode loop: tokens "
+    log(f"[{tag}] {what}: graphed generate == eager decode loop: tokens "
         f"identical, logits bitwise equal at all {n_new} steps")
     return secs
 
 
-def phase_serve(torch):
-    """Serve 4 x 512-token prompts for 32 new tokens; returns the engine,
-    its batch, the counted launches and the expected shapes."""
+def phase_serve(torch, cfg=None, tag="serve"):
+    """Serve 4 x 512-token prompts for 32 new tokens with `cfg` (SERVE's
+    arch when None); returns the engine, its batch, the counted launches,
+    the expected shapes and the measured times."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models.api import init_model, prefill
     from repro_torch.serve import ServeEngine
     from repro_torch.utils.pytree import tree_leaves
-    cfg = get_config(SERVE["arch"])
+    cfg = cfg or get_config(SERVE["arch"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = init_model(torch.Generator("cuda").manual_seed(SERVE["seed"]),
                         cfg, "cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
-    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-        f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.vocab_size}, {cfg.dtype}; {n_params} parameters "
+    ffn = (f"{cfg.n_experts} experts, top-{cfg.top_k}, moe_d_ff "
+           f"{cfg.moe_d_ff}, capacity_factor {cfg.capacity_factor}"
+           if cfg.is_moe else f"d_ff {cfg.d_ff}")
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, hd "
+        f"{cfg.resolved_head_dim}, {ffn}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}; {n_params} parameters "
         f"(num_params() {cfg.num_params()} + norm scales), "
         f"{sum(t.numel() * t.element_size() for t in tree_leaves(params))} "
         f"B, initialised in {time.perf_counter() - t0:.2f} s")
@@ -1580,9 +1651,9 @@ def phase_serve(torch):
     first = time.perf_counter() - t0
     step = engine.decode_step_for(B)
     if step.graph is None:
-        raise SystemExit("chip_smoke: the engine's decode step on the card "
-                         "is not a CUDA graph")
-    log(f"[serve] first generate(2), the decode step's capture included: "
+        raise SystemExit(f"chip_smoke: {tag}: the engine's decode step on "
+                         f"the card is not a CUDA graph")
+    log(f"[{tag}] first generate(2), the decode step's capture included: "
         f"{first:.4f} s; launches per replay {step.launches}")
 
     torch.cuda.reset_peak_memory_stats()
@@ -1596,9 +1667,9 @@ def phase_serve(torch):
 
     shapes = serve_launch_shapes(cfg)
     expected = {k: sum(v.values()) for k, v in shapes.items()}
-    log(f"[serve] launches {launches}, expected {expected}")
+    log(f"[{tag}] launches {launches}, expected {expected}")
     if launches != expected:
-        raise SystemExit(f"chip_smoke: serve launches {launches} != "
+        raise SystemExit(f"chip_smoke: {tag} launches {launches} != "
                          f"{expected}")
     if out.shape != (B, n_new) or out.min() < 0 or out.max() >= cfg.vocab_size:
         raise SystemExit(f"chip_smoke: generate gave {out.shape} tokens in "
@@ -1610,7 +1681,7 @@ def phase_serve(torch):
         raise SystemExit("chip_smoke: prefill logits are not finite of "
                          "shape (B, 1, vocab)")
     eager_s = check_graph_is_eager(torch, engine, batch, n_new,
-                                   f"{cfg.name} at full width")
+                                   f"{cfg.name} at full width", tag)
     # prefill + one decode step, and 31 more decode steps: the difference
     # is the decode time per token
     runs = {}
@@ -1633,7 +1704,7 @@ def phase_serve(torch):
     end.record()
     torch.cuda.synchronize()
     replay_ms = start.elapsed_time(end) / n_new
-    log(f"[serve] counted generate {wall:.4f} s; generate(1) {runs[1]} s, "
+    log(f"[{tag}] counted generate {wall:.4f} s; generate(1) {runs[1]} s, "
         f"generate({n_new}) {runs[n_new]} s -> prefill {prefill_ms:.3f} ms "
         f"({B * S / prefill_ms * 1e3:.0f} prompt tokens/s), decode "
         f"{decode_ms:.3f} ms per step of {B} tokens graphed (graph replay "
@@ -1641,7 +1712,10 @@ def phase_serve(torch):
         f"{eager_ms[0]:.3f} and {eager_ms[1]:.3f} ms per step; "
         f"{B * n_new / tn:.1f} generated tokens/s over generate({n_new}); "
         f"max_memory_allocated {peak} B; first row {out[0][:8].tolist()}")
-    return engine, batch, launches, shapes
+    measured = {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
+                "replay_ms": replay_ms, "eager_ms": eager_ms,
+                "tokens_per_s": B * n_new / tn, "peak_bytes": peak}
+    return engine, batch, launches, shapes, measured
 
 
 def phase_serve_wrap(torch):
@@ -1719,6 +1793,242 @@ def phase_serve_parity(torch):
         f"prefill + {steps} decode steps, max|diff| of logits {err:.3e} "
         f"(atol 1e-3, rtol 1e-3); greedy tokens agree {agree} of "
         f"{B * (steps + 1)}")
+
+
+# ---------------------------------------------------------------------- #
+# 5c and 5d. the MoE family: qwen3-moe-30b-a3b served at full width and
+# depth, and a 2-layer fp32 cut of it on the card against the CPU
+# ---------------------------------------------------------------------- #
+def decode_bound_ms(torch, engine):
+    """The least time of one decode step: every parameter read once (the
+    embedding's B rows only: the decode reads every expert, as the
+    reference's capacity dispatch runs all of them) and the whole KV cache
+    read once, over the card's memory rate."""
+    from repro_torch.utils.pytree import tree_leaves
+    params, B = engine.params, SERVE["batch"]
+    emb = params["io"]["embed"]
+    nbytes = (sum(t.numel() * t.element_size() for t in tree_leaves(params))
+              - emb.numel() * emb.element_size()
+              + B * emb.shape[1] * emb.element_size())
+    cache = engine.decode_step_for(B).cache
+    nbytes += sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+    return nbytes, nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def phase_moe_serve(torch):
+    """Phase 5's serve path on qwen3-moe-30b-a3b at full width and depth:
+    the exact launches, graphed == eager bit for bit, the times, the
+    prefill's dropped share, the decode step's byte bound and a profiled
+    graphed decode loop. Returns the launches, the expected shapes, the
+    times and the phase's wall seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import dispatch_slots
+    from repro_torch.models.transformer import apply_blocks
+    t_phase = time.perf_counter()
+    free_device_memory(torch)
+    free, total = torch.cuda.mem_get_info()
+    log(f"[moe serve] free device memory before init {free} B of {total} B; "
+        f"allocated {torch.cuda.memory_allocated()} B")
+    cfg = get_config(MOE["arch"])
+    engine, batch, launches, shapes, measured = phase_serve(
+        torch, cfg, "moe serve")
+    L = cfg.n_layers
+    calls, side = {"cuda": []}, ["cuda"]
+    with torch.no_grad(), recorded_routes(calls, side):
+        _, _, _, aux = apply_blocks(engine.params, cfg, batch, cache="init")
+    measured.update({k: float(v) / L for k, v in aux.items()})
+    # each layer's dropped share, and the share of tokens whose top-1
+    # expert is that layer's most common one
+    C = expert_capacity_of(cfg, SERVE["batch"] * SERVE["prompt"])
+    per_layer = []
+    for _, top_i in calls["cuda"]:
+        _, keep = dispatch_slots(top_i, cfg.n_experts, C)
+        top1 = top_i[:, 0].bincount(minlength=cfg.n_experts)
+        per_layer.append((1 - float(keep.float().mean()),
+                          float(top1.max()) / top_i.shape[0]))
+    log(f"[moe serve] prefill, layer by layer: dropped share "
+        f"{[round(d, 4) for d, _ in per_layer]}; share of tokens on the "
+        f"layer's most common top-1 expert "
+        f"{[round(t, 4) for _, t in per_layer]}")
+    nbytes, bound = decode_bound_ms(torch, engine)
+    measured["decode_bound_ms"] = bound
+    log(f"[moe serve] prefill of {SERVE['batch']} x {SERVE['prompt']} "
+        f"tokens: dropped_frac {measured['dropped_frac']:.6f} a layer (the "
+        f"sum over {L} layers / {L}; capacity {C} a expert), lb_loss {measured['lb_loss']:.6f} and z_loss "
+        f"{measured['z_loss']:.6f} a layer; a decode step reads "
+        f"{nbytes} B (every expert at capacity "
+        f"{expert_capacity_of(cfg, SERVE['batch'])}, and the cache): byte "
+        f"bound {bound:.3f} ms a step, graphed {measured['decode_ms']:.3f} "
+        f"ms ({100 * bound / measured['decode_ms']:.1f}% of the bound)")
+    prof = phase_profile(
+        torch, "MoE decode loop (graph replays)",
+        lambda: decode_loop(torch, engine, SERVE["prompt"], SERVE["n_new"]),
+        ("norm_kernel",))
+    report_device_gaps(torch, prof, "MoE decode loop (graph replays)")
+    with torch.no_grad():
+        phase_profile(torch, "MoE prefill",
+                      lambda: engine._prefill(engine.params, batch),
+                      ("norm_kernel", "flash_wgmma_kernel"))
+    del engine, batch, prof
+    free_device_memory(torch)
+    wall = time.perf_counter() - t_phase
+    log(f"[moe serve] phase wall {wall:.2f} s")
+    return launches, shapes, measured, wall
+
+
+def expert_capacity_of(cfg, n_tokens):
+    from repro_torch.models.moe import expert_capacity
+    return expert_capacity(n_tokens, cfg.top_k, cfg.n_experts,
+                           cfg.capacity_factor)
+
+
+@contextlib.contextmanager
+def recorded_routes(calls, side):
+    """Record every `models.moe.route` call's (probs, top_i) on the CPU into
+    calls[side[0]], in call order (layer by layer, step by step)."""
+    from repro_torch.models import moe
+    orig = moe.route
+
+    def route(router, cfg, x):
+        out = orig(router, cfg, x)
+        calls[side[0]].append((out[1].detach().cpu(), out[3].detach().cpu()))
+        return out
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = orig
+
+
+def compare_routes(torch, calls, n_layers, what):
+    """The card's and the CPU's expert indices, call by call, must be equal.
+    Returns the smallest gap between a token's k-th and (k+1)-th router
+    probability over all calls (the CPU's). A mismatch names the call's
+    layer and step, the token and its gap, so that a float near-tie can be
+    told from a bug."""
+    if len(calls["cuda"]) != len(calls["cpu"]):
+        raise SystemExit(f"chip_smoke: {what}: {len(calls['cuda'])} routing "
+                         f"calls on the card, {len(calls['cpu'])} on the CPU")
+    least = math.inf
+    for i, ((_, ig), (pc, ic)) in enumerate(zip(calls["cuda"],
+                                                calls["cpu"])):
+        k = ic.shape[1]
+        srt = pc.sort(-1, descending=True).values
+        gaps = srt[:, k - 1] - srt[:, k]
+        least = min(least, float(gaps.min()))
+        bad = (ig != ic).any(1).nonzero().flatten().tolist()
+        if bad:
+            t = bad[0]
+            raise SystemExit(
+                f"chip_smoke: {what}: expert indices differ at call {i} "
+                f"(layer {i % n_layers}, pass {i // n_layers}), {len(bad)} "
+                f"tokens, first token {t}: card {ig[t].tolist()} cpu "
+                f"{ic[t].tolist()}, its k-th / (k+1)-th gap {float(gaps[t])}"
+                f" (least gap of the call {float(gaps.min())})")
+    return least
+
+
+def phase_moe_parity(torch):
+    """A 2-layer fp32 cut of qwen3-moe-30b-a3b at full width, the same
+    weights on the card and on the CPU: prefill logits and 4 decode steps'
+    logits (each step fed the CPU's greedy token on both sides) at atol and
+    rtol 1e-3, every layer's expert indices equal at every call; then one
+    loss_and_grads (with its dense LiteModel, remat as the config's) at
+    1e-3: loss, lb_loss and the metrics, the grad norm, and the gradients
+    of layer 0's router, w_up and w_down and of the embedding."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.launch.train import token_batches
+    from repro_torch.models.api import (decode_step, init_model,
+                                        make_decode_cache, prefill)
+    from repro_torch.optim import global_norm
+    from repro_torch.train import TrainStepConfig, loss_and_grads
+    import numpy as np
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE["arch"]),
+                              n_layers=MOE["parity_layers"],
+                              dtype=torch.float32)
+    lite = cfg.lite()
+    B, S, steps = 2, 128, 4
+    gen = torch.Generator("cuda").manual_seed(5)
+    gpu = {"local": init_model(gen, cfg, "cuda"),
+           "lite": init_model(gen, lite, "cuda")}
+    sides = {"cuda": gpu,
+             "cpu": params_from_numpy(params_to_numpy(gpu), device="cpu")}
+    tok = np.random.default_rng(5).integers(0, cfg.vocab_size, (B, S))
+    calls, side = {"cuda": [], "cpu": []}, ["cuda"]
+    err, agree = 0.0, 0
+    with full_fp32(torch), torch.no_grad(), recorded_routes(calls, side):
+        logits, caches = {}, {}
+        for dev, params in sides.items():
+            side[0] = dev
+            logits[dev], pre = prefill(params["local"], cfg, {
+                "tokens": torch.as_tensor(tok, device=dev)})
+            caches[dev] = make_decode_cache(cfg, B, S + steps, dev)
+            for key in ("k", "v"):
+                caches[dev]["blocks"][key][:, :, :S] = pre["blocks"][key]
+        for i in range(steps + 1):
+            a, b = logits["cuda"].cpu(), logits["cpu"]
+            torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+            err = max(err, float((a - b).abs().max()))
+            nxt = b[:, -1].argmax(-1)
+            agree += int((a[:, -1].argmax(-1) == nxt).sum())
+            if i == steps:
+                break
+            for dev, params in sides.items():
+                side[0] = dev
+                logits[dev], caches[dev] = decode_step(
+                    params["local"], cfg, {"tokens": nxt[:, None].to(dev)},
+                    caches[dev], S + i)
+    gap = compare_routes(torch, calls, cfg.n_layers, "moe serve parity")
+    log(f"[moe parity] serve, {cfg.n_layers}-layer fp32 cut at full width, "
+        f"B {B}, S {S}: prefill + {steps} decode steps, max|diff| of logits "
+        f"{err:.3e} (atol 1e-3, rtol 1e-3); greedy tokens agree {agree} of "
+        f"{B * (steps + 1)}; expert indices equal at all "
+        f"{len(calls['cpu'])} routing calls, least k-th / (k+1)-th router "
+        f"probability gap {gap:.3e}")
+    del caches, logits, pre
+
+    tcfg = TrainStepConfig()
+    out = {}
+    calls = {"cuda": [], "cpu": []}
+    with full_fp32(torch), recorded_routes(calls, side):
+        for dev, params in sides.items():
+            side[0] = dev
+            batch = next(token_batches(cfg, 2, 64, 1, seed=5, device=dev))
+            metrics, grads = loss_and_grads(params, cfg, lite, tcfg, batch)
+            moe = grads["local"]["blocks"]["moe"]
+            picked = [moe["router"][0], moe["w_up"][0], moe["w_down"][0],
+                      grads["local"]["io"]["embed"]]
+            out[dev] = ({k: float(v) for k, v in metrics.items()},
+                        float(global_norm(grads)),
+                        [t.cpu() for t in picked])
+            del grads, moe
+        torch.cuda.synchronize()
+    gap = compare_routes(torch, calls, cfg.n_layers, "moe train parity")
+    (ma, gna, pa), (mb, gnb, pb) = out["cuda"], out["cpu"]
+    if set(ma) != set(mb) or "lb_loss" not in mb:
+        raise SystemExit(f"chip_smoke: moe train parity metrics {sorted(ma)}"
+                         f" / {sorted(mb)}")
+    for k in mb:
+        if not math.isclose(ma[k], mb[k], rel_tol=1e-3, abs_tol=1e-3):
+            raise SystemExit(f"chip_smoke: moe train parity {k}: card "
+                             f"{ma[k]} cpu {mb[k]}")
+    if not math.isclose(gna, gnb, rel_tol=1e-3, abs_tol=1e-3):
+        raise SystemExit(f"chip_smoke: moe grad norm card {gna} cpu {gnb}")
+    gerr = _assert_trees_close(torch, pa, pb, 1e-3, "moe train parity grads")
+    del sides, gpu, out, pa, pb, params, batch
+    free_device_memory(torch)
+    wall = time.perf_counter() - t_phase
+    log(f"[moe parity] train, same cut (B 2, S 64, remat {cfg.remat}): loss "
+        f"card {ma['loss']:.6f} cpu {mb['loss']:.6f}, lb_loss "
+        f"{ma['lb_loss']:.6f} / {mb['lb_loss']:.6f}, grad norm {gna:.6f} / "
+        f"{gnb:.6f}; grads of layer 0's router, w_up, w_down and the "
+        f"embedding max|diff| {gerr:.3e} (atol 1e-3, rtol 1e-3); expert "
+        f"indices equal at all {len(calls['cpu'])} routing calls (the "
+        f"recomputed forward's included), least gap {gap:.3e}; phase wall "
+        f"{wall:.2f} s")
+    return wall
 
 
 # ---------------------------------------------------------------------- #
@@ -1901,9 +2211,9 @@ def train_launch_shapes(cfg, lite):
     return out
 
 
-def phase_train(torch):
-    """llama3.2-3b at full width with its LiteModel through
-    repro_torch.launch.train's functions: one warm step, then
+def phase_train(torch, cfg=None, tag="train"):
+    """`cfg` (llama3.2-3b at full width when None) with its LiteModel
+    through repro_torch.launch.train's functions: one warm step, then
     TRAIN["steps"] counted and timed steps. Returns the state, the step,
     the batches, the counted launches and the expected shapes per step."""
     from repro_torch.configs import get_config
@@ -1911,7 +2221,7 @@ def phase_train(torch):
     from repro_torch.train import (TrainStepConfig, make_hapfl_train_step,
                                    make_train_state)
     from repro_torch.utils.pytree import tree_leaves
-    cfg = get_config(TRAIN["arch"])
+    cfg = cfg or get_config(TRAIN["arch"])
     lite = cfg.lite()
     tcfg = TrainStepConfig()
     B, S, n = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
@@ -1922,7 +2232,7 @@ def phase_train(torch):
         "cuda")
     torch.cuda.synchronize()
     params = tree_leaves(state["params"])
-    log(f"[train] {cfg.name} (remat {cfg.remat}, {cfg.dtype}) + "
+    log(f"[{tag}] {cfg.name} (remat {cfg.remat}, {cfg.dtype}) + "
         f"{lite.name} ({lite.n_layers} layers, d {lite.d_model}, "
         f"{lite.n_heads} heads, hd {lite.resolved_head_dim}): "
         f"{sum(t.numel() for t in params)} parameters, "
@@ -1935,7 +2245,7 @@ def phase_train(torch):
     t0 = time.perf_counter()
     state, m = step(state, batches[0])
     torch.cuda.synchronize()
-    log(f"[train] warm step {time.perf_counter() - t0:.3f} s, loss "
+    log(f"[{tag}] warm step {time.perf_counter() - t0:.3f} s, loss "
         f"{float(m['loss']):.4f}")
     torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
@@ -1951,18 +2261,21 @@ def phase_train(torch):
     peak = torch.cuda.max_memory_allocated()
     shapes = train_launch_shapes(cfg, lite)
     expected = {k: n * sum(v.values()) for k, v in shapes.items()}
-    log(f"[train] launches over {n} steps {launches}, expected {expected}")
+    log(f"[{tag}] launches over {n} steps {launches}, expected {expected}")
     if launches != expected:
-        raise SystemExit(f"chip_smoke: train launches {launches} != "
+        raise SystemExit(f"chip_smoke: {tag} launches {launches} != "
                          f"{expected}")
     for r in rows:
         if not all(math.isfinite(v) for v in r.values()):
             raise SystemExit(f"chip_smoke: non-finite training metrics {r}")
-        log(f"[train] metrics {r}")
+        if cfg.is_moe and "lb_loss" not in r:
+            raise SystemExit(f"chip_smoke: {tag}: no lb_loss in {r}")
+        log(f"[{tag}] metrics {r}")
     if not _finite(torch, state["params"]):
-        raise SystemExit("chip_smoke: non-finite params after training")
+        raise SystemExit(f"chip_smoke: {tag}: non-finite params after "
+                         f"training")
     mean = sum(secs) / n
-    log(f"[train] seconds per step after the first {secs} (mean "
+    log(f"[{tag}] seconds per step after the first {secs} (mean "
         f"{mean:.4f}), {B * S / mean:.1f} tokens/s ({B} x {S} tokens a "
         f"step), max_memory_allocated {peak} B")
     return state, step, batches, launches, shapes
@@ -2073,6 +2386,52 @@ def phase_fleet(torch):
     if not (_finite(torch, fleet.lite_params) and all(
             _finite(torch, p) for p in fleet.global_by_size.values())):
         raise SystemExit("chip_smoke: non-finite fleet params")
+
+
+def moe_op_times(torch, prof):
+    """{op: device ms} of the MoE operators (MOE_OPS) in `prof`: each op's
+    device time with its kernels (none of these ops calls another)."""
+    return {ev.key: ev.device_time_total / 1e3
+            for ev in prof.key_averages() if ev.key in MOE_OPS}
+
+
+def phase_moe_train(torch):
+    """Phase 9 on qwen3-moe-30b-a3b at full width, cut to MOE["train_layers"]
+    of its layers, with its dense LiteModel: the exact launches, finite
+    loss, grad norm and lb_loss, seconds a step, tokens/s and peak memory;
+    one profiled step with the MoE operators' device time named. Returns
+    the launches, the expected shapes a step and the phase's wall
+    seconds."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    full = get_config(MOE["arch"])
+    cfg = dataclasses.replace(full, n_layers=MOE["train_layers"])
+    log(f"[moe train] the one cut: n_layers {full.n_layers} -> "
+        f"{cfg.n_layers} ({full.num_params()} -> {cfg.num_params()} "
+        f"parameters; AdamW keeps 12 B a parameter); widths as published")
+    state, step, batches, launches, shapes = phase_train(torch, cfg,
+                                                         "moe train")
+    prof = phase_profile(torch, "MoE training step",
+                         lambda: step(state, batches[1]),
+                         ("flash_bwd_dkdv", "flash_bwd_dq", "norm_bwd_kernel",
+                          "norm_kernel", "flash_wgmma_kernel",
+                          "kd_grad_row_kernel", "indexFunc", "indexSelect"))
+    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    ops = moe_op_times(torch, prof)
+    total = sum(ops.values())
+    log(f"[moe train] the MoE operators' device time in the profiled step: "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in sorted(ops.items()))
+        + f"; {total:.3f} ms together, "
+        f"{100 * total / busy if busy else 0:.1f}% of {busy:.3f} ms busy "
+        f"(aten::bmm: the expert products, forward, remat's recompute and "
+        f"backward; index_add / index_select: the dispatch scatter and the "
+        f"combine gather and their backwards)")
+    del state, step, batches, prof
+    free_device_memory(torch)
+    wall = time.perf_counter() - t_phase
+    log(f"[moe train] phase wall {wall:.2f} s")
+    return launches, shapes, wall
 
 
 def _assert_trees_close(torch, got, exp, tol, what, held=None):
@@ -2465,7 +2824,7 @@ def main() -> int:
     times = phase_timing(torch, rows_main + VOCAB_SHAPES)
     grad_times = phase_grad_timing(torch, grad_main + GRAD_VOCAB)
 
-    engine, batch, serve_launches, serve_shapes = phase_serve(torch)
+    engine, batch, serve_launches, serve_shapes, _ = phase_serve(torch)
     phase_serve_wrap(torch)
     serve_keys = {name: {(name, *shape): n for shape, n in by_shape.items()}
                   for name, by_shape in serve_shapes.items() if by_shape}
@@ -2498,8 +2857,24 @@ def main() -> int:
                              ("norm_kernel", "flash_wgmma_kernel"),
                              record_shapes=True)
     check_no_layout_copies(torch, prof, engine.cfg)
-    del engine, batch
-    torch.cuda.empty_cache()
+    del engine, batch, prof
+    free_device_memory(torch)
+
+    moe_serve_launches, moe_serve_shapes, moe_serve, moe_serve_s = \
+        phase_moe_serve(torch)
+    moe_serve_keys = {name: {(name, *shape): n
+                             for shape, n in by_shape.items()}
+                      for name, by_shape in moe_serve_shapes.items()
+                      if by_shape}
+    unchecked = [k for keys in moe_serve_keys.values() for k in keys
+                 if k not in nf_errs]
+    if unchecked:
+        raise SystemExit(f"chip_smoke: the MoE serve path ran shapes phase "
+                         f"3 did not check: {unchecked}")
+    nf_times.update(phase_norm_flash_timing(
+        torch, *[[k[1:] for k in moe_serve_keys[name] if k not in nf_times]
+                 for name in ("rmsnorm", "add_rmsnorm", "flash_attention")]))
+    moe_parity_s = phase_moe_parity(torch)
 
     state, step, train_batches, train_launches, train_shapes = phase_train(
         torch)
@@ -2523,7 +2898,19 @@ def main() -> int:
     log(f"[main] the two new phases: service {service_s:.2f} s, training "
         f"checkpoint {ckpt_s:.2f} s")
     del state, step, train_batches
-    torch.cuda.empty_cache()
+    free_device_memory(torch)
+    moe_train_launches, moe_train_shapes, moe_train_s = phase_moe_train(torch)
+    moe_train_keys = {name: {(name, *shape): n
+                             for shape, n in by_shape.items()}
+                      for name, by_shape in moe_train_shapes.items()
+                      if by_shape}
+    unchecked = [k for keys in moe_train_keys.values() for k in keys
+                 if k not in checked]
+    if unchecked:
+        raise SystemExit(f"chip_smoke: the MoE training path ran shapes "
+                         f"phase 3 did not check: {unchecked}")
+    log(f"[main] the MoE phases: serve (5c) {moe_serve_s:.2f} s, parity "
+        f"(5d) {moe_parity_s:.2f} s, training (9c) {moe_train_s:.2f} s")
     phase_fleet(torch)
     phase_train_parity(torch)
     phase_fleet_parity(torch)
@@ -2533,6 +2920,16 @@ def main() -> int:
                              "flash_attention_bwd")})
     kd_train = [k[1:] for k in train_keys["kd_loss_grad"]]
     tr_times.update(phase_grad_timing(torch, kd_train, iters=3))
+    # the MoE training path's backward and kd_loss_grad shapes not timed
+    # above (its LiteModel's are the llama's)
+    tr_times.update(phase_train_timing(
+        torch, {name: [k[1:] for k in moe_train_keys[name]
+                       if k not in tr_times]
+                for name in ("rmsnorm_bwd", "add_rmsnorm_bwd",
+                             "flash_attention_bwd")}))
+    tr_times.update(phase_grad_timing(
+        torch, [k[1:] for k in moe_train_keys["kd_loss_grad"]
+                if k not in tr_times], iters=3))
 
     weights = {(name, C * B, V, "float32"): n
                for name in ("kd_loss_fwd", "kd_loss_bwd")
@@ -2622,6 +3019,33 @@ def main() -> int:
     next(r for r in record["kernels"] if r["name"] == "flash_attention")[
         "train"]["lse_ms"] = [[*k, v["ms"], v["ms_without"]]
                               for k, v in lse.items()]
+    # the MoE paths: serving (5c) and training (9c) launches and shapes,
+    # with the times at their shapes (the forward kernels' at the serve
+    # path's, which training shares but for its LiteModel's)
+    moe_path = {"moe_serve": f"serve {MOE['arch']} at full width and depth",
+                "moe_train": f"train {MOE['arch']} at full width, "
+                             f"{MOE['train_layers']} layers (launches over "
+                             f"{TRAIN['steps']} steps, shapes with their "
+                             f"launches a step)"}
+    for row in record["kernels"]:
+        name = row["name"]
+        for entry, keys, counted, times_of in (
+                ("moe_serve", moe_serve_keys, moe_serve_launches, nf_times),
+                ("moe_train", moe_train_keys, moe_train_launches, tr_times)):
+            if name not in keys:
+                continue
+            row[entry] = {"launches": counted[name],
+                          "shapes": [[*k[1:], n]
+                                     for k, n in keys[name].items()],
+                          "path": moe_path[entry]}
+            if all(k in times_of for k in keys[name]):
+                row[entry].update(path_times(times_of, keys[name]))
+    log(f"[main] MoE serve (5c): prefill {moe_serve['prefill_ms']:.3f} ms, "
+        f"decode {moe_serve['decode_ms']:.3f} ms a step graphed (bound "
+        f"{moe_serve['decode_bound_ms']:.3f} ms), "
+        f"{moe_serve['tokens_per_s']:.1f} tokens/s, peak "
+        f"{moe_serve['peak_bytes']} B, dropped_frac "
+        f"{moe_serve['dropped_frac']:.6f} a layer")
     log(f"[main] chip_smoke wall {time.perf_counter() - t_script:.1f} s")
     log(card)
     log(json.dumps(record))

@@ -12,8 +12,9 @@ The step updates its state in place (`train/step.py`), as the reference's
 driver donates its state to the jitted step. --checkpoint saves
 ``state["params"]`` after the last step in the reference's format
 (``repro_torch.checkpoint``): either package restores it. Families the
-port has not ported yet (MoE, SSM, hybrid, VLM embeddings, audio
-codebooks) raise NotImplementedError.
+port has not ported yet (SSM, hybrid, VLM embeddings, audio codebooks)
+raise NotImplementedError; MoE configs train with the router's aux losses
+in the loss (`train/step.py`).
 """
 from __future__ import annotations
 

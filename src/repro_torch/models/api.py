@@ -1,4 +1,4 @@
-"""Public model API: build and apply a dense decoder by config.
+"""Public model API: build and apply a dense or MoE decoder by config.
 
 Counterpart of ``repro.models.api``. Entry points that make tensors run on
 CUDA unless the caller passes a device.
@@ -22,7 +22,9 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, device=None):
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
-    """Training forward: logits (fp32), aux losses."""
+    """Training forward: logits (fp32), aux losses (an MoE model's
+    lb_loss, z_loss and dropped_frac, each summed over its layers; {} for a
+    dense model)."""
     logits, _, aux = apply_model(params, cfg, batch, cache=None)
     return logits, aux
 

@@ -1,7 +1,8 @@
-"""Model assembly for the attention-stack family (dense decoders).
+"""Model assembly for the attention-stack family (dense and MoE decoders).
 
 Counterpart of ``repro.models.transformer`` for configs whose blocks are
-attention + MLP. ``init_params(gen, cfg, device)`` builds the parameter tree
+attention + MLP, or attention + a routed expert FFN (`models/moe.py`) in
+MoE configs. ``init_params(gen, cfg, device)`` builds the parameter tree
 of the reference, leaf for leaf: block params are stacked on a leading
 (n_layers, ...) axis, so a tree converted from the reference's params
 (`repro_torch.convert.params_from_numpy`) drops in. A Python loop over the
@@ -22,9 +23,13 @@ records, as the reference wraps it in ``jax.checkpoint``: a block keeps
 only its inputs for the backward and runs its forward again there, its
 norm and flash kernels included.
 
-The MoE, SSM (mamba2, xLSTM), hybrid (zamba2), VLM (embeddings inputs,
-M-RoPE) and audio (codebooks) families are not ported yet (ROADMAP §1
-item 15); their configs raise NotImplementedError.
+An MoE block's aux losses (lb_loss, z_loss, dropped_frac) are summed over
+the layers, as the reference sums them (so dropped_frac is a sum, not a
+mean); a dense model's aux is {}.
+
+The SSM (mamba2, xLSTM), hybrid (zamba2), VLM (embeddings inputs, M-RoPE)
+and audio (codebooks) families are not ported yet (ROADMAP §1 item 15);
+their configs raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from repro_torch.models.attention import apply_attention, init_attention
 from repro_torch.models.layers import (apply_add_norm, apply_mlp,
                                        apply_norm, dense_init, embed_init,
                                        init_mlp, init_norm)
+from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.utils.pytree import tree_map
 
 
@@ -46,8 +52,6 @@ def check_supported(cfg: ModelConfig) -> None:
     missing = []
     if cfg.block_kind != "attention":
         missing.append(f"{cfg.family} ({cfg.block_kind}) blocks")
-    if cfg.is_moe:
-        missing.append("MoE blocks")
     if cfg.n_codebooks:
         missing.append("audio codebooks")
     if cfg.input_mode != "tokens":
@@ -64,11 +68,15 @@ def check_supported(cfg: ModelConfig) -> None:
 # single blocks
 # --------------------------------------------------------------------- #
 def init_attn_block(gen: torch.Generator, cfg: ModelConfig, device):
-    return {"norm1": init_norm(cfg.d_model, cfg.norm, cfg.dtype, device),
-            "attn": init_attention(gen, cfg, device),
-            "norm2": init_norm(cfg.d_model, cfg.norm, cfg.dtype, device),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.dtype,
-                            device)}
+    p = {"norm1": init_norm(cfg.d_model, cfg.norm, cfg.dtype, device),
+         "attn": init_attention(gen, cfg, device),
+         "norm2": init_norm(cfg.d_model, cfg.norm, cfg.dtype, device)}
+    if cfg.is_moe:
+        p["moe"] = init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.dtype,
+                            device)
+    return p
 
 
 def apply_attn_block(p, cfg: ModelConfig, x, delta, positions, cache,
@@ -76,7 +84,8 @@ def apply_attn_block(p, cfg: ModelConfig, x, delta, positions, cache,
     """One block on the residual stream x, whose pending delta (the block
     before's MLP output; None for the first block) is added in this block's
     first norm. Returns (x, delta, new_cache, aux): the stream after the
-    attention add, and this block's MLP output as the next pending delta."""
+    attention add, this block's MLP (or MoE) output as the next pending
+    delta, and the MoE's aux losses ({} for an MLP)."""
     if delta is None:
         h = apply_norm(p["norm1"], x, cfg.norm)
     else:
@@ -84,6 +93,9 @@ def apply_attn_block(p, cfg: ModelConfig, x, delta, positions, cache,
     attn_out, new_cache = apply_attention(p["attn"], cfg, h, positions,
                                           cache, cache_index)
     x, h = apply_add_norm(p["norm2"], x, attn_out, cfg.norm)
+    if cfg.is_moe:
+        out, aux = apply_moe(p["moe"], cfg, h)
+        return x, out, new_cache, aux
     return x, apply_mlp(p["mlp"], h, cfg.act), new_cache, {}
 
 
@@ -160,7 +172,8 @@ def apply_blocks(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                  cache=None, cache_index=None):
     """Embedding and blocks. Returns (x, delta, new_cache, aux): the final
     residual stream is x + delta, whose add `unembed` folds into the final
-    norm.
+    norm; aux holds the MoE blocks' aux losses summed over the layers ({}
+    for a dense model).
 
     cache semantics: None = train; "init" = prefill (build the cache);
     a cache from `init_cache` = decode (S == 1 at position cache_index, an
@@ -187,23 +200,26 @@ def apply_blocks(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
              and torch.is_grad_enabled())
     layer_caches = []
     delta = None
+    aux_total: Dict[str, torch.Tensor] = {}
     for p, c in zip(layers, caches):
         if remat:
-            x, delta = checkpoint(_train_block, p, cfg, x, delta, positions,
-                                  use_reentrant=False,
-                                  preserve_rng_state=False)
+            x, delta, aux = checkpoint(_train_block, p, cfg, x, delta,
+                                       positions, use_reentrant=False,
+                                       preserve_rng_state=False)
             nc = None
         else:
-            x, delta, nc, _ = apply_attn_block(p, cfg, x, delta, positions,
-                                               c, cache_index)
+            x, delta, nc, aux = apply_attn_block(p, cfg, x, delta, positions,
+                                                 c, cache_index)
         layer_caches.append(nc)
+        for key, v in aux.items():     # the reference's sum over layers
+            aux_total[key] = aux_total[key] + v if key in aux_total else v
     new_cache = None
     if prefill:
         new_cache = {"blocks": tree_map(lambda *ts: torch.stack(ts),
                                         *layer_caches)}
     elif decode:
         new_cache = cache
-    return x, delta, new_cache, {}
+    return x, delta, new_cache, aux_total
 
 
 def _unstack(tree):
@@ -218,9 +234,12 @@ def _unstack(tree):
 
 
 def _train_block(p, cfg: ModelConfig, x, delta, positions):
-    """One training block for checkpoint: (x, delta) out."""
-    x, delta, _, _ = apply_attn_block(p, cfg, x, delta, positions, None, None)
-    return x, delta
+    """One training block for checkpoint: (x, delta, aux) out, so the
+    recomputed forward routes as the forward did (torch.topk on the same
+    inputs)."""
+    x, delta, _, aux = apply_attn_block(p, cfg, x, delta, positions, None,
+                                        None)
+    return x, delta, aux
 
 
 def apply_model(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],

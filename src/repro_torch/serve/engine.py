@@ -1,7 +1,7 @@
 """Serving path: prefill + single-token greedy decode with a KV cache.
 
-Counterpart of ``repro.serve.engine`` for the dense decoders the port has
-(`repro_torch.models.transformer`). Sliding-window configs keep a
+Counterpart of ``repro.serve.engine`` for the dense and MoE decoders the
+port has (`repro_torch.models.transformer`). Sliding-window configs keep a
 ring-buffer cache of window size.
 
 Where the reference compiles its decode step with ``jax.jit``, the port
@@ -82,10 +82,14 @@ class _DecodeStep:
         self.logits = None
         self.launches: Dict[str, int] = {}   # per replay
 
+        # the buffers, not self: a closure over self would make a reference
+        # cycle, and the engine's params and cache would outlive `del
+        # engine` until the garbage collector ran
+        tokens, index, cache = self.tokens, self.index, self.cache
+
         def run():
-            tok, logits, _ = decode(params, {"tokens": self.tokens},
-                                    self.cache, self.index)
-            self.tokens.copy_(tok[:, None])
+            tok, logits, _ = decode(params, {"tokens": tokens}, cache, index)
+            tokens.copy_(tok[:, None])
             return logits
         self._run = run
         if device.type == "cuda":

@@ -13,10 +13,15 @@ mean over all B*S rows) gives them with the loss's means; autograd then
 carries them through both models. The chunked path launches it once per
 sequence chunk, with the lambdas divided by the chunk count.
 
+An MoE model adds its router's losses, moe_aux_coef * lb_loss +
+z_loss_coef * z_loss (each summed over its layers), to the loss, as the
+reference does. Their gradients come out of the same single
+`torch.autograd.grad` call as the logits': the aux tensors are extra
+outputs whose upstream gradients are the coefficients.
+
 The step updates its state in place (params, AdamW's m and v: the
 optimizer's `update_`), where the reference returns a new state and its
-driver donates the old one. Mixture-of-experts aux and z-loss terms have
-no counterpart: `models.transformer.check_supported` refuses MoE configs.
+training loop (`launch/train.py`) donates the old one.
 """
 from __future__ import annotations
 
@@ -40,6 +45,8 @@ class TrainStepConfig:
     lr: float = 3e-4
     weight_decay: float = 0.0
     grad_clip: float = 1.0
+    moe_aux_coef: float = 0.01
+    z_loss_coef: float = 1e-3
     microbatch: int = 0           # >0: grad-accumulate over microbatches
     loss_chunk: int = 0           # >0: compute loss in sequence chunks
 
@@ -78,17 +85,40 @@ def _kd_grads(ll: torch.Tensor, lt: torch.Tensor, labels: torch.Tensor,
     return dx.view(ll.shape), dy.view(lt.shape), means
 
 
+def _aux_terms(tcfg, auxes, metrics):
+    """The MoE models' aux losses as extra outputs of the backward: (the
+    tensors, their upstream gradients, the coefficients as 0-d tensors).
+    Adds their weighted sum to metrics["loss"] and, for an MoE local
+    model, sets metrics["lb_loss"], as the reference does."""
+    outs, coefs = [], []
+    for aux in auxes:
+        for key, coef in (("lb_loss", tcfg.moe_aux_coef),
+                          ("z_loss", tcfg.z_loss_coef)):
+            if key in aux:
+                outs.append(aux[key])
+                coefs.append(torch.tensor(coef, dtype=aux[key].dtype,
+                                          device=aux[key].device))
+    if auxes[0]:
+        metrics["lb_loss"] = auxes[0]["lb_loss"].detach()
+    for t, c in zip(outs, coefs):
+        metrics["loss"] = metrics["loss"] + c * t.detach()
+    return outs, coefs
+
+
 def _losses(live, cfg_local, cfg_lite, tcfg, batch, leaves: List):
     """(metrics, grads of `leaves`) of one batch through `live` params, whose
     leaves are `leaves`."""
     if tcfg.loss_chunk:
         return _losses_chunked(live, cfg_local, cfg_lite, tcfg, batch, leaves)
     with torch.enable_grad():
-        ll, _, _ = apply_model(live["local"], cfg_local, batch)
-        lt, _, _ = apply_model(live["lite"], cfg_lite, batch)
+        ll, _, aux_l = apply_model(live["local"], cfg_local, batch)
+        lt, _, aux_t = apply_model(live["lite"], cfg_lite, batch)
         dx, dy, means = _kd_grads(ll, lt, batch["labels"], tcfg.lambdas)
-        grads = torch.autograd.grad([ll, lt], leaves, grad_outputs=[dx, dy])
-    return _metrics(means, tcfg.lambdas), list(grads)
+        metrics = _metrics(means, tcfg.lambdas)
+        outs, coefs = _aux_terms(tcfg, (aux_l, aux_t), metrics)
+        grads = torch.autograd.grad([ll, lt] + outs, leaves,
+                                    grad_outputs=[dx, dy] + coefs)
+    return metrics, list(grads)
 
 
 def _losses_chunked(live, cfg_local, cfg_lite, tcfg, batch, leaves: List):
@@ -98,10 +128,10 @@ def _losses_chunked(live, cfg_local, cfg_lite, tcfg, batch, leaves: List):
     Each chunk's gradient goes back to the final residual streams and the
     unembedding at once; the blocks' backward runs once, at the end."""
     with torch.enable_grad():
-        (xl, dl), _, _ = apply_model(live["local"], cfg_local, batch,
-                                     return_hidden=True)
-        (xt, dt), _, _ = apply_model(live["lite"], cfg_lite, batch,
-                                     return_hidden=True)
+        (xl, dl), _, aux_l = apply_model(live["local"], cfg_local, batch,
+                                         return_hidden=True)
+        (xt, dt), _, aux_t = apply_model(live["lite"], cfg_lite, batch,
+                                         return_hidden=True)
     hidden = [xl, dl, xt, dt]
     cut = [h.detach().requires_grad_(True) for h in hidden]
     labels = batch["labels"]
@@ -133,8 +163,10 @@ def _losses_chunked(live, cfg_local, cfg_lite, tcfg, batch, leaves: List):
     metrics = {k: torch.stack([m[k] for m in chunks]).mean()
                for k in chunks[0]}
     metrics["loss"] = loss
+    outs, coefs = _aux_terms(tcfg, (aux_l, aux_t), metrics)
     with torch.enable_grad():
-        grads = torch.autograd.grad(hidden, leaves, grad_outputs=cut_grads,
+        grads = torch.autograd.grad(hidden + outs, leaves,
+                                    grad_outputs=cut_grads + coefs,
                                     allow_unused=True)
     ids = {id(t): i for i, t in enumerate(io_leaves)}
     out = []
@@ -162,7 +194,8 @@ def make_hapfl_train_step(cfg_local: ModelConfig, cfg_lite: ModelConfig,
     """Returns train_step(state, batch) -> (state, metrics). The state is
     updated in place and returned; metrics are 0-d tensors under the
     reference's keys (ce_local, ce_lite, kl_local_lite, kl_lite_local,
-    loss, and grad_norm when clipping)."""
+    loss, lb_loss for an MoE local model, and grad_norm when
+    clipping)."""
     opt = adamw(tcfg.lr, weight_decay=tcfg.weight_decay)
 
     def train_step(state, batch: Dict[str, torch.Tensor]):

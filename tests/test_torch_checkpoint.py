@@ -224,3 +224,47 @@ def test_launch_train_checkpoint_restores_in_the_reference(tmp_path):
     exp = jax.tree_util.tree_map(jnp.asarray,
                                  params_to_numpy(state["params"]))
     _assert_jax_equal(got, exp)
+
+
+def test_moe_checkpoint_crosses_packages_bitwise(tmp_path):
+    """An MoE tree (qwen3-moe smoke in bf16: fp32 routers among bf16 expert
+    stacks) both ways: the reference's checkpoint restores in the port to
+    exactly `params_from_numpy` of its params, and the port's restores in
+    the reference to exactly the JAX params, with the same json meta."""
+    jcfg = dataclasses.replace(jget_config("qwen3-moe-30b-a3b").smoke(),
+                               dtype=jnp.bfloat16)
+    jp = japi.init_model(jax.random.PRNGKey(0), jcfg)
+    tp = params_from_numpy(jax.device_get(jp), device="cpu")
+    assert tp["blocks"]["moe"]["router"].dtype == torch.float32
+    assert tp["blocks"]["moe"]["w_up"].dtype == torch.bfloat16
+    jsave(tmp_path / "ref", jp, step=3)
+    got, step = load_checkpoint(tmp_path / "ref", tp, device="cpu")
+    assert step == 3 and _tree_equal(got, tp)
+    save_checkpoint(tmp_path / "port", tp, step=3)
+    back, step = jload(tmp_path / "port", jp)
+    assert step == 3
+    _assert_jax_equal(back, jp)
+    assert (json.loads((tmp_path / "port.json").read_text())
+            == json.loads((tmp_path / "ref.json").read_text()))
+
+
+def test_launch_train_moe_checkpoint_restores_in_the_reference(tmp_path):
+    """`launch/train.py --arch qwen3-moe-30b-a3b --smoke --checkpoint`: the
+    reference restores the trained MoE params bitwise into its own
+    structure."""
+    from repro.train.step import make_train_state as jmake_train_state
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.launch.train import main
+    path = str(tmp_path / "moe")
+    state = main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--steps", "2",
+                  "--batch", "2", "--seq", "16", "--checkpoint", path,
+                  "--device", "cpu"])
+    cfg = jget_config("qwen3-moe-30b-a3b").smoke()
+    lite = dataclasses.replace(cfg.lite(), dtype=jnp.float32, remat=False,
+                               scan_layers=False)
+    like = jmake_train_state(jax.random.PRNGKey(1), cfg, lite)["params"]
+    got, step = jload(path, like)
+    assert step == 2
+    exp = jax.tree_util.tree_map(jnp.asarray,
+                                 params_to_numpy(state["params"]))
+    _assert_jax_equal(got, exp)

@@ -2,8 +2,9 @@
 cohort trained through them against the same cohort on the CPU, the
 serving path on the card against the CPU, the norm and flash backward
 kernels against their plain versions (and the norm backward under a CUDA
-graph against its eager launch), and gradients and training steps on
-the card against the CPU. Every test
+graph against its eager launch), gradients and training steps on the
+card against the CPU, and the MoE layer against the CPU and the MoE decode
+step graphed against its eager loop. Every test
 here is marked gpu and skips inside its fixture on a machine without CUDA.
 The file imports no JAX, so it runs where only PyTorch is installed:
 
@@ -509,3 +510,73 @@ def test_cuda_graphed_generate_is_the_eager_decode_loop(cuda, window):
                                   index)
             assert torch.equal(lg[:, -1], logits[:, i])
             np.testing.assert_array_equal(nxt.cpu().numpy(), got[:, i])
+
+
+@pytest.mark.gpu
+def test_cuda_moe_graphed_decode_is_the_eager_decode_loop(cuda):
+    """The MoE smoke model (qwen3-moe, bf16) served on the card: its decode
+    step, routing and capacity dispatch included, is captured into a CUDA
+    graph, and the graphed generate's tokens and every step's logits equal
+    an eager loop of make_decode_step bit for bit."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b").smoke(),
+                              dtype=torch.bfloat16)
+    params = init_model(torch.Generator(cuda).manual_seed(4), cfg, cuda)
+    tok = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (4, 12)), device=cuda)
+    engine = ServeEngine(cfg, params, max_len=48, device=cuda)
+    got, logits = engine.generate({"tokens": tok}, n_new=16,
+                                  return_logits=True)
+    assert engine.decode_step_for(4).graph is not None
+    step = make_decode_step(cfg)
+    with torch.no_grad():
+        first, pre = prefill(params, cfg, {"tokens": tok})
+        cache = make_decode_cache(cfg, 4, 48, cuda)
+        for key in ("k", "v"):
+            cache["blocks"][key][:, :, :12] = pre["blocks"][key]
+        nxt = first[:, -1].argmax(-1)
+        index = torch.zeros((), dtype=torch.int64, device=cuda)
+        for i in range(16):
+            index.fill_(12 + i)
+            nxt, lg, cache = step(params, {"tokens": nxt[:, None]}, cache,
+                                  index)
+            assert torch.equal(lg[:, -1], logits[:, i])
+            np.testing.assert_array_equal(nxt.cpu().numpy(), got[:, i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cf", [1.0, 8.0])
+def test_cuda_apply_moe_matches_cpu(cuda, cf):
+    """apply_moe (fp32, qwen3-moe's 128 experts, top-8, at d 256) on the
+    card against the CPU on the same weights: equal expert indices and
+    dropped pairs, y at atol and rtol 1e-5, the aux losses at 1e-5."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), d_model=256,
+                              moe_d_ff=256, dtype=torch.float32,
+                              capacity_factor=cf)
+    params = moe.init_moe(torch.Generator(cuda).manual_seed(5), cfg, cuda)
+    x = torch.randn((2, 64, 256), generator=torch.Generator(
+        cuda).manual_seed(6), device=cuda)
+    out = {}
+    with torch.no_grad():
+        for dev in (cuda, torch.device("cpu")):
+            p = tree_map(lambda t: t.to(dev), params)
+            xx = x.to(dev)
+            y, aux = moe.apply_moe(p, cfg, xx)
+            _, probs, _, top_i = moe.route(p["router"], cfg,
+                                           xx.view(-1, 256))
+            C = moe.expert_capacity(128, cfg.top_k, cfg.n_experts, cf)
+            _, keep = moe.dispatch_slots(top_i, cfg.n_experts, C)
+            out[dev.type] = (y.cpu(), {k: float(v) for k, v in aux.items()},
+                             top_i.cpu(), keep.cpu())
+    (yg, ag, ig, kg), (yc, ac, ic, kc) = out["cuda"], out["cpu"]
+    srt = probs.sort(-1, descending=True).values
+    gap = float((srt[:, cfg.top_k - 1] - srt[:, cfg.top_k]).min())
+    assert torch.equal(ig, ic) and torch.equal(kg, kc), (
+        f"routes differ; the smallest k-th / (k+1)-th gap is {gap}")
+    assert bool(kc.all()) == (cf == 8.0)
+    torch.testing.assert_close(yg, yc, atol=1e-5, rtol=1e-5)
+    for k in ac:
+        assert abs(ag[k] - ac[k]) <= 1e-5 * max(1.0, abs(ac[k])), k

@@ -70,6 +70,7 @@ def _default_device_cases(ckpt):
     from repro_torch.configs import get_config
     from repro_torch.models.api import init_model
     from repro_torch.models.cnn import cnn_pool, init_cnn
+    from repro_torch.models.moe import init_moe
     from repro_torch.launch.serve import build_service
     from repro_torch.serve import ServeEngine
     gen = torch.Generator().manual_seed(0)
@@ -79,6 +80,7 @@ def _default_device_cases(ckpt):
         save_checkpoint(ckpt, like)
         return load_checkpoint(ckpt, like)
     smoke = get_config("llama3.2-3b").smoke()
+    moe = get_config("qwen3-moe-30b-a3b").smoke()
     return {
         "engine": lambda: BatchedClientEngine(FLEnvironment(FLSimConfig(
             n_train=100, n_test=20, n_clients=4, k_per_round=2))),
@@ -98,6 +100,10 @@ def _default_device_cases(ckpt):
         "build_service": lambda: build_service(
             4, 2, "async", "identity", 0, min_deadline=1.0),
         "load_checkpoint": load_saved,
+        "init_model_moe": lambda: init_model(gen, moe),
+        "serve_engine_moe": lambda: ServeEngine(
+            moe, init_model(gen, moe, device="cpu")),
+        "init_moe": lambda: init_moe(gen, moe),
     }
 
 
@@ -106,7 +112,8 @@ def _default_device_cases(ckpt):
                                   "params_from_numpy", "init_model",
                                   "serve_engine", "baseline_runner",
                                   "zeros_params", "build_service",
-                                  "load_checkpoint"])
+                                  "load_checkpoint", "init_model_moe",
+                                  "serve_engine_moe", "init_moe"])
 def test_constructors_default_to_cuda(monkeypatch, tmp_path, name):
     """Left at its default, every entry point asks for the card, and
     without one it raises instead of running on the CPU."""

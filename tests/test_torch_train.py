@@ -7,7 +7,9 @@ over through numpy; the config is the fp32 smoke cut of llama3.2-3b with 2
 KV heads of 4 (GQA) and its LiteModel. The train step is also held, plain
 and loss-chunked, on the smoke cuts of granite-3-8b (untied embeddings),
 granite-20b (layernorm, GELU, one KV head) and olmo-1b (non-parametric
-layernorm).
+layernorm), and, plain, microbatched and loss-chunked, on the MoE smoke
+cuts of qwen3-moe-30b-a3b and mixtral-8x7b (the router's lb_loss and
+z_loss in the loss; lb_loss among the metrics).
 
 Tolerances: loss, metrics, grad norm and gradients atol 1e-5, rtol 1e-4.
 New params are compared only where the reference's gradient is at least
@@ -103,7 +105,10 @@ def setup(setups):
     for m in ("plain", "microbatch", "loss_chunk")] + [
     pytest.param(a, m, id=f"{a}-{m}")
     for a in ("granite-3-8b", "granite-20b", "olmo-1b")
-    for m in ("plain", "loss_chunk")])
+    for m in ("plain", "loss_chunk")] + [
+    pytest.param(a, m, id=f"{a}-{m}")
+    for a in ("qwen3-moe-30b-a3b", "mixtral-8x7b")
+    for m in ("plain", "microbatch", "loss_chunk")])
 def test_train_step_matches_reference(setups, arch, mode):
     jcfg, jlite, tcfg_, tlite, jparams = setups(arch)
     kw = {"plain": {}, "microbatch": {"microbatch": 2},
@@ -146,6 +151,7 @@ def test_train_step_matches_reference(setups, arch, mode):
              "opt": topt.adamw(tt.lr).init(params)}
     state, tm = tstep.make_hapfl_train_step(tcfg_, tlite, tt)(state, tbatch)
     assert set(tm) == set(jm)
+    assert ("lb_loss" in tm) == jcfg.is_moe
     for k in jm:
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), **TOL,
                                    err_msg=k)
@@ -274,20 +280,47 @@ def test_fleet_client_streams_match_reference(fleets):
         assert dict(a.asdict(), source="") == dict(b.asdict(), source="")
 
 
-def test_fleet_rounds_match_reference(fleets):
-    """Two rounds on both sides, each from the reference's globals, with the
-    PPO agents' sizes and intensities injected: clients, sizes and taus
-    equal, straggling exact, and the aggregated lite and size globals at
-    atol 1e-4 wherever the reference's gradient was at least 1e-5 in size
-    at every local step that fed them (the module's docstring says why an
-    element with a near-zero gradient is excused; 1e-5 rather than the
-    step test's 1e-4 because the lite's gradients are small). At least 70%
-    of each aggregate is held."""
-    jf, tf = fleets
-    # the least |g_ref| of each element over the local steps of a round
-    g_min = {}
+def _hold_round(jf, tf, sizes, taus, g_min):
+    """One round on both fleets from the reference's globals, with `sizes`
+    and `taus` injected; the checks of test_fleet_rounds_match_reference.
+    jf's steps record the least |g_ref| of each element into g_min."""
+    # each round from the reference's globals, so that no excused element
+    # of one round moves the gradients of the next
+    tf.global_by_size = {s: params_from_numpy(jax.device_get(p),
+                                              device="cpu")
+                         for s, p in jf.global_by_size.items()}
+    tf.lite_params = params_from_numpy(jax.device_get(jf.lite_params),
+                                       device="cpu")
+    g_min.clear()
+    for f in (jf, tf):
+        f.allocator.allocate = lambda key, assess, s=sizes: (s, None)
+        f.intensity.assign = lambda key, mod, t=taus: (t, None)
+        f.allocator.feedback = f.intensity.feedback = lambda *a: 0.0
+    jr, tr = jf.run_round(), tf.run_round()
+    for k in ("round", "clients", "sizes", "taus", "straggling"):
+        assert tr[k] == jr[k], k
+    for k in ("acc_local_mean", "acc_lite_mean"):
+        np.testing.assert_allclose(tr[k], jr[k], atol=1e-6)
+    trees = {"lite": (tf.lite_params, jf.lite_params)}
+    trees.update({s: (tf.global_by_size[s], jf.global_by_size[s])
+                  for s in set(sizes)})
+    for name, (got, exp) in trees.items():
+        exp = jax.device_get(exp)
+        held = total = 0
+        for path in _paths(exp):
+            mask = _at(g_min[name], path) >= 1e-5
+            np.testing.assert_allclose(
+                _at(got, path).numpy()[mask], _at(exp, path)[mask],
+                atol=1e-4, rtol=0, err_msg=str((sizes, name, path)))
+            held += int(mask.sum())
+            total += mask.size
+        assert held >= 0.7 * total, (sizes, name, held, total)
 
-    def _recorded(s, step):
+
+def _record_grads(jf, g_min):
+    """Wrap jf's train steps so that each records the least |g_ref| of each
+    element over the local steps into g_min."""
+    def recorded(s, step):
         def run(state, batch):
             g = jax.grad(lambda p: jstep._losses(
                 p, jf.pool[s], jf.lite, jf.tcfg, batch)[0])(state["params"])
@@ -299,40 +332,43 @@ def test_fleet_rounds_match_reference(fleets):
             return step(state, batch)
         return run
 
-    jf._steps = {s: _recorded(s, f) for s, f in jf._steps.items()}
+    jf._steps = {s: recorded(s, f) for s, f in jf._steps.items()}
+
+
+def test_fleet_rounds_match_reference(fleets):
+    """Two rounds on both sides, each from the reference's globals, with the
+    PPO agents' sizes and intensities injected: clients, sizes and taus
+    equal, straggling exact, and the aggregated lite and size globals at
+    atol 1e-4 wherever the reference's gradient was at least 1e-5 in size
+    at every local step that fed them (the module's docstring says why an
+    element with a near-zero gradient is excused; 1e-5 rather than the
+    step test's 1e-4 because the lite's gradients are small). At least 70%
+    of each aggregate is held."""
+    jf, tf = fleets
+    g_min = {}     # the least |g_ref| of each element over a round's steps
+    _record_grads(jf, g_min)
     plans = [(["small", "large"], [2, 1]), (["large", "large"], [1, 2])]
     for sizes, taus in plans:
-        # each round from the reference's globals, so that no excused
-        # element of one round moves the gradients of the next
-        tf.global_by_size = {s: params_from_numpy(jax.device_get(p),
-                                                  device="cpu")
-                             for s, p in jf.global_by_size.items()}
-        tf.lite_params = params_from_numpy(jax.device_get(jf.lite_params),
-                                           device="cpu")
-        g_min.clear()
-        for f in (jf, tf):
-            f.allocator.allocate = lambda key, assess, s=sizes: (s, None)
-            f.intensity.assign = lambda key, mod, t=taus: (t, None)
-            f.allocator.feedback = f.intensity.feedback = lambda *a: 0.0
-        jr, tr = jf.run_round(), tf.run_round()
-        for k in ("round", "clients", "sizes", "taus", "straggling"):
-            assert tr[k] == jr[k], k
-        for k in ("acc_local_mean", "acc_lite_mean"):
-            np.testing.assert_allclose(tr[k], jr[k], atol=1e-6)
-        trees = {"lite": (tf.lite_params, jf.lite_params)}
-        trees.update({s: (tf.global_by_size[s], jf.global_by_size[s])
-                      for s in set(sizes)})
-        for name, (got, exp) in trees.items():
-            exp = jax.device_get(exp)
-            held = total = 0
-            for path in _paths(exp):
-                mask = _at(g_min[name], path) >= 1e-5
-                np.testing.assert_allclose(
-                    _at(got, path).numpy()[mask], _at(exp, path)[mask],
-                    atol=1e-4, rtol=0, err_msg=str((sizes, name, path)))
-                held += int(mask.sum())
-                total += mask.size
-            assert held >= 0.7 * total, (sizes, name, held, total)
+        _hold_round(jf, tf, sizes, taus, g_min)
+
+
+def test_moe_fleet_round_matches_reference():
+    """One round of a fleet of qwen3-moe smoke clients (the router's aux
+    losses in every local step's loss), sizes and intensities injected, with
+    the checks of test_fleet_rounds_match_reference. One local step a
+    client: at a second Adam step, an element whose two gradients have
+    opposite signs has its first moment cancelled, and float noise in the
+    gradients moves it by more than 1e-4 (the lite's w_gate at taus [2, 1]:
+    gradients -9.1e-5 then 4.7e-5, 1.4e-4 apart), which is the conditioning
+    of Adam and not of the model."""
+    cfg = dict(arch="qwen3-moe-30b-a3b", n_clients=4, k_per_round=2,
+               seq=16, batch=2, default_steps=2)
+    jf = JLLMFleet(JFleetConfig(**cfg))
+    tf = LLMFleet(FleetConfig(**cfg), device="cpu")
+    assert all(c.is_moe for c in tf.pool.values())
+    g_min = {}
+    _record_grads(jf, g_min)
+    _hold_round(jf, tf, ["small", "large"], [1, 1], g_min)
 
 
 def test_launch_train_main_runs_on_cpu(capsys):
@@ -348,8 +384,21 @@ def test_launch_train_main_runs_on_cpu(capsys):
     assert int(state["opt"]["step"]) == 2
 
 
+def test_launch_train_main_trains_an_moe_arch_on_cpu(capsys):
+    """The entry point on qwen3-moe's smoke cut: 2 steps, a printed loss per
+    step (the router's aux losses in it), finite params."""
+    from repro_torch.launch.train import main
+    state = main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--steps", "2",
+                  "--batch", "2", "--seq", "16", "--device", "cpu"])
+    assert capsys.readouterr().out.count("loss=") == 2
+    assert "moe" in state["params"]["local"]["blocks"]
+    assert all(bool(torch.isfinite(t).all())
+               for t in tree_leaves(state["params"]))
+    assert int(state["opt"]["step"]) == 2
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "mixtral-8x7b", "--smoke", "--checkpoint", "x",
+    (["--arch", "xlstm-1.3b", "--smoke", "--checkpoint", "x",
       "--device", "cpu"], "item 15"),
     (["--arch", "musicgen-medium", "--smoke", "--device", "cpu"], "item 15"),
     (["--arch", "qwen2-vl-2b", "--smoke", "--device", "cpu"], "item 15")])
