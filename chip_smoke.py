@@ -51,6 +51,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 both dtypes and layouts, and the 2-layer parity cut's (2,
                 32, 4, 128, 128) fp32; its backward at (4, 32, 4, 512,
                 128) bf16; kd_loss_grad at (1, 2048, 151936) fp32.
+                So do qwen2-vl-2b's and musicgen-medium's (phases 5e-5g,
+                9d, 9e): the norms and their backwards at (2048, 1536) and
+                (4, 1536), bf16 and fp32; flash at (4, 12, 2, 512, 128), a
+                group of 6, and (4, 24, 24, 512, 64), H = KV at hd 64,
+                forward and backward, both dtypes and layouts;
+                kd_loss_grad at (1, 8192, 2048), the last V of its warp
+                kernel, and (1, 8192, 2049), the row kernel's first, fp32
+                and bf16.
   4. HAPFL    — Algorithm 1 on the paper's cifar10 pool at full width
                 (small + large CNNs, 10 clients, 6 per round): 10
                 latency-only PPO pretraining rounds, then 3 training rounds
@@ -133,6 +141,30 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 loss_and_grads with its LiteModel: loss, lb_loss, metrics,
                 grad norm and the gradients of layer 0's router, w_up,
                 w_down and the embedding at 1e-3, routes equal again.
+  5e. vlm serve — phase 5 on qwen2-vl-2b at full width and depth (28
+                layers, d 1536, 12 heads over 2 KV heads, hd 128, d_ff
+                8960, vocab 151936, untied, M-RoPE sections (16, 24, 24)),
+                bf16, seeded weights, after phase 9c's state is freed (the
+                free memory is logged first): 4 x 512 N(0, 1) patch
+                embeddings from a seeded generator with (t, t // 8, t % 8)
+                positions; each decode step gathers its argmax tokens'
+                embedding rows inside the graph. rmsnorm 33, add_rmsnorm
+                1848, flash_attention 28 launches, no other kernel;
+                graphed == eager bit for bit; the times, peak memory, the
+                decode step's byte bound and a profiled graphed decode
+                loop.
+  5f. audio serve — the same on musicgen-medium (48 layers, d 1536, 24
+                heads = KV heads, hd 64, d_ff 6144, GELU, layernorm, 4
+                codebooks over vocab 2048): (4, 512, 4) codebook tokens, a
+                (4, 32, 4) result; 0 norm and 48 flash launches; the byte
+                bound counts the 1.21 GB KV cache at max_len 1024.
+  5g. vlm / audio parity — a 2-layer fp32 cut of each at full width, the
+                same weights on the card and on the CPU: prefill and 4
+                decode steps' logits at atol and rtol 1e-3; one
+                loss_and_grads with its LiteModel: loss, metrics, grad norm
+                and the gradients of layer 0's wq, the norm params and the
+                embedding tables at 1e-3; the VLM's embedding gradient
+                exactly zero on both sides.
   6. timing   — each kernel, its plain version and, where one PyTorch call
                 computes the same function, that call (F.rms_norm,
                 x + delta then F.rms_norm, F.scaled_dot_product_attention),
@@ -178,6 +210,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 index_add, index_select, topk, cumsum). It runs after phase
                 9b's state is freed; its backward and kd_loss_grad shapes
                 are timed as in phase 12.
+  9d. vlm train — phase 9 on qwen2-vl-2b at full width and depth with its
+                LiteModel (2 layers, d 1536, d_ff 512), on dummy_batch's
+                patch embeddings: exact launches, finite loss and grad
+                norm, seconds a step, tokens/s, peak memory, one profiled
+                step. 9e. audio train — the same on musicgen-medium and its
+                LiteModel on codebook tokens: no norm launch, kd_loss_grad
+                on (1, B S 4, 2048); tokens/s counts token positions.
+                Both run after 5e-5g; their backward and kd_loss_grad
+                shapes are timed as in phase 12, their forward shapes as in
+                phase 6.
   9b. ckpt     — phase 9's trained params saved with save_checkpoint (as
                 launch/train.py --checkpoint does) under a temporary
                 directory and restored onto the card with
@@ -237,7 +279,11 @@ TERMS = ("ce_x", "ce_y", "kl_xy", "kl_yx")
 GRAD_SHAPES = [(8, 32, 10, "float32"), (4, 32, 10, "float32"),
                (2, 32, 777, "float32"), (2, 32, 777, "bfloat16"),
                (4, 512, 32000, "float32"), (4, 512, 32000, "bfloat16"),
-               (1, 2048, 128256, "float32"), (1, 2048, 151936, "float32")]
+               (1, 2048, 128256, "float32"), (1, 2048, 151936, "float32"),
+               # musicgen-medium's 4 x 512 x 4 codebook rows at V 2048, the
+               # last V of the warp kernel, and V 2049, the row kernel's first
+               (1, 8192, 2048, "float32"), (1, 8192, 2048, "bfloat16"),
+               (1, 8192, 2049, "float32"), (1, 8192, 2049, "bfloat16")]
 GRAD_VOCAB = [(4, 512, 32000, "float32"), (4, 512, 32000, "bfloat16")]
 LAMBDAS = (0.4, 0.6, 0.5, 0.5)
 CHECK_SHAPES = [(128, 10, "float32"), (256, 10, "float32"),
@@ -261,7 +307,10 @@ NORM_SHAPES = [(2048, 3072, "bfloat16"), (4, 3072, "bfloat16"),
                (64, 777, "float32"), (64, 777, "bfloat16"),
                # qwen3-moe-30b-a3b: prefill and training, decode
                (2048, 2048, "bfloat16"), (4, 2048, "bfloat16"),
-               (2048, 2048, "float32"), (4, 2048, "float32")]
+               (2048, 2048, "float32"), (4, 2048, "float32"),
+               # qwen2-vl-2b: prefill and training, decode
+               (2048, 1536, "bfloat16"), (4, 1536, "bfloat16"),
+               (2048, 1536, "float32"), (4, 1536, "float32")]
 FLASH_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16", "bshd"),
                 (4, 24, 8, 512, 128, 0, "float32", "bshd"),
                 (4, 24, 8, 512, 128, 0, "bfloat16", "bhsd"),
@@ -282,7 +331,13 @@ FLASH_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16", "bshd"),
                 (4, 32, 4, 512, 128, 0, "float32", "bshd"),
                 (4, 32, 4, 512, 128, 0, "bfloat16", "bhsd"),
                 (4, 32, 4, 512, 128, 0, "float32", "bhsd"),
-                (2, 32, 4, 128, 128, 0, "float32", "bshd")]
+                (2, 32, 4, 128, 128, 0, "float32", "bshd"),
+                # qwen2-vl-2b (and its LiteModel): 12 heads over 2 KV heads,
+                # a group of 6; musicgen-medium: H = KV = 24 at hd 64
+                *[(4, H, KV, 512, hd, 0, dt, lay)
+                  for H, KV, hd in ((12, 2, 128), (24, 24, 64))
+                  for dt in ("bfloat16", "float32")
+                  for lay in ("bshd", "bhsd")]]
 
 # the training path: llama3.2-3b at full width (bf16, remat, the config's
 # own) with its LiteModel, batch 4 x seq 512, AdamW at TrainStepConfig()'s
@@ -300,12 +355,19 @@ MOE = {"arch": "qwen3-moe-30b-a3b", "parity_layers": 2, "train_layers": 4}
 # forward and backward, and the routing's top-k and position count)
 MOE_OPS = ("aten::bmm", "aten::index_add", "aten::index_add_",
            "aten::index_select", "aten::topk", "aten::cumsum")
+# the VLM and audio paths (phases 5e-5g, 9d, 9e): qwen2-vl-2b and
+# musicgen-medium served and trained at full width and depth (SERVE's and
+# TRAIN's sizes; the VLM on seeded patch embeddings with (t, t // 8, t % 8)
+# M-RoPE positions, audio on (B, S, 4) codebook tokens), and 2-layer fp32
+# cuts of each on the card against the CPU
+VLM_AUDIO = {"archs": ("qwen2-vl-2b", "musicgen-medium"), "parity_layers": 2}
 # backward checks: norms (N, d, dtype), flash as FLASH_SHAPES
 NORM_BWD_SHAPES = [(2048, 3072, "bfloat16"), (2048, 3072, "float32"),
                    (2048, 256, "bfloat16"), (2048, 256, "float32"),
                    (1000, 3072, "bfloat16"), (1000, 3072, "float32"),
                    (64, 777, "float32"), (64, 777, "bfloat16"),
-                   (2048, 2048, "bfloat16"), (2048, 2048, "float32")]
+                   (2048, 2048, "bfloat16"), (2048, 2048, "float32"),
+                   (2048, 1536, "bfloat16"), (2048, 1536, "float32")]
 FLASH_BWD_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16", "bshd"),
                     (4, 24, 8, 512, 128, 0, "float32", "bshd"),
                     (4, 4, 4, 512, 64, 0, "bfloat16", "bshd"),
@@ -316,7 +378,11 @@ FLASH_BWD_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16", "bshd"),
                     # grids of two blocks an SM or more: one dQ consumer
                     (4, 24, 8, 300, 128, 64, "bfloat16", "bshd"),
                     (8, 16, 4, 300, 64, 48, "bfloat16", "bhsd"),
-                    (4, 32, 4, 512, 128, 0, "bfloat16", "bshd")]
+                    (4, 32, 4, 512, 128, 0, "bfloat16", "bshd"),
+                    *[(4, H, KV, 512, hd, 0, dt, lay)
+                      for H, KV, hd in ((12, 2, 128), (24, 24, 64))
+                      for dt in ("bfloat16", "float32")
+                      for lay in ("bshd", "bhsd")]]
 
 def free_device_memory(torch):
     """Collect what the caller dropped (reference cycles included) and hand
@@ -1545,12 +1611,15 @@ def serve_launch_shapes(cfg):
     runs one rmsnorm (the first block's first norm) and 2 L add_rmsnorm
     (every other norm, each with the residual add before it), the last of
     which, before the unembedding, prefill applies to the last position
-    only; prefill runs flash attention once per block, decode never."""
+    only; prefill runs flash attention once per block, decode never. A
+    layernorm config (musicgen) launches no norm kernel."""
     B, S, n = SERVE["batch"], SERVE["prompt"], SERVE["n_new"]
     L, d, H, KV = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads
-    return {"rmsnorm": {(B * S, d, "bfloat16"): 1, (B, d, "bfloat16"): n},
+    rms = cfg.norm == "rmsnorm"
+    return {"rmsnorm": {(B * S, d, "bfloat16"): 1,
+                        (B, d, "bfloat16"): n} if rms else {},
             "add_rmsnorm": {(B * S, d, "bfloat16"): 2 * L - 1,
-                            (B, d, "bfloat16"): 1 + 2 * L * n},
+                            (B, d, "bfloat16"): 1 + 2 * L * n} if rms else {},
             "flash_attention": {(B, H, KV, S, cfg.resolved_head_dim, 0,
                                  "bfloat16", "bshd"): L},
             "kd_loss_fwd": {}, "kd_loss_bwd": {}, "kd_loss_grad": {},
@@ -1558,16 +1627,34 @@ def serve_launch_shapes(cfg):
             "flash_attention_bwd": {}}
 
 
+def serve_batch(torch, cfg, B, S, seed):
+    """A prompt batch of `cfg`'s inputs on the card: (B, S) tokens, an audio
+    model's (B, S, nq) codebook tokens (numpy draws), or a VLM's (B, S, d)
+    N(0, 1) patch embeddings in cfg.dtype with (3, B, S) positions (t, t //
+    8, t % 8) from a seeded generator on the card (dummy_batch)."""
+    import numpy as np
+    from repro_torch.models.api import dummy_batch
+    if cfg.input_mode == "embeddings":
+        return dummy_batch(cfg, B, S, torch.Generator("cuda").manual_seed(seed),
+                           with_labels=False, device="cuda")
+    shape = (B, S, cfg.n_codebooks) if cfg.n_codebooks else (B, S)
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
+    return {"tokens": torch.as_tensor(tokens, device="cuda")}
+
+
 def eager_decode(torch, engine, batch, n_new):
     """The engine's decode step run eagerly: the same prefill and cache set-up
     as `generate`, then n_new calls of make_decode_step's function with a 0-d
-    position tensor. Returns the tokens (B, n_new) numpy, each step's logits
-    (B, n_new, vocab) and the wall seconds of the decode loop."""
+    position tensor. Returns the tokens (B, n_new[, nq]) numpy, each step's
+    logits (B, n_new[, nq], vocab) and the wall seconds of the decode
+    loop."""
     from repro_torch.models.api import make_decode_cache
-    from repro_torch.serve import make_decode_step, make_prefill_step
+    from repro_torch.serve import (decode_batch, make_decode_step,
+                                   make_prefill_step)
     from repro_torch.serve.engine import _write_prefix
     cfg, params = engine.cfg, engine.params
-    B, S = batch["tokens"].shape
+    B, S = batch["embeddings" if cfg.input_mode == "embeddings"
+                 else "tokens"].shape[:2]
     step = make_decode_step(cfg)
     with torch.no_grad():
         logits, pre = make_prefill_step(cfg)(params, batch)
@@ -1583,8 +1670,9 @@ def eager_decode(torch, engine, batch, n_new):
         t0 = time.perf_counter()
         for i in range(n_new):
             index.fill_(S + i)
-            tok, lg, cache = step(params, {"tokens": tok[:, None]}, cache,
-                                  index)
+            tok, lg, cache = step(params, decode_batch(cfg, params,
+                                                       tok[:, None]),
+                                  cache, index)
             toks.append(tok)
             kept.append(lg[:, -1])
         torch.cuda.synchronize()
@@ -1614,10 +1702,10 @@ def check_graph_is_eager(torch, engine, batch, n_new, what, tag="serve"):
 
 
 def phase_serve(torch, cfg=None, tag="serve"):
-    """Serve 4 x 512-token prompts for 32 new tokens with `cfg` (SERVE's
-    arch when None); returns the engine, its batch, the counted launches,
+    """Serve 4 x 512-token prompts (serve_batch: tokens, codebook tokens or
+    patch embeddings) for 32 new tokens with `cfg` (SERVE's arch when
+    None); returns the engine, its batch, the counted launches,
     the expected shapes and the measured times."""
-    import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models.api import init_model, prefill
     from repro_torch.serve import ServeEngine
@@ -1632,17 +1720,18 @@ def phase_serve(torch, cfg=None, tag="serve"):
     ffn = (f"{cfg.n_experts} experts, top-{cfg.top_k}, moe_d_ff "
            f"{cfg.moe_d_ff}, capacity_factor {cfg.capacity_factor}"
            if cfg.is_moe else f"d_ff {cfg.d_ff}")
+    io = (f"patch embeddings, M-RoPE sections {cfg.mrope_sections}"
+          if cfg.input_mode == "embeddings" else
+          f"{cfg.n_codebooks} codebooks" if cfg.n_codebooks else "tokens")
     log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
         f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, hd "
-        f"{cfg.resolved_head_dim}, {ffn}, vocab {cfg.vocab_size}, "
-        f"{cfg.dtype}; {n_params} parameters "
+        f"{cfg.resolved_head_dim}, {ffn}, {cfg.norm}, vocab "
+        f"{cfg.vocab_size}, {io}, {cfg.dtype}; {n_params} parameters "
         f"(num_params() {cfg.num_params()} + norm scales), "
         f"{sum(t.numel() * t.element_size() for t in tree_leaves(params))} "
         f"B, initialised in {time.perf_counter() - t0:.2f} s")
     B, S, n_new = SERVE["batch"], SERVE["prompt"], SERVE["n_new"]
-    tokens = np.random.default_rng(SERVE["seed"]).integers(
-        0, cfg.vocab_size, (B, S))
-    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    batch = serve_batch(torch, cfg, B, S, SERVE["seed"])
     engine = ServeEngine(cfg, params, max_len=SERVE["max_len"], device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1671,15 +1760,17 @@ def phase_serve(torch, cfg=None, tag="serve"):
     if launches != expected:
         raise SystemExit(f"chip_smoke: {tag} launches {launches} != "
                          f"{expected}")
-    if out.shape != (B, n_new) or out.min() < 0 or out.max() >= cfg.vocab_size:
+    nq = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    if (out.shape != (B, n_new) + nq or out.min() < 0
+            or out.max() >= cfg.vocab_size):
         raise SystemExit(f"chip_smoke: generate gave {out.shape} tokens in "
                          f"[{out.min()}, {out.max()}]")
     with torch.no_grad():
         logits, _ = prefill(params, cfg, batch)
-    if logits.shape != (B, 1, cfg.vocab_size) or not bool(
+    if logits.shape != (B, 1) + nq + (cfg.vocab_size,) or not bool(
             torch.isfinite(logits).all()):
         raise SystemExit("chip_smoke: prefill logits are not finite of "
-                         "shape (B, 1, vocab)")
+                         "shape (B, 1[, nq], vocab)")
     eager_s = check_graph_is_eager(torch, engine, batch, n_new,
                                    f"{cfg.name} at full width", tag)
     # prefill + one decode step, and 31 more decode steps: the difference
@@ -1800,16 +1891,18 @@ def phase_serve_parity(torch):
 # depth, and a 2-layer fp32 cut of it on the card against the CPU
 # ---------------------------------------------------------------------- #
 def decode_bound_ms(torch, engine):
-    """The least time of one decode step: every parameter read once (the
-    embedding's B rows only: the decode reads every expert, as the
-    reference's capacity dispatch runs all of them) and the whole KV cache
-    read once, over the card's memory rate."""
+    """The least time of one decode step: every parameter read once (of the
+    embedding tables only the B rows a step gathers from each; an MoE
+    decode reads every expert, as the reference's capacity dispatch runs
+    all of them) and the whole KV cache read once, over the card's memory
+    rate."""
     from repro_torch.utils.pytree import tree_leaves
     params, B = engine.params, SERVE["batch"]
     emb = params["io"]["embed"]
+    rows = B * (engine.cfg.n_codebooks or 1)
     nbytes = (sum(t.numel() * t.element_size() for t in tree_leaves(params))
               - emb.numel() * emb.element_size()
-              + B * emb.shape[1] * emb.element_size())
+              + rows * emb.shape[-1] * emb.element_size())
     cache = engine.decode_step_for(B).cache
     nbytes += sum(t.numel() * t.element_size() for t in tree_leaves(cache))
     return nbytes, nbytes / PEAK_BYTES_PER_S * 1e3
@@ -2110,7 +2203,8 @@ def decode_loop(torch, engine, start, n):
     """generate's decode loop alone, on the cache the engine's last
     generate left: per step, set the position, replay, keep the token."""
     step = engine.decode_step_for(SERVE["batch"])
-    out = torch.empty((SERVE["batch"], n), dtype=torch.int64, device="cuda")
+    out = torch.empty((SERVE["batch"], n) + step.tokens.shape[2:],
+                      dtype=torch.int64, device="cuda")
     for i in range(n):
         step.index.fill_(start + i)
         step.step()
@@ -2187,8 +2281,9 @@ def train_launch_shapes(cfg, lite):
     norm) 2 and its backward 1; add_rmsnorm (every other norm of the
     blocks) 2 (2L - 1), plus the final norm, outside the blocks, once; its
     backward 2L; flash 2L and its backward L. Without remat the forwards
-    run once. Both models' logits go to one kd_loss_grad launch on
-    (1, B S, V)."""
+    run once. A layernorm config (musicgen) launches no norm kernel. Both
+    models' logits go to one kd_loss_grad launch on (1, B S, V), an audio
+    model's on (1, B S nq, V)."""
     B, S = TRAIN["batch"], TRAIN["seq"]
     out = {k: {} for k in TRAIN_KERNELS}
 
@@ -2201,13 +2296,15 @@ def train_launch_shapes(cfg, lite):
         norm = (B * S, c.d_model, dt)
         flash = (B, c.n_heads, c.n_kv_heads, S, c.resolved_head_dim,
                  c.sliding_window, dt, "bshd")
-        add("rmsnorm", norm, r)
-        add("rmsnorm_bwd", norm, 1)
-        add("add_rmsnorm", norm, r * (2 * L - 1) + 1)
-        add("add_rmsnorm_bwd", norm, 2 * L)
+        if c.norm == "rmsnorm":
+            add("rmsnorm", norm, r)
+            add("rmsnorm_bwd", norm, 1)
+            add("add_rmsnorm", norm, r * (2 * L - 1) + 1)
+            add("add_rmsnorm_bwd", norm, 2 * L)
         add("flash_attention", flash, r * L)
         add("flash_attention_bwd", flash, L)
-    add("kd_loss_grad", (1, B * S, cfg.vocab_size, "float32"), 1)
+    add("kd_loss_grad", (1, B * S * (cfg.n_codebooks or 1), cfg.vocab_size,
+                         "float32"), 1)
     return out
 
 
@@ -2431,6 +2528,182 @@ def phase_moe_train(torch):
     free_device_memory(torch)
     wall = time.perf_counter() - t_phase
     log(f"[moe train] phase wall {wall:.2f} s")
+    return launches, shapes, wall
+
+
+# ---------------------------------------------------------------------- #
+# 5e-5g, 9d and 9e. the VLM and audio families: qwen2-vl-2b and
+# musicgen-medium served and trained at full width and depth, and 2-layer
+# fp32 cuts of each on the card against the CPU
+# ---------------------------------------------------------------------- #
+def phase_family_serve(torch, arch):
+    """Phase 5's serve path on `arch` at full width and depth, after the
+    free device memory is logged: the exact launches, graphed == eager bit
+    for bit, the times, peak memory and the decode step's byte bound (the
+    KV cache at max_len included). Returns the launches, the expected
+    shapes, the times and the phase's wall seconds; a profiled graphed
+    decode loop shows where a step's device time goes."""
+    from repro_torch.configs import get_config
+    from repro_torch.utils.pytree import tree_leaves
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    tag = f"{cfg.family} serve"
+    free_device_memory(torch)
+    free, total = torch.cuda.mem_get_info()
+    log(f"[{tag}] free device memory before init {free} B of {total} B; "
+        f"allocated {torch.cuda.memory_allocated()} B")
+    engine, batch, launches, shapes, measured = phase_serve(torch, cfg, tag)
+    nbytes, bound = decode_bound_ms(torch, engine)
+    cache = sum(t.numel() * t.element_size() for t in tree_leaves(
+        engine.decode_step_for(SERVE["batch"]).cache))
+    measured["decode_bound_ms"] = bound
+    log(f"[{tag}] a decode step reads {nbytes} B (the weights, the "
+        f"embedding rows it gathers and the {cache} B KV cache at max_len "
+        f"{SERVE['max_len']}): byte bound {bound:.3f} ms a step; graphed "
+        f"{measured['decode_ms']:.3f} ms ({100 * bound / measured['decode_ms']:.1f}% "
+        f"of the bound), replay device time {measured['replay_ms']:.3f} ms")
+    label = f"{arch} decode loop (graph replays)"
+    prof = phase_profile(
+        torch, label,
+        lambda: decode_loop(torch, engine, SERVE["prompt"], SERVE["n_new"]),
+        ("norm_kernel",))
+    report_device_gaps(torch, prof, label)
+    del engine, batch, prof
+    free_device_memory(torch)
+    wall = time.perf_counter() - t_phase
+    log(f"[{tag}] phase wall {wall:.2f} s")
+    return launches, shapes, measured, wall
+
+
+def phase_family_parity(torch, arch):
+    """A 2-layer fp32 cut of `arch` at full width, the same weights on the
+    card and on the CPU: prefill logits and 4 decode steps' logits (each
+    step fed the CPU's greedy tokens on both sides; a VLM feeds their
+    embedding rows) at atol and rtol 1e-3; then one loss_and_grads with its
+    LiteModel (remat as the config's): loss, metrics and grad norm, and the
+    gradients of layer 0's wq, the norm params (layernorm: scale and bias)
+    and the embedding tables at 1e-3. A VLM never reads its token
+    embedding in training: its gradient must be exactly zero on both
+    sides. Returns the phase's wall seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.launch.train import token_batches
+    from repro_torch.models.api import (decode_step, init_model,
+                                        make_decode_cache, prefill)
+    from repro_torch.optim import global_norm
+    from repro_torch.serve import decode_batch
+    from repro_torch.train import TrainStepConfig, loss_and_grads
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch),
+                              n_layers=VLM_AUDIO["parity_layers"],
+                              dtype=torch.float32)
+    lite = cfg.lite()
+    tag = f"{cfg.family} parity"
+    B, S, steps = 2, 128, 4
+    gen = torch.Generator("cuda").manual_seed(6)
+    gpu = {"local": init_model(gen, cfg, "cuda"),
+           "lite": init_model(gen, lite, "cuda")}
+    sides = {"cuda": gpu,
+             "cpu": params_from_numpy(params_to_numpy(gpu), device="cpu")}
+    prompt = {k: v.cpu() for k, v in serve_batch(torch, cfg, B, S, 6).items()}
+    err, agree = 0.0, 0
+    with full_fp32(torch), torch.no_grad():
+        logits, caches = {}, {}
+        for dev, params in sides.items():
+            logits[dev], pre = prefill(params["local"], cfg, {
+                k: v.to(dev) for k, v in prompt.items()})
+            caches[dev] = make_decode_cache(cfg, B, S + steps, dev)
+            for key in ("k", "v"):
+                caches[dev]["blocks"][key][:, :, :S] = pre["blocks"][key]
+        for i in range(steps + 1):
+            a, b = logits["cuda"].cpu(), logits["cpu"]
+            torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+            err = max(err, float((a - b).abs().max()))
+            nxt = b[:, -1].argmax(-1)
+            agree += int((a[:, -1].argmax(-1) == nxt).sum())
+            if i == steps:
+                break
+            for dev, params in sides.items():
+                logits[dev], caches[dev] = decode_step(
+                    params["local"], cfg,
+                    decode_batch(cfg, params["local"], nxt[:, None].to(dev)),
+                    caches[dev], S + i)
+    log(f"[{tag}] serve, {cfg.n_layers}-layer fp32 cut of {arch} at full "
+        f"width, B {B}, S {S}: prefill + {steps} decode steps, max|diff| of "
+        f"logits {err:.3e} (atol 1e-3, rtol 1e-3); greedy tokens agree "
+        f"{agree} of {nxt.numel() * (steps + 1)}")
+    del caches, logits, pre
+
+    tcfg = TrainStepConfig()
+    batch = next(token_batches(cfg, 2, 64, 1, seed=6, device="cpu"))
+    out = {}
+    with full_fp32(torch):
+        for dev, params in sides.items():
+            metrics, grads = loss_and_grads(
+                params, cfg, lite, tcfg,
+                {k: v.to(dev) for k, v in batch.items()})
+            blocks, io = grads["local"]["blocks"], grads["local"]["io"]
+            picked = [blocks["attn"]["wq"][0],
+                      *[t[0] for k in ("norm1", "norm2")
+                        for t in blocks[k].values()],
+                      *io["norm_f"].values(), io["embed"]]
+            zero_embed = [bool((grads[m]["io"]["embed"] == 0).all())
+                          for m in ("local", "lite")]
+            out[dev] = ({k: float(v) for k, v in metrics.items()},
+                        float(global_norm(grads)),
+                        [t.cpu() for t in picked], zero_embed)
+            del grads, blocks, io
+        torch.cuda.synchronize()
+    (ma, gna, pa, za), (mb, gnb, pb, zb) = out["cuda"], out["cpu"]
+    for k in mb:
+        if not math.isclose(ma[k], mb[k], rel_tol=1e-3, abs_tol=1e-3):
+            raise SystemExit(f"chip_smoke: {tag} {k}: card {ma[k]} cpu "
+                             f"{mb[k]}")
+    if not math.isclose(gna, gnb, rel_tol=1e-3, abs_tol=1e-3):
+        raise SystemExit(f"chip_smoke: {tag} grad norm card {gna} cpu {gnb}")
+    if cfg.input_mode == "embeddings" and not (all(za) and all(zb)):
+        raise SystemExit(f"chip_smoke: {tag}: the token embedding's "
+                         f"gradient is not exactly zero (card {za}, cpu "
+                         f"{zb})")
+    gerr = _assert_trees_close(torch, pa, pb, 1e-3, f"{tag} grads")
+    del sides, gpu, out, pa, pb, params
+    free_device_memory(torch)
+    wall = time.perf_counter() - t_phase
+    log(f"[{tag}] train, same cut (B 2, S 64, remat {cfg.remat}): loss card "
+        f"{ma['loss']:.6f} cpu {mb['loss']:.6f}, grad norm {gna:.6f} / "
+        f"{gnb:.6f}; grads of layer 0's wq, the norm params and the "
+        f"embedding max|diff| {gerr:.3e} (atol 1e-3, rtol 1e-3)"
+        + ("; the token embedding's gradient exactly zero on both sides "
+           "(local and lite)" if cfg.input_mode == "embeddings" else "")
+        + f"; phase wall {wall:.2f} s")
+    return wall
+
+
+def phase_family_train(torch, arch):
+    """Phase 9 on `arch` at full width and depth with its LiteModel, after
+    the free device memory is logged: exact launches, finite loss and grad
+    norm, seconds a step, tokens/s (token positions, B S a step: an audio
+    model's nq codebook entries a position count once), peak memory; one
+    profiled step. Returns the launches, the expected shapes a step and the
+    phase's wall seconds."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    tag = f"{cfg.family} train"
+    free_device_memory(torch)
+    free, total = torch.cuda.mem_get_info()
+    log(f"[{tag}] free device memory before init {free} B of {total} B; "
+        f"allocated {torch.cuda.memory_allocated()} B")
+    state, step, batches, launches, shapes = phase_train(torch, cfg, tag)
+    phase_profile(torch, f"{arch} training step",
+                  lambda: step(state, batches[1]),
+                  ("flash_bwd_dkdv", "flash_bwd_dq", "norm_bwd_kernel",
+                   "norm_kernel", "flash_wgmma_kernel", "kd_grad_warp_kernel",
+                   "kd_grad_row_kernel"))
+    del state, step, batches
+    free_device_memory(torch)
+    wall = time.perf_counter() - t_phase
+    log(f"[{tag}] phase wall {wall:.2f} s")
     return launches, shapes, wall
 
 
@@ -2804,6 +3077,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: src/repro_torch not found beside the "
                          "script: run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
     phase_build()
     errs = phase_kernels(torch, CHECK_SHAPES)
     grad_errs = phase_kd_grad(torch, GRAD_SHAPES)
@@ -2911,6 +3185,44 @@ def main() -> int:
                          f"phase 3 did not check: {unchecked}")
     log(f"[main] the MoE phases: serve (5c) {moe_serve_s:.2f} s, parity "
         f"(5d) {moe_parity_s:.2f} s, training (9c) {moe_train_s:.2f} s")
+    # the VLM and audio families, after 9c's state is freed: serving (5e,
+    # 5f), the card against the CPU (5g), training (9d, 9e)
+    fam_keys, fam_launches, fam_serve, fam_walls = {}, {}, {}, {}
+    for arch in VLM_AUDIO["archs"]:
+        fam = get_config(arch).family
+        counted, by_shape, fam_serve[fam], fam_walls[f"{fam} serve"] = \
+            phase_family_serve(torch, arch)
+        fam_launches[f"{fam}_serve"] = counted
+        fam_keys[f"{fam}_serve"] = by_shape
+    for arch in VLM_AUDIO["archs"]:
+        fam_walls[f"{get_config(arch).family} parity"] = \
+            phase_family_parity(torch, arch)
+    for arch in VLM_AUDIO["archs"]:
+        fam = get_config(arch).family
+        counted, by_shape, fam_walls[f"{fam} train"] = phase_family_train(
+            torch, arch)
+        fam_launches[f"{fam}_train"] = counted
+        fam_keys[f"{fam}_train"] = by_shape
+    fam_keys = {entry: {name: {(name, *shape): n
+                               for shape, n in by_shape.items()}
+                        for name, by_shape in shapes_of.items() if by_shape}
+                for entry, shapes_of in fam_keys.items()}
+    for entry, keys in fam_keys.items():
+        known = nf_errs if entry.endswith("serve") else checked
+        unchecked = [k for ks in keys.values() for k in ks if k not in known]
+        if unchecked:
+            raise SystemExit(f"chip_smoke: the {entry} path ran shapes "
+                             f"phase 3 did not check: {unchecked}")
+    log("[main] the VLM and audio phases: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in fam_walls.items()))
+    # the forward shapes of these serve paths and of the MoE, VLM and audio
+    # training paths (their LiteModels') not timed above
+    fwd_keys = [fam_keys[e] for e in ("vlm_serve", "audio_serve",
+                                      "vlm_train", "audio_train")]
+    nf_times.update(phase_norm_flash_timing(
+        torch, *[sorted({k[1:] for keys in fwd_keys + [moe_train_keys]
+                         for k in keys.get(name, {}) if k not in nf_times})
+                 for name in ("rmsnorm", "add_rmsnorm", "flash_attention")]))
     phase_fleet(torch)
     phase_train_parity(torch)
     phase_fleet_parity(torch)
@@ -2930,6 +3242,18 @@ def main() -> int:
     tr_times.update(phase_grad_timing(
         torch, [k[1:] for k in moe_train_keys["kd_loss_grad"]
                 if k not in tr_times], iters=3))
+    # and the VLM's and the audio model's
+    fam_train = [fam_keys[e] for e in ("vlm_train", "audio_train")]
+    tr_times.update(phase_train_timing(
+        torch, {name: sorted({k[1:] for keys in fam_train
+                              for k in keys.get(name, {})
+                              if k not in tr_times})
+                for name in ("rmsnorm_bwd", "add_rmsnorm_bwd",
+                             "flash_attention_bwd")}))
+    tr_times.update(phase_grad_timing(
+        torch, sorted({k[1:] for keys in fam_train
+                       for k in keys["kd_loss_grad"] if k not in tr_times}),
+        iters=3))
 
     weights = {(name, C * B, V, "float32"): n
                for name in ("kd_loss_fwd", "kd_loss_bwd")
@@ -3022,22 +3346,33 @@ def main() -> int:
     # the MoE paths: serving (5c) and training (9c) launches and shapes,
     # with the times at their shapes (the forward kernels' at the serve
     # path's, which training shares but for its LiteModel's)
-    moe_path = {"moe_serve": f"serve {MOE['arch']} at full width and depth",
-                "moe_train": f"train {MOE['arch']} at full width, "
-                             f"{MOE['train_layers']} layers (launches over "
-                             f"{TRAIN['steps']} steps, shapes with their "
-                             f"launches a step)"}
+    # and the VLM and audio paths: serving (5e, 5f) and training (9d, 9e)
+    per_step = (f"launches over {TRAIN['steps']} steps, shapes with their "
+                f"launches a step")
+    train_times = {**nf_times, **tr_times}
+    paths = {"moe_serve": (f"serve {MOE['arch']} at full width and depth",
+                           moe_serve_keys, moe_serve_launches, nf_times),
+             "moe_train": (f"train {MOE['arch']} at full width, "
+                           f"{MOE['train_layers']} layers ({per_step})",
+                           moe_train_keys, moe_train_launches, train_times)}
+    for arch in VLM_AUDIO["archs"]:
+        fam = get_config(arch).family
+        paths[f"{fam}_serve"] = (
+            f"serve {arch} at full width and depth", fam_keys[f"{fam}_serve"],
+            fam_launches[f"{fam}_serve"], nf_times)
+        paths[f"{fam}_train"] = (
+            f"train {arch} at full width and depth ({per_step})",
+            fam_keys[f"{fam}_train"], fam_launches[f"{fam}_train"],
+            train_times)
     for row in record["kernels"]:
         name = row["name"]
-        for entry, keys, counted, times_of in (
-                ("moe_serve", moe_serve_keys, moe_serve_launches, nf_times),
-                ("moe_train", moe_train_keys, moe_train_launches, tr_times)):
+        for entry, (path, keys, counted, times_of) in paths.items():
             if name not in keys:
                 continue
             row[entry] = {"launches": counted[name],
                           "shapes": [[*k[1:], n]
                                      for k, n in keys[name].items()],
-                          "path": moe_path[entry]}
+                          "path": path}
             if all(k in times_of for k in keys[name]):
                 row[entry].update(path_times(times_of, keys[name]))
     log(f"[main] MoE serve (5c): prefill {moe_serve['prefill_ms']:.3f} ms, "
@@ -3046,6 +3381,12 @@ def main() -> int:
         f"{moe_serve['tokens_per_s']:.1f} tokens/s, peak "
         f"{moe_serve['peak_bytes']} B, dropped_frac "
         f"{moe_serve['dropped_frac']:.6f} a layer")
+    for fam, m in fam_serve.items():
+        log(f"[main] {fam} serve: prefill {m['prefill_ms']:.3f} ms, decode "
+            f"{m['decode_ms']:.3f} ms a step graphed (replay "
+            f"{m['replay_ms']:.3f} ms, bound {m['decode_bound_ms']:.3f} ms), "
+            f"eager {m['eager_ms'][0]:.3f} / {m['eager_ms'][1]:.3f} ms, "
+            f"{m['tokens_per_s']:.1f} tokens/s, peak {m['peak_bytes']} B")
     log(f"[main] chip_smoke wall {time.perf_counter() - t_script:.1f} s")
     log(card)
     log(json.dumps(record))

@@ -12,9 +12,10 @@ The step updates its state in place (`train/step.py`), as the reference's
 driver donates its state to the jitted step. --checkpoint saves
 ``state["params"]`` after the last step in the reference's format
 (``repro_torch.checkpoint``): either package restores it. Families the
-port has not ported yet (SSM, hybrid, VLM embeddings, audio codebooks)
-raise NotImplementedError; MoE configs train with the router's aux losses
-in the loss (`train/step.py`).
+port has not ported yet (SSM, hybrid) raise NotImplementedError; MoE
+configs train with the router's aux losses in the loss (`train/step.py`),
+audio configs on codebook tokens and VLM configs on random patch
+embeddings (`token_batches`).
 """
 from __future__ import annotations
 
@@ -23,11 +24,13 @@ import dataclasses
 import time
 from typing import Dict, Iterator
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.data.synthetic import make_token_dataset
+from repro_torch.models.api import dummy_batch
 from repro_torch.models.transformer import check_supported
 from repro_torch.train.step import (TrainStepConfig, make_hapfl_train_step,
                                     make_train_state)
@@ -36,16 +39,29 @@ from repro_torch.utils.device import resolve_device
 
 def token_batches(cfg, batch: int, seq: int, steps: int, seed: int = 0,
                   device=None) -> Iterator[Dict[str, torch.Tensor]]:
-    """`steps` batches {"tokens", "labels"} (batch, seq) int32 of
-    consecutive windows of one `make_token_dataset` stream (the reference's
-    numpy stream, so the same tokens), labels the tokens shifted by one."""
+    """`steps` batches of consecutive windows of one `make_token_dataset`
+    stream (the reference's numpy stream, so the same tokens): {"tokens",
+    "labels"} (batch, seq), labels the tokens shifted by one. An audio
+    model's are (batch, seq, nq), codebook q the stream rolled by q along
+    the sequence, as the reference rolls it. A VLM's batch i is
+    `dummy_batch` drawn from a torch generator seeded with i, where the
+    reference draws from jax.random.PRNGKey(i): the structure is the
+    reference's, the embeddings and labels are not."""
     check_supported(cfg)
     device = resolve_device(device)
     stream = make_token_dataset(cfg.vocab_size, batch * (seq + 1) * steps + 1,
                                 seed)
     n = batch * (seq + 1)
     for i in range(steps):
+        if cfg.input_mode == "embeddings":
+            yield dummy_batch(cfg, batch, seq,
+                              torch.Generator(device).manual_seed(i),
+                              device=device)
+            continue
         chunk = stream[i * n:(i + 1) * n].reshape(batch, seq + 1)
+        if cfg.n_codebooks:
+            chunk = np.stack([np.roll(chunk, q, -1)
+                              for q in range(cfg.n_codebooks)], -1)
         yield {"tokens": torch.as_tensor(chunk[:, :-1], device=device),
                "labels": torch.as_tensor(chunk[:, 1:], device=device)}
 

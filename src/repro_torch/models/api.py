@@ -1,4 +1,5 @@
-"""Public model API: build and apply a dense or MoE decoder by config.
+"""Public model API: build and apply a dense, MoE, VLM or audio decoder by
+config.
 
 Counterpart of ``repro.models.api``. Entry points that make tensors run on
 CUDA unless the caller passes a device.
@@ -43,7 +44,8 @@ def decode_step(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                 cache, cache_index):
     """One decode step at position cache_index (an int, or a 0-d int64
     tensor on the cache's device, which a CUDA graph can replay). batch
-    holds the single new token (B, 1); the cache is updated in place."""
+    holds the single new token (B, 1[, nq]), or a VLM's (B, 1, d)
+    embeddings; the cache is updated in place."""
     logits, new_cache, _ = apply_model(params, cfg, batch, cache=cache,
                                        cache_index=cache_index)
     return logits, new_cache
@@ -58,13 +60,27 @@ def dummy_batch(cfg: ModelConfig, batch: int, seq: int,
                 gen: Optional[torch.Generator] = None,
                 with_labels: bool = True,
                 device=None) -> Dict[str, torch.Tensor]:
-    """A batch of random tokens (and labels) of the right structure, drawn
-    from `gen` (seed 0 on `device` when None)."""
+    """A batch of the config's structure, drawn from `gen` (seed 0 on
+    `device` when None): random tokens (B, S), or (B, S, nq) for an audio
+    model; for a VLM, N(0, 1) embeddings (B, S, d) in cfg.dtype and the
+    reference's (3, B, S) M-RoPE positions (t, t // 8, t % 8). Labels are
+    tokens of the tokens' shape ((B, S) for a VLM)."""
     device = resolve_device(device)
     gen = gen if gen is not None else torch.Generator(device).manual_seed(0)
-    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
-                                   generator=gen, device=device)}
+    shape = ((batch, seq, cfg.n_codebooks) if cfg.n_codebooks
+             else (batch, seq))
+    out: Dict[str, torch.Tensor] = {}
+    if cfg.input_mode == "embeddings":
+        out["embeddings"] = torch.randn((batch, seq, cfg.d_model),
+                                        generator=gen,
+                                        device=device).to(cfg.dtype)
+        t = torch.arange(seq, dtype=torch.int32,
+                         device=device)[None].expand(batch, seq)
+        out["positions"] = torch.stack([t, t // 8, t % 8])
+    else:
+        out["tokens"] = torch.randint(0, cfg.vocab_size, shape,
+                                      generator=gen, device=device)
     if with_labels:
-        out["labels"] = torch.randint(0, cfg.vocab_size, (batch, seq),
+        out["labels"] = torch.randint(0, cfg.vocab_size, shape,
                                       generator=gen, device=device)
     return out

@@ -1,4 +1,5 @@
-"""Core layers: initialisers, norms, rotary embeddings, MLPs.
+"""Core layers: initialisers, norms, rotary embeddings (RoPE and M-RoPE),
+MLPs.
 
 Counterpart of ``repro.models.layers``. RMSNorm goes through the port's
 kernel wrappers: `repro_torch.kernels.ops.rmsnorm_op` alone, and
@@ -6,10 +7,11 @@ kernel wrappers: `repro_torch.kernels.ops.rmsnorm_op` alone, and
 (`apply_add_norm`); the CUDA kernels on the card, their plain versions on
 the CPU. The reference's ``shard(...)`` annotations are
 dropped: they do nothing without a device mesh, and the mesh is ROADMAP §1
-item 13. M-RoPE (qwen2-vl) is not ported yet.
+item 13.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Tuple
 
@@ -91,15 +93,24 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope_sections: Tuple[int, ...] = ()) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (B, S), or (3, B, S) of which the first
-    stream is used."""
-    if mrope_sections:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet: "
-                                  "ROADMAP §1 item 15")
-    if positions.dim() == 3:
-        positions = positions[0]
+    """x: (B, S, H, hd); positions: (B, S), or (3, B, S) of which plain RoPE
+    uses the first stream. With mrope_sections (M-RoPE, summing to hd/2),
+    positions are (3, B, S) and rotary dimension j takes its angle from the
+    stream of the section j falls in: the first mrope_sections[0] from the
+    temporal stream, the next from the height, the last from the width."""
     inv = rope_freqs(x.shape[-1], theta, x.device)             # (hd/2,)
-    angles = positions.float()[..., None] * inv                  # (B, S, hd/2)
+    if mrope_sections:
+        if positions.dim() != 3:
+            raise ValueError(f"M-RoPE needs (3, B, S) positions, got "
+                             f"{tuple(positions.shape)}")
+        angles = positions.float()[..., None] * inv      # (3, B, S, hd/2)
+        bounds = [0, *itertools.accumulate(mrope_sections)]
+        angles = torch.cat([angles[i, ..., a:b] for i, (a, b) in
+                            enumerate(zip(bounds, bounds[1:]))], -1)
+    else:
+        if positions.dim() == 3:
+            positions = positions[0]
+        angles = positions.float()[..., None] * inv      # (B, S, hd/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

@@ -1,9 +1,15 @@
-"""Model assembly for the attention-stack family (dense and MoE decoders).
+"""Model assembly for the attention-stack family: dense, MoE, VLM and audio.
 
 Counterpart of ``repro.models.transformer`` for configs whose blocks are
 attention + MLP, or attention + a routed expert FFN (`models/moe.py`) in
-MoE configs. ``init_params(gen, cfg, device)`` builds the parameter tree
-of the reference, leaf for leaf: block params are stacked on a leading
+MoE configs. The families differ only in their io: token embeddings and a
+(tied or separate) head; a VLM's precomputed patch embeddings
+(``input_mode="embeddings"``) with (3, B, S) M-RoPE positions; an audio
+model's codebook tokens (B, S, nq), embedded by one table per codebook and
+summed, with one head per codebook.
+
+``init_params(gen, cfg, device)`` builds the parameter tree of the
+reference, leaf for leaf: block params are stacked on a leading
 (n_layers, ...) axis, so a tree converted from the reference's params
 (`repro_torch.convert.params_from_numpy`) drops in. A Python loop over the
 layers replaces ``lax.scan``.
@@ -27,9 +33,8 @@ An MoE block's aux losses (lb_loss, z_loss, dropped_frac) are summed over
 the layers, as the reference sums them (so dropped_frac is a sum, not a
 mean); a dense model's aux is {}.
 
-The SSM (mamba2, xLSTM), hybrid (zamba2), VLM (embeddings inputs, M-RoPE)
-and audio (codebooks) families are not ported yet (ROADMAP §1 item 15);
-their configs raise NotImplementedError.
+The SSM (mamba2, xLSTM) and hybrid (zamba2) families are not ported yet
+(ROADMAP §1 item 15); their configs raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -49,19 +54,10 @@ from repro_torch.utils.pytree import tree_map
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config of a family not ported yet."""
-    missing = []
     if cfg.block_kind != "attention":
-        missing.append(f"{cfg.family} ({cfg.block_kind}) blocks")
-    if cfg.n_codebooks:
-        missing.append("audio codebooks")
-    if cfg.input_mode != "tokens":
-        missing.append(f"{cfg.input_mode} inputs")
-    if cfg.mrope_sections:
-        missing.append("M-RoPE")
-    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} are not ported yet "
-            f"(ROADMAP §1 item 15)")
+            f"{cfg.name}: {cfg.family} ({cfg.block_kind}) blocks are not "
+            f"ported yet (ROADMAP §1 item 15)")
 
 
 # --------------------------------------------------------------------- #
@@ -115,18 +111,35 @@ def _stack_init(n: int, init_fn):
 # --------------------------------------------------------------------- #
 def init_io(gen: torch.Generator, cfg: ModelConfig, device):
     p: Dict[str, Any] = {"norm_f": init_norm(cfg.d_model, cfg.norm,
-                                             cfg.dtype, device),
-                         "embed": embed_init(gen, cfg.vocab_size,
-                                             cfg.d_model, cfg.dtype, device)}
+                                             cfg.dtype, device)}
+    V, d, dt = cfg.vocab_size, cfg.d_model, cfg.dtype
+    if cfg.n_codebooks:   # audio: a table and a head per codebook
+        nq = cfg.n_codebooks
+        p["embed"] = torch.stack([embed_init(gen, V, d, dt, device)
+                                  for _ in range(nq)])            # (nq, V, d)
+        p["head"] = torch.stack([dense_init(gen, d, V, dt, device)
+                                 for _ in range(nq)])             # (nq, d, V)
+        return p
+    p["embed"] = embed_init(gen, V, d, dt, device)
     if not cfg.tie_embeddings:
-        p["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, cfg.dtype,
-                               device)
+        p["head"] = dense_init(gen, d, V, dt, device)
     return p
 
 
 def embed_inputs(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
-    """batch: {"tokens": (B, S) int}; optional "positions" (B, S)."""
-    x = p["embed"][batch["tokens"].long()]
+    """batch: {"tokens": (B, S) int}, a VLM's {"embeddings": (B, S, d)} or
+    an audio model's {"tokens": (B, S, nq) int}; optional "positions" (B,
+    S), or (3, B, S) for M-RoPE. Codebook embeddings are summed in the
+    reference's order, q = 0 first, in cfg.dtype."""
+    if cfg.input_mode == "embeddings":
+        x = batch["embeddings"].to(cfg.dtype)
+    elif cfg.n_codebooks:
+        toks = batch["tokens"].long()
+        x = p["embed"][0][toks[..., 0]]
+        for q in range(1, cfg.n_codebooks):
+            x = x + p["embed"][q][toks[..., q]]
+    else:
+        x = p["embed"][batch["tokens"].long()]
     if "positions" in batch:
         positions = batch["positions"]
     else:
@@ -136,12 +149,15 @@ def embed_inputs(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
 
 
 def unembed(p, cfg: ModelConfig, x, delta=None):
-    """Final norm of x + delta (x alone when delta is None) and the (tied
-    or separate) head: fp32 logits."""
+    """Final norm of x + delta (x alone when delta is None) and the (tied,
+    separate or per-codebook) head: fp32 logits (B, S, V), or (B, S, nq, V)
+    for an audio model."""
     if delta is None:
         h = apply_norm(p["norm_f"], x, cfg.norm)
     else:
         _, h = apply_add_norm(p["norm_f"], x, delta, cfg.norm)
+    if cfg.n_codebooks:
+        return torch.einsum("bsd,qdv->bsqv", h, p["head"]).float()
     w = p["embed"].T if cfg.tie_embeddings else p["head"]
     return (h @ w).float()
 
@@ -188,8 +204,12 @@ def apply_blocks(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     if decode:
         cache_index = torch.as_tensor(cache_index, device=x.device)
         if "positions" not in batch:
-            # the single token sits at absolute position cache_index
-            positions = cache_index.view(1, 1).expand(x.shape[0], 1)
+            # the single token sits at absolute position cache_index, in
+            # each of M-RoPE's three streams
+            B = x.shape[0]
+            positions = (cache_index.view(1, 1, 1).expand(3, B, 1)
+                         if cfg.mrope_sections else
+                         cache_index.view(1, 1).expand(B, 1))
     # every layer's view of the stacked params, taken once: under autograd
     # unbind's backward stacks the layers' gradients once, where a select
     # per layer would write a zero tensor of the whole stack for each

@@ -1,2 +1,2 @@
-from repro_torch.serve.engine import (make_prefill_step, make_decode_step,
-                                      ServeEngine)
+from repro_torch.serve.engine import (decode_batch, make_prefill_step,
+                                      make_decode_step, ServeEngine)

@@ -1,8 +1,11 @@
 """Serving path: prefill + single-token greedy decode with a KV cache.
 
-Counterpart of ``repro.serve.engine`` for the dense and MoE decoders the
-port has (`repro_torch.models.transformer`). Sliding-window configs keep a
-ring-buffer cache of window size.
+Counterpart of ``repro.serve.engine`` for the attention-stack decoders the
+port has (`repro_torch.models.transformer`: dense, MoE, VLM and audio).
+Sliding-window configs keep a ring-buffer cache of window size. An audio
+model decodes the (B, nq) argmax of its per-codebook logits as the next
+step's codebook tokens; a VLM feeds the next step the embedding rows of
+its argmax tokens, as the reference does.
 
 Where the reference compiles its decode step with ``jax.jit``, the port
 runs it on the card as one CUDA graph: `ServeEngine` captures the step once
@@ -54,6 +57,15 @@ def make_decode_step(cfg: ModelConfig):
     return decode_step
 
 
+def decode_batch(cfg: ModelConfig, params, tokens: torch.Tensor):
+    """The decode step's batch for the new tokens (B, 1[, nq]): the tokens,
+    or for a VLM their rows of params["io"]["embed"] as (B, 1, d)
+    embeddings in cfg.dtype."""
+    if cfg.input_mode == "embeddings":
+        return {"embeddings": params["io"]["embed"][tokens].to(cfg.dtype)}
+    return {"tokens": tokens}
+
+
 def _write_prefix(big: torch.Tensor, small: torch.Tensor) -> torch.Tensor:
     """big with small written at its origin (the reference's
     dynamic_update_slice at index 0), in place."""
@@ -68,14 +80,14 @@ def _write_prefix(big: torch.Tensor, small: torch.Tensor) -> torch.Tensor:
 
 class _DecodeStep:
     """The decode step of one batch size on static buffers: the token
-    (B, 1), the position (0-d int64) and the decode cache. On CUDA it is
-    captured into a CUDA graph after one eager warm-up step on a side
-    stream; a failed capture raises."""
+    (B, 1), or (B, 1, nq) for an audio model, the position (0-d int64) and
+    the decode cache. On CUDA it is captured into a CUDA graph after one
+    eager warm-up step on a side stream; a failed capture raises."""
 
     def __init__(self, decode, params, cfg: ModelConfig, batch: int,
                  max_len: int, device: torch.device):
-        self.tokens = torch.zeros((batch, 1), dtype=torch.int64,
-                                  device=device)
+        shape = (batch, 1) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
+        self.tokens = torch.zeros(shape, dtype=torch.int64, device=device)
         self.index = torch.zeros((), dtype=torch.int64, device=device)
         self.cache = make_decode_cache(cfg, batch, max_len, device)
         self.graph = None
@@ -88,7 +100,8 @@ class _DecodeStep:
         tokens, index, cache = self.tokens, self.index, self.cache
 
         def run():
-            tok, logits, _ = decode(params, {"tokens": tokens}, cache, index)
+            tok, logits, _ = decode(params, decode_batch(cfg, params, tokens),
+                                    cache, index)
             tokens.copy_(tok[:, None])
             return logits
         self._run = run
@@ -113,8 +126,8 @@ class _DecodeStep:
         self.graph = graph
 
     def step(self) -> torch.Tensor:
-        """One step at the position in `index`; returns its logits (B, 1,
-        vocab), a buffer that the next step overwrites."""
+        """One step at the position in `index`; returns its logits (B, 1[,
+        nq], vocab), a buffer that the next step overwrites."""
         if self.graph is None:
             self.logits = self._run()
         else:
@@ -150,9 +163,11 @@ class ServeEngine:
     @torch.no_grad()
     def generate(self, batch: Dict[str, torch.Tensor], n_new: int = 16,
                  return_logits: bool = False):
-        """batch {"tokens": (B, S)} (tensors or numpy arrays) -> (B, n_new)
-        numpy array of greedy tokens; with return_logits, also each step's
-        logits, (B, n_new, vocab) fp32 on the device.
+        """batch {"tokens": (B, S)}, an audio model's {"tokens": (B, S, nq)}
+        or a VLM's {"embeddings": (B, S, d), "positions": (3, B, S)}
+        (tensors or numpy arrays) -> (B, n_new[, nq]) numpy array of greedy
+        tokens; with return_logits, also each step's logits, (B, n_new[,
+        nq], vocab) fp32 on the device.
 
         As in the reference, the argmax of the prefill logits is fed to the
         first decode step but not returned: the result is the n_new decode
@@ -162,8 +177,9 @@ class ServeEngine:
         reads as zeros (ROADMAP §3)."""
         batch = {k: torch.as_tensor(v, device=self.device)
                  for k, v in batch.items()}
-        B = tree_leaves(batch)[0].shape[0]
-        prompt_len = batch["tokens"].shape[1]
+        prompt = batch["embeddings" if self.cfg.input_mode == "embeddings"
+                       else "tokens"]
+        B, prompt_len = prompt.shape[:2]
         logits, pre_cache = self._prefill(self.params, batch)
         st = self.decode_step_for(B)
         for big, small in zip(tree_leaves(st.cache), tree_leaves(pre_cache)):
@@ -172,8 +188,9 @@ class ServeEngine:
                 _write_prefix(big, small)
         del pre_cache
         st.tokens.copy_(logits[:, -1].argmax(-1)[:, None])
-        out = torch.empty((B, n_new), dtype=torch.int64, device=self.device)
-        kept = (torch.empty((B, n_new, logits.shape[-1]), dtype=logits.dtype,
+        out = torch.empty((B, n_new) + st.tokens.shape[2:], dtype=torch.int64,
+                          device=self.device)
+        kept = (torch.empty((B, n_new) + logits.shape[2:], dtype=logits.dtype,
                             device=self.device) if return_logits else None)
         for i in range(n_new):
             st.index.fill_(prompt_len + i)

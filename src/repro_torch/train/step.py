@@ -9,8 +9,11 @@ The loss is taken as `repro_torch.core.distill.make_mutual_train_fns`
 takes it: it is a fixed combination of the four kd terms, so its logit
 gradients are known in closed form, and one `kd_loss_grad` launch on the
 (1, B*S, V) logits (one client: the reference's ``mutual_kd_loss`` takes one
-mean over all B*S rows) gives them with the loss's means; autograd then
-carries them through both models. The chunked path launches it once per
+mean over all B*S rows; an audio model's (B, S, nq, V) logits are B*S*nq
+rows) gives them with the loss's means; autograd then carries them through
+both models. A leaf the loss does not read (a VLM's token embedding, whose
+inputs are embeddings) gets a zero gradient, as under
+``jax.value_and_grad``. The chunked path launches it once per
 sequence chunk, with the lambdas divided by the chunk count.
 
 An MoE model adds its router's losses, moe_aux_coef * lb_loss +
@@ -117,8 +120,10 @@ def _losses(live, cfg_local, cfg_lite, tcfg, batch, leaves: List):
         metrics = _metrics(means, tcfg.lambdas)
         outs, coefs = _aux_terms(tcfg, (aux_l, aux_t), metrics)
         grads = torch.autograd.grad([ll, lt] + outs, leaves,
-                                    grad_outputs=[dx, dy] + coefs)
-    return metrics, list(grads)
+                                    grad_outputs=[dx, dy] + coefs,
+                                    allow_unused=True)
+    return metrics, [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)]
 
 
 def _losses_chunked(live, cfg_local, cfg_lite, tcfg, batch, leaves: List):
@@ -189,6 +194,13 @@ def loss_and_grads(params, cfg_local: ModelConfig, cfg_lite: ModelConfig,
     return metrics, tree_unflatten(params, grads)
 
 
+def _microbatch(key: str, v: torch.Tensor, n: int, j: int) -> torch.Tensor:
+    """The j-th of n microbatches of batch entry `key`."""
+    if key == "positions" and v.dim() == 3:      # (3, B, S) M-RoPE
+        return v.reshape((3, n, v.shape[1] // n) + v.shape[2:])[:, j]
+    return v.reshape((n, v.shape[0] // n) + v.shape[1:])[j]
+
+
 def make_hapfl_train_step(cfg_local: ModelConfig, cfg_lite: ModelConfig,
                           tcfg: TrainStepConfig = TrainStepConfig()):
     """Returns train_step(state, batch) -> (state, metrics). The state is
@@ -201,14 +213,14 @@ def make_hapfl_train_step(cfg_local: ModelConfig, cfg_lite: ModelConfig,
     def train_step(state, batch: Dict[str, torch.Tensor]):
         params = state["params"]
         if tcfg.microbatch > 1:
-            # grad accumulation: the batch axis split into n microbatches,
-            # fp32 sums of grads / n; the metrics are the last microbatch's
+            # grad accumulation: the batch axis split into n microbatches
+            # (the second axis of M-RoPE's (3, B, S) positions), fp32 sums
+            # of grads / n; the metrics are the last microbatch's
             n = tcfg.microbatch
             grads = tree_map(lambda p: torch.zeros_like(
                 p, dtype=torch.float32), params)
             for j in range(n):
-                mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[j]
-                      for k, v in batch.items()}
+                mb = {k: _microbatch(k, v, n, j) for k, v in batch.items()}
                 metrics, g = loss_and_grads(params, cfg_local, cfg_lite,
                                             tcfg, mb)
                 for a, gi in zip(tree_leaves(grads), tree_leaves(g)):

@@ -3,8 +3,8 @@ cohort trained through them against the same cohort on the CPU, the
 serving path on the card against the CPU, the norm and flash backward
 kernels against their plain versions (and the norm backward under a CUDA
 graph against its eager launch), gradients and training steps on the
-card against the CPU, and the MoE layer against the CPU and the MoE decode
-step graphed against its eager loop. Every test
+card against the CPU, the MoE layer against the CPU, and the MoE, VLM and
+audio decode steps graphed against their eager loops. Every test
 here is marked gpu and skips inside its fixture on a machine without CUDA.
 The file imports no JAX, so it runs where only PyTorch is installed:
 
@@ -215,7 +215,13 @@ def test_cuda_rmsnorm_bwd_graph_replay_is_eager_bitwise(cuda, N, d, variant):
     (1, 4, 4, 256, 128, 64, "bfloat16"),
     (2, 8, 2, 200, 64, 0, "bfloat16"),
     (1, 2, 2, 130, 64, 16, "float32"),
-    (1, 2, 2, 130, 64, 16, "bfloat16")])
+    (1, 2, 2, 130, 64, 16, "bfloat16"),
+    # qwen2-vl-2b: 12 heads over 2 KV heads, a group of 6
+    (4, 12, 2, 512, 128, 0, "bfloat16"),
+    (4, 12, 2, 512, 128, 0, "float32"),
+    # musicgen-medium: H = KV at hd 64
+    (4, 24, 24, 512, 64, 0, "bfloat16"),
+    (4, 24, 24, 512, 64, 0, "float32")])
 def test_cuda_flash_attention_matches_plain(cuda, B, H, KV, S, hd, window,
                                             dtype, layout):
     """bf16 runs the wgmma kernel, fp32 the SIMT kernel; both read strided
@@ -416,7 +422,11 @@ def test_cuda_rmsnorm_bwd_matches_plain(cuda, N, d, dtype, variant):
     (1, 4, 2, 300, 64, 64, "bfloat16"),
     (1, 2, 2, 130, 64, 16, "float32"),
     (4, 24, 8, 300, 128, 64, "bfloat16"),
-    (8, 16, 4, 300, 64, 48, "bfloat16")])
+    (8, 16, 4, 300, 64, 48, "bfloat16"),
+    (4, 12, 2, 512, 128, 0, "bfloat16"),
+    (4, 12, 2, 512, 128, 0, "float32"),
+    (4, 24, 24, 512, 64, 0, "bfloat16"),
+    (4, 24, 24, 512, 64, 0, "float32")])
 def test_cuda_flash_attention_bwd_matches_plain(cuda, B, H, KV, S, hd, window,
                                                 dtype, layout):
     """The flash backward kernels against the plain closed form on the
@@ -455,7 +465,13 @@ def test_cuda_flash_attention_bwd_matches_plain(cuda, B, H, KV, S, hd, window,
                                          (2, 32, 777, "float32"),
                                          (2, 32, 777, "bfloat16"),
                                          (4, 512, 32000, "float32"),
-                                         (4, 512, 32000, "bfloat16")])
+                                         (4, 512, 32000, "bfloat16"),
+                                         # either side of the warp / row
+                                         # kernel switch (musicgen's V)
+                                         (1, 1024, 2048, "float32"),
+                                         (1, 1024, 2048, "bfloat16"),
+                                         (1, 1024, 2049, "float32"),
+                                         (1, 1024, 2049, "bfloat16")])
 def test_cuda_kd_loss_grad_matches_plain(cuda, C, B, V, dtype):
     """Gradients and batch means within the kd tolerances, accuracies
     exact, and two launches bitwise equal (no float atomics)."""
@@ -540,6 +556,44 @@ def test_cuda_moe_graphed_decode_is_the_eager_decode_loop(cuda):
             index.fill_(12 + i)
             nxt, lg, cache = step(params, {"tokens": nxt[:, None]}, cache,
                                   index)
+            assert torch.equal(lg[:, -1], logits[:, i])
+            np.testing.assert_array_equal(nxt.cpu().numpy(), got[:, i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "musicgen-medium"])
+def test_cuda_vlm_audio_graphed_generate_is_the_eager_decode_loop(cuda, arch):
+    """The VLM (patch embeddings, M-RoPE; each decode step gathers its
+    tokens' embedding rows inside the graph) and the audio model ((B, 1,
+    nq) codebook tokens, per-codebook heads) served on the card at their
+    bf16 smoke cuts: the graphed generate's tokens and every step's logits
+    equal an eager loop of make_decode_step bit for bit."""
+    import dataclasses
+
+    from repro_torch.models.api import dummy_batch
+    from repro_torch.serve import decode_batch
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype=torch.bfloat16)
+    params = init_model(torch.Generator(cuda).manual_seed(6), cfg, cuda)
+    batch = dummy_batch(cfg, 3, 12, torch.Generator(cuda).manual_seed(6),
+                        with_labels=False, device=cuda)
+    engine = ServeEngine(cfg, params, max_len=48, device=cuda)
+    got, logits = engine.generate(batch, n_new=16, return_logits=True)
+    assert engine.decode_step_for(3).graph is not None
+    nq = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    assert got.shape == (3, 16) + nq
+    step = make_decode_step(cfg)
+    with torch.no_grad():
+        first, pre = prefill(params, cfg, batch)
+        cache = make_decode_cache(cfg, 3, 48, cuda)
+        for key in ("k", "v"):
+            cache["blocks"][key][:, :, :12] = pre["blocks"][key]
+        nxt = first[:, -1].argmax(-1)
+        index = torch.zeros((), dtype=torch.int64, device=cuda)
+        for i in range(16):
+            index.fill_(12 + i)
+            nxt, lg, cache = step(params,
+                                  decode_batch(cfg, params, nxt[:, None]),
+                                  cache, index)
             assert torch.equal(lg[:, -1], logits[:, i])
             np.testing.assert_array_equal(nxt.cpu().numpy(), got[:, i])
 

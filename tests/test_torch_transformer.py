@@ -264,12 +264,36 @@ def test_generate_rejects_a_prompt_longer_than_the_cache(gqa_model):
         eng.generate({"tokens": _tokens(1, 9, tcfg.vocab_size, 9)}, n_new=1)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b", "qwen2-vl-2b",
-                                  "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b"])
 def test_families_not_ported_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tapi.init_model(torch.Generator().manual_seed(0),
                         tget_config(arch).smoke(), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "musicgen-medium"])
+def test_vlm_and_audio_params_tree_matches_reference(arch):
+    """init_model builds the VLM's and the audio model's trees leaf for leaf
+    as the reference's (musicgen: an (nq, V, d) embedding and an (nq, d, V)
+    head), so the reference's params drop in through params_from_numpy."""
+    jcfg, tcfg = jget_config(arch).smoke(), tget_config(arch).smoke()
+    own = tapi.init_model(torch.Generator().manual_seed(0), tcfg,
+                          device="cpu")
+    jp = japi.init_model(jax.random.PRNGKey(0), jcfg)
+    ref = jax.tree_util.tree_flatten_with_path(jp)[0]
+    assert len(tree_leaves(own)) == len(ref)
+    for path, leaf in ref:
+        node = own
+        for key in path:
+            node = node[key.key]
+        assert tuple(node.shape) == leaf.shape
+        assert node.dtype == torch.float32
+    if jcfg.n_codebooks:
+        nq, V, d = jcfg.n_codebooks, jcfg.vocab_size, jcfg.d_model
+        assert tuple(own["io"]["embed"].shape) == (nq, V, d)
+        assert tuple(own["io"]["head"].shape) == (nq, d, V)
+    converted = params_from_numpy(jax.device_get(jp), device="cpu")
+    assert len(tree_leaves(converted)) == len(ref)
 
 
 def test_bf16_params_cross_numpy_bit_for_bit():
