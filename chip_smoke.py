@@ -58,7 +58,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 forward and backward, both dtypes and layouts;
                 kd_loss_grad at (1, 8192, 2048), the last V of its warp
                 kernel, and (1, 8192, 2049), the row kernel's first, fp32
-                and bf16.
+                and bf16. And the SSM family's (phases 5h, 9f, 9g):
+                kd_loss_grad at xlstm-1.3b's (1, 2048, 50304) and zamba2's
+                smoke cut's (1, 2048, 512), fp32; rmsnorm and add_rmsnorm
+                at (4, 256) bf16 (that cut's decode; its (2048, 256) and
+                flash at (4, 4, 4, 512, 64), forward and backward, are the
+                llama LiteModel's).
   4. HAPFL    — Algorithm 1 on the paper's cifar10 pool at full width
                 (small + large CNNs, 10 clients, 6 per round): 10
                 latency-only PPO pretraining rounds, then 3 training rounds
@@ -165,7 +170,30 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 and the gradients of layer 0's wq, the norm params and the
                 embedding tables at 1e-3; the VLM's embedding gradient
                 exactly zero on both sides.
-  6. timing   — each kernel, its plain version and, where one PyTorch call
+  5h. ssm serve — phase 5 on xlstm-1.3b at full width and depth (48
+                layers: 6 groups of 7 mLSTM blocks and one sLSTM block, d
+                2048, 4 heads, vocab 50304, layernorm, tied; 1.664 B
+                parameters, 3.380 GB), bf16 with fp32 gates, recurrent
+                weights and states, seeded weights, after phase 9e's state
+                is freed: exactly 0 rmsnorm, add_rmsnorm and flash launches
+                (layernorm, no attention); graphed == eager bit for bit
+                (the decode step writes every recurrent state back into the
+                graph's static cache in place); the times, peak memory and
+                the decode step's byte bound, which counts the 1.411 GB of
+                recurrent state twice (read and written every step); one
+                prefill with its sLSTM blocks timed (their Python loop of
+                512 steps each: the share of the prefill); a profiled
+                graphed decode loop.
+  5i. ssm / hybrid parity — a 2-layer fp32 cut of xlstm-1.3b at full width
+                with slstm_every 2 (one mLSTM and one sLSTM block; the
+                config's own 2-layer cut would be mLSTM only) and zamba2-
+                7b's smoke cut (2 Mamba2 blocks and the shared attention
+                block at hd 64), the same weights on the card and on the
+                CPU: prefill and 4 decode steps from the prefill's whole
+                cache, logits and every cache leaf at atol and rtol 1e-3;
+                one loss_and_grads with its LiteModel: loss, metrics, grad
+                norm and every gradient at 1e-3.
+
                 computes the same function, that call (F.rms_norm,
                 x + delta then F.rms_norm, F.scaled_dot_product_attention),
                 at every shape and layout its path gave it. `ms` is device
@@ -220,6 +248,23 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 Both run after 5e-5g; their backward and kd_loss_grad
                 shapes are timed as in phase 12, their forward shapes as in
                 phase 6.
+  9f. ssm train — phase 9 on xlstm-1.3b at full width and depth (bf16,
+                remat: each mLSTM block under checkpoint, the sLSTM not, as
+                in the reference) with its LiteModel (2 mLSTM blocks, d
+                256): exactly 1 kd_loss_grad launch a step at (1, 2048,
+                50304) and no other kernel; finite loss and grad norm,
+                seconds a step, tokens/s, peak memory, one profiled step,
+                and the 6 sLSTM blocks timed forward and backward alone at
+                the step's shapes (their share of the step). After 5h-5i.
+  9g. hybrid   — zamba2-7b's smoke cut (d 256, 2 Mamba2 blocks and the
+                shared attention + MLP block, hd 64, vocab 512) in bf16,
+                served as in phase 5 (rmsnorm 33, add_rmsnorm 3 + 129,
+                flash 1 launches; graphed == eager bit for bit) and trained
+                as in phase 9 with its pure-Mamba2 LiteModel (exact
+                launches: rmsnorm 2, add_rmsnorm 6 and their backwards 2
+                and 6 at (2048, 256), flash and its backward 1 at (4, 4, 4,
+                512, 64), kd_loss_grad 1 at (1, 2048, 512)). Its full width
+                waits for flash at hd 112 (ROADMAP K1).
   9b. ckpt     — phase 9's trained params saved with save_checkpoint (as
                 launch/train.py --checkpoint does) under a temporary
                 directory and restored onto the card with
@@ -283,7 +328,10 @@ GRAD_SHAPES = [(8, 32, 10, "float32"), (4, 32, 10, "float32"),
                # musicgen-medium's 4 x 512 x 4 codebook rows at V 2048, the
                # last V of the warp kernel, and V 2049, the row kernel's first
                (1, 8192, 2048, "float32"), (1, 8192, 2048, "bfloat16"),
-               (1, 8192, 2049, "float32"), (1, 8192, 2049, "bfloat16")]
+               (1, 8192, 2049, "float32"), (1, 8192, 2049, "bfloat16"),
+               # xlstm-1.3b's 4 x 512 rows at V 50304, and zamba2-7b's
+               # smoke cut's at V 512
+               (1, 2048, 50304, "float32"), (1, 2048, 512, "float32")]
 GRAD_VOCAB = [(4, 512, 32000, "float32"), (4, 512, 32000, "bfloat16")]
 LAMBDAS = (0.4, 0.6, 0.5, 0.5)
 CHECK_SHAPES = [(128, 10, "float32"), (256, 10, "float32"),
@@ -310,7 +358,9 @@ NORM_SHAPES = [(2048, 3072, "bfloat16"), (4, 3072, "bfloat16"),
                (2048, 2048, "float32"), (4, 2048, "float32"),
                # qwen2-vl-2b: prefill and training, decode
                (2048, 1536, "bfloat16"), (4, 1536, "bfloat16"),
-               (2048, 1536, "float32"), (4, 1536, "float32")]
+               (2048, 1536, "float32"), (4, 1536, "float32"),
+               # zamba2-7b's smoke cut in bf16: decode
+               (4, 256, "bfloat16")]
 FLASH_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16", "bshd"),
                 (4, 24, 8, 512, 128, 0, "float32", "bshd"),
                 (4, 24, 8, 512, 128, 0, "bfloat16", "bhsd"),
@@ -361,6 +411,15 @@ MOE_OPS = ("aten::bmm", "aten::index_add", "aten::index_add_",
 # M-RoPE positions, audio on (B, S, 4) codebook tokens), and 2-layer fp32
 # cuts of each on the card against the CPU
 VLM_AUDIO = {"archs": ("qwen2-vl-2b", "musicgen-medium"), "parity_layers": 2}
+# the SSM paths (phases 5h, 5i, 9f, 9g): xlstm-1.3b served and trained at
+# full width and depth (SERVE's and TRAIN's sizes); on the card against the
+# CPU in fp32, a 2-layer full-width xlstm cut whose second block is its
+# sLSTM (slstm_every 2: the config's own 2-layer cut would be mLSTM only)
+# and zamba2-7b's smoke cut; zamba2-7b's smoke cut in bf16 served and
+# trained (at full width its shared block's head dim, 112, needs ROADMAP
+# K1)
+SSM = {"arch": "xlstm-1.3b", "parity_cut": {"n_layers": 2, "slstm_every": 2},
+       "hybrid": "zamba2-7b"}
 # backward checks: norms (N, d, dtype), flash as FLASH_SHAPES
 NORM_BWD_SHAPES = [(2048, 3072, "bfloat16"), (2048, 3072, "float32"),
                    (2048, 256, "bfloat16"), (2048, 256, "float32"),
@@ -1606,25 +1665,54 @@ def all_launches():
 # ---------------------------------------------------------------------- #
 # 5. the serve path: llama3.2-3b at full width
 # ---------------------------------------------------------------------- #
+def block_norms(cfg):
+    """(the norms of one forward's blocks, its attention calls): two norms
+    and one attention a block in an attention stack; one norm an SSM block
+    (xLSTM, Mamba2); zamba2's Mamba2 blocks one each and its shared block,
+    run once after each segment, two norms and one attention a run."""
+    from repro_torch.models.transformer import zamba_layout
+    if cfg.block_kind == "attention":
+        return 2 * cfg.n_layers, cfg.n_layers
+    if cfg.shared_attn_every:
+        n_seg = zamba_layout(cfg)[0]
+        return cfg.n_layers + 2 * n_seg, n_seg
+    return cfg.n_layers, 0
+
+
 def serve_launch_shapes(cfg):
     """{kernel: {shape: launches}} of one counted generate: every forward
-    runs one rmsnorm (the first block's first norm) and 2 L add_rmsnorm
-    (every other norm, each with the residual add before it), the last of
-    which, before the unembedding, prefill applies to the last position
-    only; prefill runs flash attention once per block, decode never. A
-    layernorm config (musicgen) launches no norm kernel."""
+    runs one rmsnorm (the first block's first norm) and N add_rmsnorm
+    (every other norm of its N block norms, each with the residual add
+    before it, and the final norm), the last of which, before the
+    unembedding, prefill applies to the last position only; prefill runs
+    flash attention once per attention call, decode never. A layernorm
+    config (musicgen, xlstm) launches no norm kernel, an attention-free one
+    (xlstm) no flash."""
     B, S, n = SERVE["batch"], SERVE["prompt"], SERVE["n_new"]
-    L, d, H, KV = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    d, H, KV = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    N, A = block_norms(cfg)
+    dt = str(cfg.dtype).removeprefix("torch.")
     rms = cfg.norm == "rmsnorm"
-    return {"rmsnorm": {(B * S, d, "bfloat16"): 1,
-                        (B, d, "bfloat16"): n} if rms else {},
-            "add_rmsnorm": {(B * S, d, "bfloat16"): 2 * L - 1,
-                            (B, d, "bfloat16"): 1 + 2 * L * n} if rms else {},
+    return {"rmsnorm": {(B * S, d, dt): 1, (B, d, dt): n} if rms else {},
+            "add_rmsnorm": {(B * S, d, dt): N - 1,
+                            (B, d, dt): 1 + N * n} if rms else {},
             "flash_attention": {(B, H, KV, S, cfg.resolved_head_dim, 0,
-                                 "bfloat16", "bshd"): L},
+                                 dt, "bshd"): A} if A else {},
             "kd_loss_fwd": {}, "kd_loss_bwd": {}, "kd_loss_grad": {},
             "rmsnorm_bwd": {}, "add_rmsnorm_bwd": {},
             "flash_attention_bwd": {}}
+
+
+def block_layout(cfg):
+    """The block layout of an xLSTM or hybrid config, in words."""
+    from repro_torch.models.transformer import xlstm_layout, zamba_layout
+    if cfg.block_kind == "xlstm":
+        g, m_per, tail = xlstm_layout(cfg)
+        return (f"{g} groups of {m_per} mLSTM + 1 sLSTM blocks and a tail of "
+                f"{tail} mLSTM")
+    n_seg, seg, tail = zamba_layout(cfg)
+    return (f"{n_seg} segments of {seg} Mamba2 blocks, each followed by the "
+            f"shared attention + MLP block, and a tail of {tail} Mamba2")
 
 
 def serve_batch(torch, cfg, B, S, seed):
@@ -1651,7 +1739,7 @@ def eager_decode(torch, engine, batch, n_new):
     from repro_torch.models.api import make_decode_cache
     from repro_torch.serve import (decode_batch, make_decode_step,
                                    make_prefill_step)
-    from repro_torch.serve.engine import _write_prefix
+    from repro_torch.serve.engine import _load_prefill
     cfg, params = engine.cfg, engine.params
     B, S = batch["embeddings" if cfg.input_mode == "embeddings"
                  else "tokens"].shape[:2]
@@ -1659,9 +1747,7 @@ def eager_decode(torch, engine, batch, n_new):
     with torch.no_grad():
         logits, pre = make_prefill_step(cfg)(params, batch)
         cache = make_decode_cache(cfg, B, engine.max_len, "cuda")
-        for key in ("k", "v"):
-            if cache["blocks"][key].shape != pre["blocks"][key].shape:
-                _write_prefix(cache["blocks"][key], pre["blocks"][key])
+        _load_prefill(cache, pre)       # as generate pairs them
         del pre
         tok = logits[:, -1].argmax(-1)
         index = torch.zeros((), dtype=torch.int64, device="cuda")
@@ -1720,6 +1806,11 @@ def phase_serve(torch, cfg=None, tag="serve"):
     ffn = (f"{cfg.n_experts} experts, top-{cfg.top_k}, moe_d_ff "
            f"{cfg.moe_d_ff}, capacity_factor {cfg.capacity_factor}"
            if cfg.is_moe else f"d_ff {cfg.d_ff}")
+    if cfg.block_kind == "xlstm":
+        ffn = (f"{block_layout(cfg)}, no attention (d_ff {cfg.d_ff}: the "
+               f"blocks carry their own projections)")
+    elif cfg.family == "hybrid":
+        ffn = f"{block_layout(cfg)}, ssm_state {cfg.ssm_state}, " + ffn
     io = (f"patch embeddings, M-RoPE sections {cfg.mrope_sections}"
           if cfg.input_mode == "embeddings" else
           f"{cfg.n_codebooks} codebooks" if cfg.n_codebooks else "tokens")
@@ -1795,16 +1886,24 @@ def phase_serve(torch, cfg=None, tag="serve"):
     end.record()
     torch.cuda.synchronize()
     replay_ms = start.elapsed_time(end) / n_new
+    # and generate's decode loop alone, host included, by the wall clock:
+    # free of the prefill's spread, which the difference above carries
+    t0 = time.perf_counter()
+    decode_loop(torch, engine, S, n_new)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3 / n_new
     log(f"[{tag}] counted generate {wall:.4f} s; generate(1) {runs[1]} s, "
         f"generate({n_new}) {runs[n_new]} s -> prefill {prefill_ms:.3f} ms "
         f"({B * S / prefill_ms * 1e3:.0f} prompt tokens/s), decode "
         f"{decode_ms:.3f} ms per step of {B} tokens graphed (graph replay "
-        f"device time {replay_ms:.3f} ms per step), eager decode loop "
+        f"device time {replay_ms:.3f} ms per step; the decode loop alone "
+        f"{loop_ms:.3f} ms per step by the wall clock), eager decode loop "
         f"{eager_ms[0]:.3f} and {eager_ms[1]:.3f} ms per step; "
         f"{B * n_new / tn:.1f} generated tokens/s over generate({n_new}); "
         f"max_memory_allocated {peak} B; first row {out[0][:8].tolist()}")
     measured = {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
-                "replay_ms": replay_ms, "eager_ms": eager_ms,
+                "replay_ms": replay_ms, "loop_ms": loop_ms,
+                "eager_ms": eager_ms,
                 "tokens_per_s": B * n_new / tn, "peak_bytes": peak}
     return engine, batch, launches, shapes, measured
 
@@ -1891,21 +1990,35 @@ def phase_serve_parity(torch):
 # depth, and a 2-layer fp32 cut of it on the card against the CPU
 # ---------------------------------------------------------------------- #
 def decode_bound_ms(torch, engine):
-    """The least time of one decode step: every parameter read once (of the
-    embedding tables only the B rows a step gathers from each; an MoE
-    decode reads every expert, as the reference's capacity dispatch runs
-    all of them) and the whole KV cache read once, over the card's memory
-    rate."""
+    """The least time of one decode step: every parameter read once (of an
+    untied embedding table only the B rows a step gathers from it; a tied
+    one is the head too, read whole; an MoE decode reads every expert, as
+    the reference's capacity dispatch runs all of them), the whole KV cache
+    read once, and every recurrent state (an SSM's: the mLSTM's C, n, m,
+    the sLSTM's h, c, n, m, Mamba2's conv and ssm) read and written once,
+    over the card's memory rate. Returns (bytes, ms, the cache's bytes)."""
     from repro_torch.utils.pytree import tree_leaves
-    params, B = engine.params, SERVE["batch"]
+    params, B, cfg = engine.params, SERVE["batch"], engine.cfg
     emb = params["io"]["embed"]
-    rows = B * (engine.cfg.n_codebooks or 1)
-    nbytes = (sum(t.numel() * t.element_size() for t in tree_leaves(params))
-              - emb.numel() * emb.element_size()
-              + rows * emb.shape[-1] * emb.element_size())
+    rows = B * (cfg.n_codebooks or 1)
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    if not cfg.tie_embeddings:
+        nbytes += (rows * emb.shape[-1] - emb.numel()) * emb.element_size()
     cache = engine.decode_step_for(B).cache
-    nbytes += sum(t.numel() * t.element_size() for t in tree_leaves(cache))
-    return nbytes, nbytes / PEAK_BYTES_PER_S * 1e3
+    kv = [t for path, t in _leaf_paths(cache) if path[-1] in ("k", "v")]
+    state = [t for path, t in _leaf_paths(cache) if path[-1] not in ("k",
+                                                                     "v")]
+    cache_bytes = sum(t.numel() * t.element_size() for t in kv + state)
+    nbytes += (sum(t.numel() * t.element_size() for t in kv)
+               + 2 * sum(t.numel() * t.element_size() for t in state))
+    return nbytes, nbytes / PEAK_BYTES_PER_S * 1e3, cache_bytes
+
+
+def _leaf_paths(tree, path=()):
+    """[(key path, leaf)] of a tree of dicts."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _leaf_paths(tree[k], path + (k,))]
+    return [(path, tree)]
 
 
 def phase_moe_serve(torch):
@@ -1943,7 +2056,7 @@ def phase_moe_serve(torch):
         f"{[round(d, 4) for d, _ in per_layer]}; share of tokens on the "
         f"layer's most common top-1 expert "
         f"{[round(t, 4) for _, t in per_layer]}")
-    nbytes, bound = decode_bound_ms(torch, engine)
+    nbytes, bound, _ = decode_bound_ms(torch, engine)
     measured["decode_bound_ms"] = bound
     log(f"[moe serve] prefill of {SERVE['batch']} x {SERVE['prompt']} "
         f"tokens: dropped_frac {measured['dropped_frac']:.6f} a layer (the "
@@ -2159,13 +2272,18 @@ def phase_parity(torch):
 # ---------------------------------------------------------------------- #
 # 7. where a round's device time goes
 # ---------------------------------------------------------------------- #
-def phase_profile(torch, label, run, kernels, record_shapes=False):
+def phase_profile(torch, label, run, kernels, record_shapes=False,
+                  host_ops=True):
     """Run `run()` once under torch.profiler and print the device's busy
     share of its wall time, the top kernels and the port's own `kernels`;
-    returns the profile."""
+    returns the profile. host_ops=False records the device's events alone
+    (no host operator events: a run of a million small kernels, as an
+    xLSTM step, otherwise takes minutes to summarise)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                            if host_ops else [])
+    with profile(activities=activities,
                  record_shapes=record_shapes) as prof:
         t0 = time.perf_counter()
         run()
@@ -2276,14 +2394,15 @@ TRAIN_KERNELS = ("rmsnorm", "add_rmsnorm", "rmsnorm_bwd", "add_rmsnorm_bwd",
 
 def train_launch_shapes(cfg, lite):
     """{kernel: {shape: launches}} of one training step on (B, S) tokens.
-    Per model of L blocks, with remat every block's forward runs twice (its
-    forward, then again in the backward): rmsnorm (the first block's first
-    norm) 2 and its backward 1; add_rmsnorm (every other norm of the
-    blocks) 2 (2L - 1), plus the final norm, outside the blocks, once; its
-    backward 2L; flash 2L and its backward L. Without remat the forwards
-    run once. A layernorm config (musicgen) launches no norm kernel. Both
-    models' logits go to one kd_loss_grad launch on (1, B S, V), an audio
-    model's on (1, B S nq, V)."""
+    Per model of N block norms and A attention calls (`block_norms`), with
+    remat every block's forward runs twice (its forward, then again in the
+    backward): rmsnorm (the first block's first norm) 2 and its backward 1;
+    add_rmsnorm (every other block norm) 2 (N - 1), plus the final norm,
+    outside the blocks, once; its backward N; flash 2A and its backward A.
+    Without remat the forwards run once. A layernorm config (musicgen,
+    xlstm, whose sLSTM blocks remat does not wrap) launches no norm kernel.
+    Both models' logits go to one kd_loss_grad launch on (1, B S, V), an
+    audio model's on (1, B S nq, V)."""
     B, S = TRAIN["batch"], TRAIN["seq"]
     out = {k: {} for k in TRAIN_KERNELS}
 
@@ -2291,7 +2410,7 @@ def train_launch_shapes(cfg, lite):
         out[name][shape] = out[name].get(shape, 0) + n
 
     for c in (cfg, lite):
-        L, r = c.n_layers, 2 if c.remat else 1
+        (N, A), r = block_norms(c), 2 if c.remat else 1
         dt = str(c.dtype).removeprefix("torch.")
         norm = (B * S, c.d_model, dt)
         flash = (B, c.n_heads, c.n_kv_heads, S, c.resolved_head_dim,
@@ -2299,10 +2418,11 @@ def train_launch_shapes(cfg, lite):
         if c.norm == "rmsnorm":
             add("rmsnorm", norm, r)
             add("rmsnorm_bwd", norm, 1)
-            add("add_rmsnorm", norm, r * (2 * L - 1) + 1)
-            add("add_rmsnorm_bwd", norm, 2 * L)
-        add("flash_attention", flash, r * L)
-        add("flash_attention_bwd", flash, L)
+            add("add_rmsnorm", norm, r * (N - 1) + 1)
+            add("add_rmsnorm_bwd", norm, N)
+        if A:
+            add("flash_attention", flash, r * A)
+            add("flash_attention_bwd", flash, A)
     add("kd_loss_grad", (1, B * S * (cfg.n_codebooks or 1), cfg.vocab_size,
                          "float32"), 1)
     return out
@@ -2536,33 +2656,35 @@ def phase_moe_train(torch):
 # musicgen-medium served and trained at full width and depth, and 2-layer
 # fp32 cuts of each on the card against the CPU
 # ---------------------------------------------------------------------- #
-def phase_family_serve(torch, arch):
-    """Phase 5's serve path on `arch` at full width and depth, after the
-    free device memory is logged: the exact launches, graphed == eager bit
-    for bit, the times, peak memory and the decode step's byte bound (the
-    KV cache at max_len included). Returns the launches, the expected
-    shapes, the times and the phase's wall seconds; a profiled graphed
-    decode loop shows where a step's device time goes."""
+def phase_family_serve(torch, arch, cfg=None):
+    """Phase 5's serve path on `arch` at full width and depth (or on `cfg`),
+    after the free device memory is logged: the exact launches, graphed ==
+    eager bit for bit, the times, peak memory and the decode step's byte
+    bound (the KV cache at max_len and the recurrent state included). An
+    xLSTM's prefill is run once more with its sLSTM blocks timed
+    (`slstm_share`). Returns the launches, the expected shapes, the times
+    and the phase's wall seconds; a profiled graphed decode loop shows
+    where a step's device time goes."""
     from repro_torch.configs import get_config
-    from repro_torch.utils.pytree import tree_leaves
     t_phase = time.perf_counter()
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     tag = f"{cfg.family} serve"
     free_device_memory(torch)
     free, total = torch.cuda.mem_get_info()
     log(f"[{tag}] free device memory before init {free} B of {total} B; "
         f"allocated {torch.cuda.memory_allocated()} B")
     engine, batch, launches, shapes, measured = phase_serve(torch, cfg, tag)
-    nbytes, bound = decode_bound_ms(torch, engine)
-    cache = sum(t.numel() * t.element_size() for t in tree_leaves(
-        engine.decode_step_for(SERVE["batch"]).cache))
+    nbytes, bound, cache = decode_bound_ms(torch, engine)
     measured["decode_bound_ms"] = bound
-    log(f"[{tag}] a decode step reads {nbytes} B (the weights, the "
-        f"embedding rows it gathers and the {cache} B KV cache at max_len "
-        f"{SERVE['max_len']}): byte bound {bound:.3f} ms a step; graphed "
+    log(f"[{tag}] a decode step moves {nbytes} B (the weights, of an "
+        f"untied embedding the rows it gathers, the {cache} B cache at "
+        f"max_len {SERVE['max_len']}: KV read, recurrent state read and "
+        f"written): byte bound {bound:.3f} ms a step; graphed "
         f"{measured['decode_ms']:.3f} ms ({100 * bound / measured['decode_ms']:.1f}% "
         f"of the bound), replay device time {measured['replay_ms']:.3f} ms")
-    label = f"{arch} decode loop (graph replays)"
+    if cfg.block_kind == "xlstm":
+        measured["slstm"] = slstm_share(torch, engine, batch, tag)
+    label = f"{cfg.name} decode loop (graph replays)"
     prof = phase_profile(
         torch, label,
         lambda: decode_loop(torch, engine, SERVE["prompt"], SERVE["n_new"]),
@@ -2575,16 +2697,19 @@ def phase_family_serve(torch, arch):
     return launches, shapes, measured, wall
 
 
-def phase_family_parity(torch, arch):
-    """A 2-layer fp32 cut of `arch` at full width, the same weights on the
-    card and on the CPU: prefill logits and 4 decode steps' logits (each
-    step fed the CPU's greedy tokens on both sides; a VLM feeds their
-    embedding rows) at atol and rtol 1e-3; then one loss_and_grads with its
-    LiteModel (remat as the config's): loss, metrics and grad norm, and the
-    gradients of layer 0's wq, the norm params (layernorm: scale and bias)
-    and the embedding tables at 1e-3. A VLM never reads its token
-    embedding in training: its gradient must be exactly zero on both
-    sides. Returns the phase's wall seconds."""
+def phase_family_parity(torch, arch, cfg=None):
+    """A 2-layer fp32 cut of `arch` at full width (or `cfg`, fp32), the same
+    weights on the card and on the CPU: prefill logits and 4 decode steps'
+    logits (each step fed the CPU's greedy tokens on both sides; a VLM
+    feeds their embedding rows; the prefill's cache carried into the decode
+    cache whole: KV at the origin, recurrent states as they are) at atol
+    and rtol 1e-3, and an SSM's or hybrid's every cache leaf after the last
+    step; then one loss_and_grads with its LiteModel (remat as the
+    config's): loss, metrics and grad norm, and the gradients of layer 0's
+    wq, the norm params (layernorm: scale and bias) and the embedding
+    tables (an SSM's or hybrid's: every gradient of both models) at 1e-3.
+    A VLM never reads its token embedding in training: its gradient must
+    be exactly zero on both sides. Returns the phase's wall seconds."""
     from repro_torch.configs import get_config
     from repro_torch.convert import params_from_numpy, params_to_numpy
     from repro_torch.launch.train import token_batches
@@ -2593,11 +2718,14 @@ def phase_family_parity(torch, arch):
     from repro_torch.optim import global_norm
     from repro_torch.serve import decode_batch
     from repro_torch.train import TrainStepConfig, loss_and_grads
+    from repro_torch.utils.pytree import tree_leaves
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(get_config(arch),
-                              n_layers=VLM_AUDIO["parity_layers"],
-                              dtype=torch.float32)
+    cfg = dataclasses.replace(
+        cfg or dataclasses.replace(get_config(arch),
+                                   n_layers=VLM_AUDIO["parity_layers"]),
+        dtype=torch.float32)
     lite = cfg.lite()
+    ssm_like = cfg.block_kind != "attention"
     tag = f"{cfg.family} parity"
     B, S, steps = 2, 128, 4
     gen = torch.Generator("cuda").manual_seed(6)
@@ -2613,8 +2741,10 @@ def phase_family_parity(torch, arch):
             logits[dev], pre = prefill(params["local"], cfg, {
                 k: v.to(dev) for k, v in prompt.items()})
             caches[dev] = make_decode_cache(cfg, B, S + steps, dev)
-            for key in ("k", "v"):
-                caches[dev]["blocks"][key][:, :, :S] = pre["blocks"][key]
+            carried = dict(_leaf_paths(pre))
+            for path, big in _leaf_paths(caches[dev]):
+                small = carried[path]
+                big[tuple(slice(0, n) for n in small.shape)] = small
         for i in range(steps + 1):
             a, b = logits["cuda"].cpu(), logits["cpu"]
             torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
@@ -2628,10 +2758,14 @@ def phase_family_parity(torch, arch):
                     params["local"], cfg,
                     decode_batch(cfg, params["local"], nxt[:, None].to(dev)),
                     caches[dev], S + i)
-    log(f"[{tag}] serve, {cfg.n_layers}-layer fp32 cut of {arch} at full "
-        f"width, B {B}, S {S}: prefill + {steps} decode steps, max|diff| of "
-        f"logits {err:.3e} (atol 1e-3, rtol 1e-3); greedy tokens agree "
-        f"{agree} of {nxt.numel() * (steps + 1)}")
+    cerr = (_assert_trees_close(torch, caches["cuda"], caches["cpu"], 1e-3,
+                                f"{tag} decode cache") if ssm_like else None)
+    log(f"[{tag}] serve, {cfg.n_layers}-layer fp32 cut of {arch} "
+        f"({cfg.name}, d {cfg.d_model}), B {B}, S {S}: prefill + {steps} "
+        f"decode steps, max|diff| of logits {err:.3e} (atol 1e-3, rtol "
+        f"1e-3)" + (f", of every cache leaf after the last step {cerr:.3e}"
+                    if ssm_like else "")
+        + f"; greedy tokens agree {agree} of {nxt.numel() * (steps + 1)}")
     del caches, logits, pre
 
     tcfg = TrainStepConfig()
@@ -2642,17 +2776,21 @@ def phase_family_parity(torch, arch):
             metrics, grads = loss_and_grads(
                 params, cfg, lite, tcfg,
                 {k: v.to(dev) for k, v in batch.items()})
-            blocks, io = grads["local"]["blocks"], grads["local"]["io"]
-            picked = [blocks["attn"]["wq"][0],
-                      *[t[0] for k in ("norm1", "norm2")
-                        for t in blocks[k].values()],
-                      *io["norm_f"].values(), io["embed"]]
+            io = grads["local"]["io"]
+            if ssm_like:
+                picked = tree_leaves(grads)
+            else:
+                blocks = grads["local"]["blocks"]
+                picked = [blocks["attn"]["wq"][0],
+                          *[t[0] for k in ("norm1", "norm2")
+                            for t in blocks[k].values()],
+                          *io["norm_f"].values(), io["embed"]]
             zero_embed = [bool((grads[m]["io"]["embed"] == 0).all())
                           for m in ("local", "lite")]
             out[dev] = ({k: float(v) for k, v in metrics.items()},
                         float(global_norm(grads)),
                         [t.cpu() for t in picked], zero_embed)
-            del grads, blocks, io
+            del grads, io
         torch.cuda.synchronize()
     (ma, gna, pa, za), (mb, gnb, pb, zb) = out["cuda"], out["cpu"]
     for k in mb:
@@ -2666,40 +2804,128 @@ def phase_family_parity(torch, arch):
                          f"gradient is not exactly zero (card {za}, cpu "
                          f"{zb})")
     gerr = _assert_trees_close(torch, pa, pb, 1e-3, f"{tag} grads")
+    n_picked = len(pa)
     del sides, gpu, out, pa, pb, params
     free_device_memory(torch)
     wall = time.perf_counter() - t_phase
     log(f"[{tag}] train, same cut (B 2, S 64, remat {cfg.remat}): loss card "
         f"{ma['loss']:.6f} cpu {mb['loss']:.6f}, grad norm {gna:.6f} / "
-        f"{gnb:.6f}; grads of layer 0's wq, the norm params and the "
-        f"embedding max|diff| {gerr:.3e} (atol 1e-3, rtol 1e-3)"
+        f"{gnb:.6f}; "
+        + (f"all {n_picked} gradients of both models" if ssm_like else
+           "grads of layer 0's wq, the norm params and the embedding")
+        + f" max|diff| {gerr:.3e} (atol 1e-3, rtol 1e-3)"
         + ("; the token embedding's gradient exactly zero on both sides "
            "(local and lite)" if cfg.input_mode == "embeddings" else "")
         + f"; phase wall {wall:.2f} s")
     return wall
 
 
-def phase_family_train(torch, arch):
-    """Phase 9 on `arch` at full width and depth with its LiteModel, after
-    the free device memory is logged: exact launches, finite loss and grad
-    norm, seconds a step, tokens/s (token positions, B S a step: an audio
-    model's nq codebook entries a position count once), peak memory; one
-    profiled step. Returns the launches, the expected shapes a step and the
-    phase's wall seconds."""
+def slstm_share(torch, engine, batch, tag):
+    """The sLSTM blocks' share of an xLSTM prefill: one prefill timed whole,
+    then one with each sLSTM block's call timed, the card synchronised
+    around it (their sum over that prefill's seconds). Returns the
+    seconds and the share."""
+    from repro_torch.models import transformer
+    apply = transformer._SSM_APPLIES["slstm"]
+    secs = []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = apply(*a, **kw)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        return out
+
+    walls = []
+    with torch.no_grad():
+        for wrap in (False, True):
+            transformer._SSM_APPLIES["slstm"] = timed if wrap else apply
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine._prefill(engine.params, batch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            finally:
+                transformer._SSM_APPLIES["slstm"] = apply
+    out = {"prefill_s": walls[0], "timed_prefill_s": walls[1],
+           "slstm_s": sum(secs), "share": sum(secs) / walls[1]}
+    log(f"[{tag}] prefill {walls[0]:.4f} s; with each sLSTM block timed "
+        f"{walls[1]:.4f} s, of which the {len(secs)} sLSTM blocks (a "
+        f"Python loop of {SERVE['prompt']} steps each) "
+        f"{out['slstm_s']:.4f} s: {100 * out['share']:.1f}% of the prefill "
+        f"({', '.join(f'{t:.4f}' for t in secs)} s)")
+    return out
+
+
+def slstm_step_share(torch, state, cfg, batch, step, tag):
+    """The sLSTM blocks' share of an xLSTM training step: one more step
+    timed whole, then each of the local model's sLSTM blocks (its own
+    trained params) run forward and backward alone at the step's shapes,
+    (B, S, d) N(0, 1) in cfg.dtype, the card synchronised around each
+    half. No checkpoint wraps the sLSTM, so the step runs its forward
+    once and its backward once. Returns the seconds and the share."""
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import _unstack
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    x = torch.randn((B, S, cfg.d_model), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(7)
+                    ).to(cfg.dtype)
+    fwd, bwd = [], []
+    for p in _unstack(state["params"]["local"]["slstm"]):
+        core = {k: v.detach().requires_grad_(True)
+                for k, v in p["core"].items()}
+        xi = x.detach().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, _ = ssm.apply_slstm(core, cfg, xi)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.autograd.grad(y, [xi, *core.values()], torch.ones_like(y))
+        torch.cuda.synchronize()
+        fwd.append(t1 - t0)
+        bwd.append(time.perf_counter() - t1)
+    total = sum(fwd) + sum(bwd)
+    log(f"[{tag}] one more step {step_s:.4f} s; its {len(fwd)} sLSTM blocks "
+        f"alone at ({B}, {S}, {cfg.d_model}): forward {sum(fwd):.4f} s, "
+        f"backward {sum(bwd):.4f} s, together {total:.4f} s = "
+        f"{100 * total / step_s:.1f}% of the step")
+    return {"step_s": step_s, "forward_s": sum(fwd), "backward_s": sum(bwd),
+            "share": total / step_s}
+
+
+def phase_family_train(torch, arch, cfg=None):
+    """Phase 9 on `arch` at full width and depth (or on `cfg`) with its
+    LiteModel, after the free device memory is logged: exact launches,
+    finite loss and grad norm, seconds a step, tokens/s (token positions,
+    B S a step: an audio model's nq codebook entries a position count
+    once), peak memory; one profiled step; an xLSTM's sLSTM blocks timed
+    forward and backward at the step's shapes (`slstm_step_share`).
+    Returns the launches, the expected shapes a step and the phase's wall
+    seconds."""
     from repro_torch.configs import get_config
     t_phase = time.perf_counter()
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     tag = f"{cfg.family} train"
     free_device_memory(torch)
     free, total = torch.cuda.mem_get_info()
     log(f"[{tag}] free device memory before init {free} B of {total} B; "
         f"allocated {torch.cuda.memory_allocated()} B")
     state, step, batches, launches, shapes = phase_train(torch, cfg, tag)
-    phase_profile(torch, f"{arch} training step",
+    if cfg.block_kind == "xlstm":
+        slstm_step_share(torch, state, cfg, batches[1], step, tag)
+    phase_profile(torch, f"{cfg.name} training step",
                   lambda: step(state, batches[1]),
                   ("flash_bwd_dkdv", "flash_bwd_dq", "norm_bwd_kernel",
                    "norm_kernel", "flash_wgmma_kernel", "kd_grad_warp_kernel",
-                   "kd_grad_row_kernel"))
+                   "kd_grad_row_kernel"),
+                  host_ops=cfg.block_kind != "xlstm")
     del state, step, batches
     free_device_memory(torch)
     wall = time.perf_counter() - t_phase
@@ -3203,6 +3429,27 @@ def main() -> int:
             torch, arch)
         fam_launches[f"{fam}_train"] = counted
         fam_keys[f"{fam}_train"] = by_shape
+    # the SSM family, after 9e's state is freed: xlstm-1.3b served at full
+    # width and depth (5h); a 2-layer xlstm cut with its sLSTM and
+    # zamba2-7b's smoke cut, the card against the CPU (5i); xlstm-1.3b
+    # trained (9f); zamba2-7b's smoke cut in bf16 served and trained (9g)
+    xlstm = get_config(SSM["arch"])
+    hybrid = dataclasses.replace(get_config(SSM["hybrid"]).smoke(),
+                                 dtype=torch.bfloat16)
+    (fam_launches["ssm_serve"], fam_keys["ssm_serve"], fam_serve["ssm"],
+     fam_walls["ssm serve (5h)"]) = phase_family_serve(torch, SSM["arch"])
+    fam_walls["ssm parity (5i)"] = phase_family_parity(
+        torch, SSM["arch"], dataclasses.replace(xlstm, **SSM["parity_cut"]))
+    fam_walls["hybrid parity (5i)"] = phase_family_parity(
+        torch, SSM["hybrid"], get_config(SSM["hybrid"]).smoke())
+    (fam_launches["ssm_train"], fam_keys["ssm_train"],
+     fam_walls["ssm train (9f)"]) = phase_family_train(torch, SSM["arch"])
+    (fam_launches["hybrid_serve"], fam_keys["hybrid_serve"],
+     fam_serve["hybrid"], fam_walls["hybrid serve (9g)"]) = \
+        phase_family_serve(torch, SSM["hybrid"], hybrid)
+    (fam_launches["hybrid_train"], fam_keys["hybrid_train"],
+     fam_walls["hybrid train (9g)"]) = phase_family_train(
+        torch, SSM["hybrid"], hybrid)
     fam_keys = {entry: {name: {(name, *shape): n
                                for shape, n in by_shape.items()}
                         for name, by_shape in shapes_of.items() if by_shape}
@@ -3213,12 +3460,13 @@ def main() -> int:
         if unchecked:
             raise SystemExit(f"chip_smoke: the {entry} path ran shapes "
                              f"phase 3 did not check: {unchecked}")
-    log("[main] the VLM and audio phases: " + ", ".join(
+    log("[main] the VLM, audio and SSM phases: " + ", ".join(
         f"{k} {v:.2f} s" for k, v in fam_walls.items()))
     # the forward shapes of these serve paths and of the MoE, VLM and audio
     # training paths (their LiteModels') not timed above
     fwd_keys = [fam_keys[e] for e in ("vlm_serve", "audio_serve",
-                                      "vlm_train", "audio_train")]
+                                      "vlm_train", "audio_train",
+                                      "hybrid_serve", "hybrid_train")]
     nf_times.update(phase_norm_flash_timing(
         torch, *[sorted({k[1:] for keys in fwd_keys + [moe_train_keys]
                          for k in keys.get(name, {}) if k not in nf_times})
@@ -3242,8 +3490,9 @@ def main() -> int:
     tr_times.update(phase_grad_timing(
         torch, [k[1:] for k in moe_train_keys["kd_loss_grad"]
                 if k not in tr_times], iters=3))
-    # and the VLM's and the audio model's
-    fam_train = [fam_keys[e] for e in ("vlm_train", "audio_train")]
+    # and the VLM's, the audio model's and the SSM family's
+    fam_train = [fam_keys[e] for e in ("vlm_train", "audio_train",
+                                       "ssm_train", "hybrid_train")]
     tr_times.update(phase_train_timing(
         torch, {name: sorted({k[1:] for keys in fam_train
                               for k in keys.get(name, {})
@@ -3252,7 +3501,8 @@ def main() -> int:
                              "flash_attention_bwd")}))
     tr_times.update(phase_grad_timing(
         torch, sorted({k[1:] for keys in fam_train
-                       for k in keys["kd_loss_grad"] if k not in tr_times}),
+                       for k in keys.get("kd_loss_grad", {})
+                       if k not in tr_times}),
         iters=3))
 
     weights = {(name, C * B, V, "float32"): n
@@ -3355,7 +3605,7 @@ def main() -> int:
              "moe_train": (f"train {MOE['arch']} at full width, "
                            f"{MOE['train_layers']} layers ({per_step})",
                            moe_train_keys, moe_train_launches, train_times)}
-    for arch in VLM_AUDIO["archs"]:
+    for arch in VLM_AUDIO["archs"] + (SSM["arch"],):
         fam = get_config(arch).family
         paths[f"{fam}_serve"] = (
             f"serve {arch} at full width and depth", fam_keys[f"{fam}_serve"],
@@ -3364,6 +3614,12 @@ def main() -> int:
             f"train {arch} at full width and depth ({per_step})",
             fam_keys[f"{fam}_train"], fam_launches[f"{fam}_train"],
             train_times)
+    paths["hybrid_serve"] = (
+        f"serve {hybrid.name} (the smoke cut) in bf16",
+        fam_keys["hybrid_serve"], fam_launches["hybrid_serve"], nf_times)
+    paths["hybrid_train"] = (
+        f"train {hybrid.name} (the smoke cut) in bf16 ({per_step})",
+        fam_keys["hybrid_train"], fam_launches["hybrid_train"], train_times)
     for row in record["kernels"]:
         name = row["name"]
         for entry, (path, keys, counted, times_of) in paths.items():
@@ -3384,9 +3640,12 @@ def main() -> int:
     for fam, m in fam_serve.items():
         log(f"[main] {fam} serve: prefill {m['prefill_ms']:.3f} ms, decode "
             f"{m['decode_ms']:.3f} ms a step graphed (replay "
-            f"{m['replay_ms']:.3f} ms, bound {m['decode_bound_ms']:.3f} ms), "
+            f"{m['replay_ms']:.3f} ms, loop {m['loop_ms']:.3f} ms, bound "
+            f"{m['decode_bound_ms']:.3f} ms), "
             f"eager {m['eager_ms'][0]:.3f} / {m['eager_ms'][1]:.3f} ms, "
-            f"{m['tokens_per_s']:.1f} tokens/s, peak {m['peak_bytes']} B")
+            f"{m['tokens_per_s']:.1f} tokens/s, peak {m['peak_bytes']} B"
+            + (f"; the sLSTM blocks {100 * m['slstm']['share']:.1f}% of a "
+               f"prefill" if "slstm" in m else ""))
     log(f"[main] chip_smoke wall {time.perf_counter() - t_script:.1f} s")
     log(card)
     log(json.dumps(record))

@@ -11,11 +11,12 @@ Counterpart of ``repro.launch.train``, with its flags, and --device
 The step updates its state in place (`train/step.py`), as the reference's
 driver donates its state to the jitted step. --checkpoint saves
 ``state["params"]`` after the last step in the reference's format
-(``repro_torch.checkpoint``): either package restores it. Families the
-port has not ported yet (SSM, hybrid) raise NotImplementedError; MoE
-configs train with the router's aux losses in the loss (`train/step.py`),
-audio configs on codebook tokens and VLM configs on random patch
-embeddings (`token_batches`).
+(``repro_torch.checkpoint``): either package restores it, a tree of mixed
+bf16 and fp32 leaves included (an MoE router, an SSM's gates and
+recurrent weights). Every family trains: MoE configs with the router's
+aux losses in the loss (`train/step.py`), audio configs on codebook
+tokens, VLM configs on random patch embeddings (`token_batches`), and the
+SSM (xLSTM, pure Mamba2) and hybrid (zamba2) configs on tokens.
 """
 from __future__ import annotations
 
@@ -31,7 +32,6 @@ from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.data.synthetic import make_token_dataset
 from repro_torch.models.api import dummy_batch
-from repro_torch.models.transformer import check_supported
 from repro_torch.train.step import (TrainStepConfig, make_hapfl_train_step,
                                     make_train_state)
 from repro_torch.utils.device import resolve_device
@@ -47,7 +47,6 @@ def token_batches(cfg, batch: int, seq: int, steps: int, seed: int = 0,
     `dummy_batch` drawn from a torch generator seeded with i, where the
     reference draws from jax.random.PRNGKey(i): the structure is the
     reference's, the embeddings and labels are not."""
-    check_supported(cfg)
     device = resolve_device(device)
     stream = make_token_dataset(cfg.vocab_size, batch * (seq + 1) * steps + 1,
                                 seed)
@@ -88,7 +87,6 @@ def main(argv=None):
     if args.smoke:
         lite = dataclasses.replace(lite, dtype=torch.float32, remat=False,
                                    scan_layers=False)
-    check_supported(cfg)
     tcfg = TrainStepConfig(lr=args.lr)
     state = make_train_state(torch.Generator(device).manual_seed(0), cfg,
                              lite, tcfg, device)

@@ -1,5 +1,5 @@
-"""Public model API: build and apply a dense, MoE, VLM or audio decoder by
-config.
+"""Public model API: build and apply any of the assigned architectures by
+config (dense, MoE, VLM, audio, xLSTM, the zamba2 hybrid and pure Mamba2).
 
 Counterpart of ``repro.models.api``. Entry points that make tensors run on
 CUDA unless the caller passes a device.
@@ -24,18 +24,20 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, device=None):
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     """Training forward: logits (fp32), aux losses (an MoE model's
-    lb_loss, z_loss and dropped_frac, each summed over its layers; {} for a
-    dense model)."""
+    lb_loss, z_loss and dropped_frac, each summed over its layers; {} for
+    every other model)."""
     logits, _, aux = apply_model(params, cfg, batch, cache=None)
     return logits, aux
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
-    """Prefill: consume a prompt, return (last-token logits, cache). Only the
-    last position is unembedded: rows are independent, so its logits are
-    those of the full unembedding, and the (B, S, vocab) fp32 logits are
-    never made. The final residual add, folded into the final norm, runs
-    on the last position too."""
+    """Prefill: consume a prompt, return (last-token logits, cache): the
+    layers' KV caches, and an SSM's or hybrid's recurrent states after the
+    prompt, under `init_cache`'s keys. Only the last position is
+    unembedded: rows are independent, so its logits are those of the full
+    unembedding, and the (B, S, vocab) fp32 logits are never made. The
+    final residual add, folded into the final norm, runs on the last
+    position too."""
     x, delta, cache, _ = apply_blocks(params, cfg, batch, cache="init")
     return unembed(params["io"], cfg, x[:, -1:], delta[:, -1:]), cache
 
@@ -45,7 +47,8 @@ def decode_step(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """One decode step at position cache_index (an int, or a 0-d int64
     tensor on the cache's device, which a CUDA graph can replay). batch
     holds the single new token (B, 1[, nq]), or a VLM's (B, 1, d)
-    embeddings; the cache is updated in place."""
+    embeddings; the cache (KV ring buffers and recurrent states) is updated
+    in place and returned."""
     logits, new_cache, _ = apply_model(params, cfg, batch, cache=cache,
                                        cache_index=cache_index)
     return logits, new_cache

@@ -1,8 +1,11 @@
-"""Serving path: prefill + single-token greedy decode with a KV cache.
+"""Serving path: prefill + single-token greedy decode with KV and SSM-state
+caches.
 
-Counterpart of ``repro.serve.engine`` for the attention-stack decoders the
-port has (`repro_torch.models.transformer`: dense, MoE, VLM and audio).
-Sliding-window configs keep a ring-buffer cache of window size. An audio
+Counterpart of ``repro.serve.engine`` for every family of
+`repro_torch.models.transformer`: dense, MoE, VLM, audio, xLSTM, the
+zamba2 hybrid and pure Mamba2. Sliding-window configs keep a ring-buffer
+cache of window size; SSM and hybrid configs keep O(1) recurrent state,
+which the decode step updates in place. An audio
 model decodes the (B, nq) argmax of its per-codebook logits as the next
 step's codebook tokens; a VLM feeds the next step the embedding rows of
 its argmax tokens, as the reference does.
@@ -27,7 +30,6 @@ from repro_torch.kernels import flash_attention, kd_loss, rmsnorm
 from repro_torch.models.api import (decode_step as _decode,
                                     make_decode_cache, prefill as _prefill)
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.pytree import tree_leaves
 
 #: every kernel wrapper's launch counts
 _COUNTERS = (flash_attention.launches, kd_loss.launches, rmsnorm.launches)
@@ -76,6 +78,29 @@ def _write_prefix(big: torch.Tensor, small: torch.Tensor) -> torch.Tensor:
                          f"is longer than max_len or the sliding window")
     big[tuple(slice(0, s) for s in small.shape)] = small.to(big.dtype)
     return big
+
+
+def _load_prefill(big, small, path=()) -> None:
+    """Zero the decode cache `big` and copy the prefill cache `small` into
+    it, leaf paired with leaf by key at every level, as the reference's
+    ``tree_map(cache, pre_cache)`` pairs them: a leaf of another shape is
+    written at the origin (`_write_prefix`); a leaf of the same shape is
+    left zero, as the reference leaves it (`ServeEngine.generate`). Raises
+    ValueError where the two trees' keys differ."""
+    if isinstance(big, dict) or isinstance(small, dict):
+        if not (isinstance(big, dict) and isinstance(small, dict)
+                and set(big) == set(small)):
+            keys = [sorted(t) if isinstance(t, dict) else type(t).__name__
+                    for t in (big, small)]
+            raise ValueError(f"the prefill cache at {list(path)} does not "
+                             f"pair with the decode cache: keys {keys[1]} "
+                             f"against {keys[0]}")
+        for key in big:
+            _load_prefill(big[key], small[key], path + (key,))
+        return
+    big.zero_()
+    if big.shape != small.shape:
+        _write_prefix(big, small)
 
 
 class _DecodeStep:
@@ -171,10 +196,17 @@ class ServeEngine:
 
         As in the reference, the argmax of the prefill logits is fed to the
         first decode step but not returned: the result is the n_new decode
-        argmaxes. Also as in the reference, a prefill cache of exactly the
-        decode cache's shape (prompt length == max_len, or == the sliding
-        window) is not copied into the decode cache, which decode then
-        reads as zeros (ROADMAP §3)."""
+        argmaxes. The prefill cache is paired with the decode cache key by
+        key (a different key set raises ValueError). Also as in the
+        reference, a prefill cache leaf of exactly the decode cache leaf's
+        shape (prompt length == max_len, or == the sliding window) is not
+        copied into the decode cache, which decode then reads as zeros
+        (ROADMAP §3). Every recurrent-state leaf has the same shape in
+        prefill and decode, so for the SSM and hybrid families the
+        prompt's state is dropped and decode starts from a zero state: of
+        an xLSTM's or a pure Mamba2's prefill cache nothing is carried
+        over, and of zamba2's only the shared attention block's KV cache.
+        `models.api.prefill` and `decode_step` carry the state."""
         batch = {k: torch.as_tensor(v, device=self.device)
                  for k, v in batch.items()}
         prompt = batch["embeddings" if self.cfg.input_mode == "embeddings"
@@ -182,10 +214,7 @@ class ServeEngine:
         B, prompt_len = prompt.shape[:2]
         logits, pre_cache = self._prefill(self.params, batch)
         st = self.decode_step_for(B)
-        for big, small in zip(tree_leaves(st.cache), tree_leaves(pre_cache)):
-            big.zero_()
-            if big.shape != small.shape:
-                _write_prefix(big, small)
+        _load_prefill(st.cache, pre_cache)
         del pre_cache
         st.tokens.copy_(logits[:, -1].argmax(-1)[:, None])
         out = torch.empty((B, n_new) + st.tokens.shape[2:], dtype=torch.int64,

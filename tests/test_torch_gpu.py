@@ -3,9 +3,10 @@ cohort trained through them against the same cohort on the CPU, the
 serving path on the card against the CPU, the norm and flash backward
 kernels against their plain versions (and the norm backward under a CUDA
 graph against its eager launch), gradients and training steps on the
-card against the CPU, the MoE layer against the CPU, and the MoE, VLM and
-audio decode steps graphed against their eager loops. Every test
-here is marked gpu and skips inside its fixture on a machine without CUDA.
+card against the CPU, the MoE layer against the CPU, the MoE, VLM,
+audio and SSM decode steps graphed against their eager loops, and the SSM
+family's prefill, decode, gradients and train step against the CPU. Every
+test here is marked gpu and skips inside its fixture on a machine without CUDA.
 The file imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -23,8 +24,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as trms
 from repro_torch.kernels.ref import (flash_attention_ref, kd_loss_grad_ref,
                                      kd_loss_ref, rmsnorm_ref)
-from repro_torch.models.api import (forward, init_model, make_decode_cache,
-                                    prefill)
+from repro_torch.models.api import (decode_step, forward, init_model,
+                                    make_decode_cache, prefill)
 from repro_torch.models.cnn import init_cnn
 from repro_torch.serve import ServeEngine, make_decode_step
 from repro_torch.utils.pytree import tree_leaves, tree_map
@@ -634,3 +635,139 @@ def test_cuda_apply_moe_matches_cpu(cuda, cf):
     torch.testing.assert_close(yg, yc, atol=1e-5, rtol=1e-5)
     for k in ac:
         assert abs(ag[k] - ac[k]) <= 1e-5 * max(1.0, abs(ac[k])), k
+
+
+def _ssm_cut(name, dtype):
+    """The SSM family's smoke cuts: xlstm-1.3b's with slstm_every 2 over 3
+    layers (a group of one mLSTM and one sLSTM block, then an mLSTM tail),
+    zamba2-7b's (2 Mamba2 blocks and the shared attention block) and its
+    pure-Mamba2 LiteModel."""
+    import dataclasses
+    if name == "xlstm":
+        cfg = dataclasses.replace(get_config("xlstm-1.3b").smoke(),
+                                  n_layers=3)
+    else:
+        cfg = get_config("zamba2-7b").smoke()
+        cfg = cfg.lite() if name == "mamba2" else cfg
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["xlstm", "zamba2", "mamba2"])
+def test_cuda_ssm_graphed_generate_is_the_eager_decode_loop(cuda, name):
+    """The SSM family served on the card in bf16 (chip_smoke.py phases 5h
+    and 9g at smoke size): the decode step, captured into a CUDA graph,
+    writes every recurrent state back into the graph's static cache, so
+    the graphed generate's tokens and every step's logits equal an eager
+    loop of make_decode_step bit for bit, and the engine's cache ends in
+    the loop's state."""
+    from repro_torch.serve.engine import _load_prefill
+    cfg = _ssm_cut(name, torch.bfloat16)
+    params = init_model(torch.Generator(cuda).manual_seed(8), cfg, cuda)
+    tok = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (3, 12)), device=cuda)
+    engine = ServeEngine(cfg, params, max_len=48, device=cuda)
+    got, logits = engine.generate({"tokens": tok}, n_new=16,
+                                  return_logits=True)
+    st = engine.decode_step_for(3)
+    assert st.graph is not None
+    step = make_decode_step(cfg)
+    with torch.no_grad():
+        first, pre = prefill(params, cfg, {"tokens": tok})
+        cache = make_decode_cache(cfg, 3, 48, cuda)
+        _load_prefill(cache, pre)
+        nxt = first[:, -1].argmax(-1)
+        index = torch.zeros((), dtype=torch.int64, device=cuda)
+        for i in range(16):
+            index.fill_(12 + i)
+            nxt, lg, cache = step(params, {"tokens": nxt[:, None]}, cache,
+                                  index)
+            assert torch.equal(lg[:, -1], logits[:, i])
+            np.testing.assert_array_equal(nxt.cpu().numpy(), got[:, i])
+    for a, b in zip(tree_leaves(st.cache), tree_leaves(cache)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["xlstm", "zamba2", "mamba2"])
+def test_cuda_ssm_prefill_decode_and_gradients_match_cpu(cuda, name):
+    """The SSM family on the card against the CPU in fp32 (chip_smoke.py
+    phase 5i at smoke size): prefill logits and every state, 4 decode steps
+    from the prefill's state, and a backward through forward (the sLSTM's
+    time loop, the chunk scans' masked exps), at atol and rtol 1e-3."""
+    cfg = _ssm_cut(name, torch.float32)
+    params = init_model(torch.Generator(cuda).manual_seed(9), cfg, cuda)
+    tok = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 132))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_map(lambda t: t.detach().to(dev).requires_grad_(True),
+                     params)
+        t = torch.as_tensor(tok, device=dev)
+        with torch.no_grad():
+            first, pre = prefill(p, cfg, {"tokens": t[:, :128]})
+            cache = make_decode_cache(cfg, 2, 132, dev)
+            for big, small in zip(tree_leaves(cache), tree_leaves(pre)):
+                big[tuple(slice(0, n) for n in small.shape)] = small
+            steps = [first]
+            for i in range(4):
+                lg, cache = decode_step(p, cfg, {"tokens": t[:, 128 + i:
+                                                             129 + i]},
+                                        cache, 128 + i)
+                steps.append(lg)
+        logits, _ = forward(p, cfg, {"tokens": t[:, :128]})
+        (logits * logits).mean().backward()
+        out.append(([x.cpu() for x in steps + tree_leaves(cache)],
+                    [x.grad.cpu() for x in tree_leaves(p)]))
+    (card, card_grads), (host, host_grads) = out
+    for a, b in zip(card, host):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+    for a, b in zip(card_grads, host_grads):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["xlstm", "zamba2"])
+def test_cuda_ssm_train_step_launches_and_matches_cpu(cuda, name):
+    """One train step of the SSM family with its LiteModel on the card
+    (chip_smoke.py phases 9f and 9g at smoke size), fp32: one kd_loss_grad
+    launch, the hybrid's norm and flash kernels and their backwards, and
+    the loss, grad norm and new params of the CPU's step at 1e-3."""
+    import dataclasses
+
+    from repro_torch.train import TrainStepConfig, make_hapfl_train_step
+    from repro_torch.train import make_train_state
+    cfg = _ssm_cut(name, torch.float32)
+    lite = dataclasses.replace(cfg.lite(), remat=False)
+    tcfg = TrainStepConfig()
+    gpu = make_train_state(torch.Generator(cuda).manual_seed(10), cfg, lite,
+                           tcfg, cuda)
+    cpu = tree_map(lambda t: t.detach().cpu().clone(), gpu)
+    rng = np.random.default_rng(10)
+    batch = {k: rng.integers(0, cfg.vocab_size, (2, 64)) for k in
+             ("tokens", "labels")}
+    out = []
+    for dev, state in ((cuda, gpu), (torch.device("cpu"), cpu)):
+        step = make_hapfl_train_step(cfg, lite, tcfg)
+        before = dict(tkd.launches, **trms.launches, **tflash.launches)
+        state, m = step(state, {k: torch.as_tensor(v, device=dev)
+                                for k, v in batch.items()})
+        after = dict(tkd.launches, **trms.launches, **tflash.launches)
+        if dev.type == "cuda":
+            ran = {k: after[k] - before[k] for k in after}
+            hybrid = name == "zamba2"
+            assert ran["kd_loss_grad"] == 1
+            assert ran["flash_attention"] == ran["flash_attention_bwd"] == (
+                1 if hybrid else 0)
+            # zamba2: 4 block norms, its LiteModel 2; xlstm: layernorm
+            assert ran["rmsnorm"] == ran["rmsnorm_bwd"] == (2 if hybrid
+                                                            else 0)
+            assert ran["add_rmsnorm"] == ran["add_rmsnorm_bwd"] == (
+                6 if hybrid else 0)
+        out.append(({k: float(v) for k, v in m.items()},
+                    [t.detach().cpu() for t in tree_leaves(state["params"])]))
+    (card_m, card_p), (host_m, host_p) = out
+    for k, v in host_m.items():
+        assert abs(card_m[k] - v) <= 1e-3 * max(1.0, abs(v)), k
+    for a, b in zip(card_p, host_p):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)

@@ -265,10 +265,39 @@ def test_generate_rejects_a_prompt_longer_than_the_cache(gqa_model):
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b"])
-def test_families_not_ported_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.init_model(torch.Generator().manual_seed(0),
-                        tget_config(arch).smoke(), device="cpu")
+def test_ssm_params_tree_matches_reference(arch):
+    """init_model builds the hybrid's and the xLSTM's trees leaf for leaf as
+    the reference's, shapes and dtypes (bf16 projections beside fp32 gates,
+    recurrent weights and biases in a bf16 model; all fp32 in an fp32
+    one): zamba2's {"mamba": (n_seg, seg, ...), "shared", "mamba_tail"},
+    xlstm's {"mlstm": (g, m_per, ...), "slstm": (g, ...), "mlstm_tail"}.
+    The reference's params drop in through params_from_numpy. Both at 5
+    layers, a layout with a tail: slstm_every 2, shared_attn_every 2."""
+    layout = ({"slstm_every": 2} if arch == "xlstm-1.3b"
+              else {"shared_attn_every": 2})
+    for jdt, tdt in ((jnp.float32, torch.float32),
+                     (jnp.bfloat16, torch.bfloat16)):
+        jcfg = dataclasses.replace(jget_config(arch).smoke(), n_layers=5,
+                                   dtype=jdt, **layout)
+        tcfg = dataclasses.replace(tget_config(arch).smoke(), n_layers=5,
+                                   dtype=tdt, **layout)
+        own = tapi.init_model(torch.Generator().manual_seed(0), tcfg,
+                              device="cpu")
+        jp = japi.init_model(jax.random.PRNGKey(0), jcfg)
+        ref = jax.tree_util.tree_flatten_with_path(jp)[0]
+        assert len(tree_leaves(own)) == len(ref)
+        for path, leaf in ref:
+            node = own
+            for key in path:
+                node = node[key.key]
+            assert tuple(node.shape) == leaf.shape, path
+            assert str(node.dtype).removeprefix("torch.") == str(
+                leaf.dtype), path
+        assert set(own) == set(jp) == (
+            {"io", "mlstm", "slstm", "mlstm_tail"} if arch == "xlstm-1.3b"
+            else {"io", "mamba", "shared", "mamba_tail"})
+        converted = params_from_numpy(jax.device_get(jp), device="cpu")
+        assert len(tree_leaves(converted)) == len(ref)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-2b", "musicgen-medium"])
