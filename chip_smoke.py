@@ -59,11 +59,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 kd_loss_grad at (1, 8192, 2048), the last V of its warp
                 kernel, and (1, 8192, 2049), the row kernel's first, fp32
                 and bf16. And the SSM family's (phases 5h, 9f, 9g):
-                kd_loss_grad at xlstm-1.3b's (1, 2048, 50304) and zamba2's
-                smoke cut's (1, 2048, 512), fp32; rmsnorm and add_rmsnorm
-                at (4, 256) bf16 (that cut's decode; its (2048, 256) and
-                flash at (4, 4, 4, 512, 64), forward and backward, are the
-                llama LiteModel's).
+                kd_loss_grad at xlstm-1.3b's (1, 2048, 50304) and
+                zamba2-7b's (1, 2048, 32000), fp32. And zamba2-7b's norm
+                and flash shapes at full width (phase 9g): rmsnorm and
+                add_rmsnorm at (2048, 3584) and (4, 3584), their backwards
+                at (2048, 3584), bf16 and fp32 (its pure-Mamba2
+                LiteModel's (2048, 256) are the llama LiteModel's); flash
+                and its backward at hd 112, which the kernels run on hd
+                128's tiles: (4, 32, 32, 512, 112), S 300, window 64 and a
+                group of 4 ((2, 8, 2, 256, 112)), both dtypes and layouts,
+                and the hd-112 parity cut's (2, 2, 2, 128, 112) fp32.
   4. HAPFL    — Algorithm 1 on the paper's cifar10 pool at full width
                 (small + large CNNs, 10 clients, 6 per round): 10
                 latency-only PPO pretraining rounds, then 3 training rounds
@@ -188,11 +193,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 with slstm_every 2 (one mLSTM and one sLSTM block; the
                 config's own 2-layer cut would be mLSTM only) and zamba2-
                 7b's smoke cut (2 Mamba2 blocks and the shared attention
-                block at hd 64), the same weights on the card and on the
-                CPU: prefill and 4 decode steps from the prefill's whole
-                cache, logits and every cache leaf at atol and rtol 1e-3;
-                one loss_and_grads with its LiteModel: loss, metrics, grad
-                norm and every gradient at 1e-3.
+                block at hd 64) and its hd-112 cut (zamba2-7b with 2
+                layers, d 224 over 2 heads = 2 KV heads, shared_attn_every
+                2: the fp32 SIMT flash kernels, forward and backward, at hd
+                112 through the whole model), the same weights on the card
+                and on the CPU: prefill and 4 decode steps from the
+                prefill's whole cache, logits and every cache leaf at atol
+                and rtol 1e-3; one loss_and_grads with its LiteModel: loss,
+                metrics, grad norm and every gradient at 1e-3.
 
                 computes the same function, that call (F.rms_norm,
                 x + delta then F.rms_norm, F.scaled_dot_product_attention),
@@ -256,15 +264,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 seconds a step, tokens/s, peak memory, one profiled step,
                 and the 6 sLSTM blocks timed forward and backward alone at
                 the step's shapes (their share of the step). After 5h-5i.
-  9g. hybrid   — zamba2-7b's smoke cut (d 256, 2 Mamba2 blocks and the
-                shared attention + MLP block, hd 64, vocab 512) in bf16,
-                served as in phase 5 (rmsnorm 33, add_rmsnorm 3 + 129,
-                flash 1 launches; graphed == eager bit for bit) and trained
-                as in phase 9 with its pure-Mamba2 LiteModel (exact
-                launches: rmsnorm 2, add_rmsnorm 6 and their backwards 2
-                and 6 at (2048, 256), flash and its backward 1 at (4, 4, 4,
-                512, 64), kd_loss_grad 1 at (1, 2048, 512)). Its full width
-                waits for flash at hd 112 (ROADMAP K1).
+  9g. hybrid   — zamba2-7b at full width and depth (81 Mamba2 layers in
+                13 segments of 6, each followed by the one shared attention
+                + MLP block, and a tail of 3; d 3584, 32 heads = KV heads,
+                hd 112, d_ff 14336, ssm_state 64, vocab 32000; 6.75 B
+                parameters, 13.5 GB) in bf16, seeded weights, after 9f's
+                state is freed, served as in phase 5: rmsnorm 1 + 32,
+                add_rmsnorm 106 at (2048, 3584) and 1 + 32 x 107 at (4,
+                3584) (107 block norms: 81 + 2 x 13), flash 13 at (4, 32,
+                32, 512, 112) a generate; graphed == eager bit for bit;
+                the times, peak memory and the decode byte bound, which
+                counts the shared block's weights at each of its 13
+                invocations (and logs the bound with them counted once);
+                a profiled graphed decode loop. Then trained at full width
+                on 12 of its layers (two segments, no tail), bf16, remat
+                (each segment under one checkpoint), with its pure-Mamba2
+                LiteModel (2 blocks, d 256; remat too), as in phase 9,
+                a step: rmsnorm 2 + 2 and add_rmsnorm 31 + 3 at (2048,
+                3584) + (2048, 256), their backwards 1 + 1 and 16 + 2, flash
+                4 and its backward 2 at (4, 32, 32, 512, 112) (two
+                segments, each run twice forward under remat), and
+                kd_loss_grad 1 at (1, 2048, 32000); finite loss and grad
+                norm, seconds a step, tokens/s, peak memory, one profiled
+                step.
   9b. ckpt     — phase 9's trained params saved with save_checkpoint (as
                 launch/train.py --checkpoint does) under a temporary
                 directory and restored onto the card with
@@ -329,9 +351,9 @@ GRAD_SHAPES = [(8, 32, 10, "float32"), (4, 32, 10, "float32"),
                # last V of the warp kernel, and V 2049, the row kernel's first
                (1, 8192, 2048, "float32"), (1, 8192, 2048, "bfloat16"),
                (1, 8192, 2049, "float32"), (1, 8192, 2049, "bfloat16"),
-               # xlstm-1.3b's 4 x 512 rows at V 50304, and zamba2-7b's
-               # smoke cut's at V 512
-               (1, 2048, 50304, "float32"), (1, 2048, 512, "float32")]
+               # xlstm-1.3b's 4 x 512 rows at V 50304, and zamba2-7b's at
+               # V 32000
+               (1, 2048, 50304, "float32"), (1, 2048, 32000, "float32")]
 GRAD_VOCAB = [(4, 512, 32000, "float32"), (4, 512, 32000, "bfloat16")]
 LAMBDAS = (0.4, 0.6, 0.5, 0.5)
 CHECK_SHAPES = [(128, 10, "float32"), (256, 10, "float32"),
@@ -359,8 +381,15 @@ NORM_SHAPES = [(2048, 3072, "bfloat16"), (4, 3072, "bfloat16"),
                # qwen2-vl-2b: prefill and training, decode
                (2048, 1536, "bfloat16"), (4, 1536, "bfloat16"),
                (2048, 1536, "float32"), (4, 1536, "float32"),
-               # zamba2-7b's smoke cut in bf16: decode
-               (4, 256, "bfloat16")]
+               # zamba2-7b at full width: prefill and training, decode
+               (2048, 3584, "bfloat16"), (4, 3584, "bfloat16"),
+               (2048, 3584, "float32"), (4, 3584, "float32")]
+# flash at hd 112, forward and backward: zamba2-7b's (4, 32, 32, 512, 112),
+# S 300, window 64 and a group of 4, both dtypes and layouts
+HD112_SHAPES = [(B, H, KV, S, 112, w, dt, lay)
+                for B, H, KV, S, w in ((4, 32, 32, 512, 0), (2, 4, 4, 300, 0),
+                                       (1, 4, 4, 256, 64), (2, 8, 2, 256, 0))
+                for dt in ("bfloat16", "float32") for lay in ("bshd", "bhsd")]
 FLASH_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16", "bshd"),
                 (4, 24, 8, 512, 128, 0, "float32", "bshd"),
                 (4, 24, 8, 512, 128, 0, "bfloat16", "bhsd"),
@@ -387,7 +416,11 @@ FLASH_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16", "bshd"),
                 *[(4, H, KV, 512, hd, 0, dt, lay)
                   for H, KV, hd in ((12, 2, 128), (24, 24, 64))
                   for dt in ("bfloat16", "float32")
-                  for lay in ("bshd", "bhsd")]]
+                  for lay in ("bshd", "bhsd")],
+                # zamba2-7b's shared block at full width, H = KV = 32 at hd
+                # 112 (the kernels pad it to hd 128's tiles), a ragged S, a
+                # window and a group of 4 at hd 112; the fp32 parity cut's
+                *HD112_SHAPES, (2, 2, 2, 128, 112, 0, "float32", "bshd")]
 
 # the training path: llama3.2-3b at full width (bf16, remat, the config's
 # own) with its LiteModel, batch 4 x seq 512, AdamW at TrainStepConfig()'s
@@ -414,19 +447,25 @@ VLM_AUDIO = {"archs": ("qwen2-vl-2b", "musicgen-medium"), "parity_layers": 2}
 # the SSM paths (phases 5h, 5i, 9f, 9g): xlstm-1.3b served and trained at
 # full width and depth (SERVE's and TRAIN's sizes); on the card against the
 # CPU in fp32, a 2-layer full-width xlstm cut whose second block is its
-# sLSTM (slstm_every 2: the config's own 2-layer cut would be mLSTM only)
-# and zamba2-7b's smoke cut; zamba2-7b's smoke cut in bf16 served and
-# trained (at full width its shared block's head dim, 112, needs ROADMAP
-# K1)
+# sLSTM (slstm_every 2: the config's own 2-layer cut would be mLSTM only),
+# zamba2-7b's smoke cut and a cut of it at its head dim (2 layers, one
+# segment, d 224 over 2 heads: hd 112, the fp32 SIMT flash kernels through
+# the whole model); zamba2-7b in bf16 served at full width and depth and
+# trained at full width on 12 of its 81 layers (two segments, so that the
+# shared block's gradient sums over two invocations as in the whole model;
+# AdamW's 12 B a parameter would make all 6.75 B about 81 GB of state)
 SSM = {"arch": "xlstm-1.3b", "parity_cut": {"n_layers": 2, "slstm_every": 2},
-       "hybrid": "zamba2-7b"}
+       "hybrid": "zamba2-7b", "train_layers": 12,
+       "hd112_cut": {"n_layers": 2, "d_model": 224, "n_heads": 2,
+                     "n_kv_heads": 2, "shared_attn_every": 2}}
 # backward checks: norms (N, d, dtype), flash as FLASH_SHAPES
 NORM_BWD_SHAPES = [(2048, 3072, "bfloat16"), (2048, 3072, "float32"),
                    (2048, 256, "bfloat16"), (2048, 256, "float32"),
                    (1000, 3072, "bfloat16"), (1000, 3072, "float32"),
                    (64, 777, "float32"), (64, 777, "bfloat16"),
                    (2048, 2048, "bfloat16"), (2048, 2048, "float32"),
-                   (2048, 1536, "bfloat16"), (2048, 1536, "float32")]
+                   (2048, 1536, "bfloat16"), (2048, 1536, "float32"),
+                   (2048, 3584, "bfloat16"), (2048, 3584, "float32")]
 FLASH_BWD_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16", "bshd"),
                     (4, 24, 8, 512, 128, 0, "float32", "bshd"),
                     (4, 4, 4, 512, 64, 0, "bfloat16", "bshd"),
@@ -441,7 +480,8 @@ FLASH_BWD_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16", "bshd"),
                     *[(4, H, KV, 512, hd, 0, dt, lay)
                       for H, KV, hd in ((12, 2, 128), (24, 24, 64))
                       for dt in ("bfloat16", "float32")
-                      for lay in ("bshd", "bhsd")]]
+                      for lay in ("bshd", "bhsd")],
+                    *HD112_SHAPES]
 
 def free_device_memory(torch):
     """Collect what the caller dropped (reference cycles included) and hand
@@ -499,11 +539,12 @@ def phase_build():
 
 def check_hgmma(_build):
     """The bf16 flash kernels must run on the tensor cores through wgmma,
-    fed by TMA: every instantiation (one at least per head dim) of the
-    forward's flash_wgmma_kernel and of the backward's
-    flash_bwd_dkdv_wgmma_kernel and flash_bwd_dq_wgmma_kernel has HGMMA in
-    its SASS, and the backward's also UTMALDG (cp.async.bulk.tensor) and
-    SYNCS (mbarrier) instructions."""
+    fed by TMA: the forward's flash_wgmma_kernel and the backward's
+    flash_bwd_dkdv_wgmma_kernel and flash_bwd_dq_wgmma_kernel are
+    instantiated for every head dim of HEAD_DIMS (112 included: its
+    mangled name carries ILi112E), and every instantiation has HGMMA in
+    its SASS, the backward's also UTMALDG (cp.async.bulk.tensor) and SYNCS
+    (mbarrier) instructions."""
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     tool = Path(_build.nvcc()).with_name("cuobjdump")
     wanted = {"flash_attention": ("flash_wgmma_kernel",),
@@ -523,9 +564,12 @@ def check_hgmma(_build):
             f"{', '.join(kernels)}: {counts}")
         need = ("HGMMA",) if lib == "flash_attention" else (
             "HGMMA", "UTMALDG", "SYNCS")
-        if (any(sum(k in name for name in counts) < len(HEAD_DIMS)
-                for k in kernels)
-                or not all(c[op] for c in counts.values() for op in need)):
+        missing = [f"{k}<{hd}>" for k in kernels for hd in HEAD_DIMS
+                   if not any(f"{k}ILi{hd}E" in name for name in counts)]
+        if missing:
+            raise SystemExit(f"chip_smoke: {lib} has no instantiation of "
+                             f"{missing} in its SASS")
+        if not all(c[op] for c in counts.values() for op in need):
             raise SystemExit(f"chip_smoke: a bf16 kernel of {lib} lacks "
                              f"{' or '.join(need)} in its SASS")
 
@@ -1996,7 +2040,13 @@ def decode_bound_ms(torch, engine):
     the reference's capacity dispatch runs all of them), the whole KV cache
     read once, and every recurrent state (an SSM's: the mLSTM's C, n, m,
     the sLSTM's h, c, n, m, Mamba2's conv and ssm) read and written once,
-    over the card's memory rate. Returns (bytes, ms, the cache's bytes)."""
+    over the card's memory rate. A hybrid's shared attention + MLP block
+    runs once per segment (zamba2-7b: 13 times a step), and its weights
+    (0.411 GB at full width) do not stay in the 50 MB L2 from one
+    invocation to the next, so they count once per invocation; the bound
+    with them counted once is logged beside it. Returns (bytes, ms, the
+    cache's bytes)."""
+    from repro_torch.models.transformer import zamba_layout
     from repro_torch.utils.pytree import tree_leaves
     params, B, cfg = engine.params, SERVE["batch"], engine.cfg
     emb = params["io"]["embed"]
@@ -2011,6 +2061,17 @@ def decode_bound_ms(torch, engine):
     cache_bytes = sum(t.numel() * t.element_size() for t in kv + state)
     nbytes += (sum(t.numel() * t.element_size() for t in kv)
                + 2 * sum(t.numel() * t.element_size() for t in state))
+    if cfg.shared_attn_every:
+        n_seg = zamba_layout(cfg)[0]
+        shared = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(params["shared"]))
+        once = nbytes
+        nbytes += (n_seg - 1) * shared
+        log(f"[{cfg.family} serve] decode byte bound with the shared "
+            f"block's {shared} B of weights counted once: {once} B, "
+            f"{once / PEAK_BYTES_PER_S * 1e3:.3f} ms; counted at each of its "
+            f"{n_seg} invocations: {nbytes} B, "
+            f"{nbytes / PEAK_BYTES_PER_S * 1e3:.3f} ms (the bound used)")
     return nbytes, nbytes / PEAK_BYTES_PER_S * 1e3, cache_bytes
 
 
@@ -3430,26 +3491,30 @@ def main() -> int:
         fam_launches[f"{fam}_train"] = counted
         fam_keys[f"{fam}_train"] = by_shape
     # the SSM family, after 9e's state is freed: xlstm-1.3b served at full
-    # width and depth (5h); a 2-layer xlstm cut with its sLSTM and
-    # zamba2-7b's smoke cut, the card against the CPU (5i); xlstm-1.3b
-    # trained (9f); zamba2-7b's smoke cut in bf16 served and trained (9g)
+    # width and depth (5h); a 2-layer xlstm cut with its sLSTM, zamba2-7b's
+    # smoke cut and its hd-112 cut, the card against the CPU (5i);
+    # xlstm-1.3b trained (9f); zamba2-7b served at full width and depth and
+    # trained at full width on 12 layers, in bf16 (9g)
     xlstm = get_config(SSM["arch"])
-    hybrid = dataclasses.replace(get_config(SSM["hybrid"]).smoke(),
-                                 dtype=torch.bfloat16)
+    hybrid = get_config(SSM["hybrid"])
+    hybrid_train = dataclasses.replace(hybrid, n_layers=SSM["train_layers"])
     (fam_launches["ssm_serve"], fam_keys["ssm_serve"], fam_serve["ssm"],
      fam_walls["ssm serve (5h)"]) = phase_family_serve(torch, SSM["arch"])
     fam_walls["ssm parity (5i)"] = phase_family_parity(
         torch, SSM["arch"], dataclasses.replace(xlstm, **SSM["parity_cut"]))
     fam_walls["hybrid parity (5i)"] = phase_family_parity(
-        torch, SSM["hybrid"], get_config(SSM["hybrid"]).smoke())
+        torch, SSM["hybrid"], hybrid.smoke())
+    fam_walls["hybrid hd-112 parity (5i)"] = phase_family_parity(
+        torch, SSM["hybrid"], dataclasses.replace(hybrid,
+                                                  **SSM["hd112_cut"]))
     (fam_launches["ssm_train"], fam_keys["ssm_train"],
      fam_walls["ssm train (9f)"]) = phase_family_train(torch, SSM["arch"])
     (fam_launches["hybrid_serve"], fam_keys["hybrid_serve"],
      fam_serve["hybrid"], fam_walls["hybrid serve (9g)"]) = \
-        phase_family_serve(torch, SSM["hybrid"], hybrid)
+        phase_family_serve(torch, SSM["hybrid"])
     (fam_launches["hybrid_train"], fam_keys["hybrid_train"],
      fam_walls["hybrid train (9g)"]) = phase_family_train(
-        torch, SSM["hybrid"], hybrid)
+        torch, SSM["hybrid"], hybrid_train)
     fam_keys = {entry: {name: {(name, *shape): n
                                for shape, n in by_shape.items()}
                         for name, by_shape in shapes_of.items() if by_shape}
@@ -3615,10 +3680,11 @@ def main() -> int:
             fam_keys[f"{fam}_train"], fam_launches[f"{fam}_train"],
             train_times)
     paths["hybrid_serve"] = (
-        f"serve {hybrid.name} (the smoke cut) in bf16",
+        f"serve {hybrid.name} at full width and depth",
         fam_keys["hybrid_serve"], fam_launches["hybrid_serve"], nf_times)
     paths["hybrid_train"] = (
-        f"train {hybrid.name} (the smoke cut) in bf16 ({per_step})",
+        f"train {hybrid.name} at full width, {SSM['train_layers']} layers "
+        f"({per_step})",
         fam_keys["hybrid_train"], fam_launches["hybrid_train"], train_times)
     for row in record["kernels"]:
         name = row["name"]

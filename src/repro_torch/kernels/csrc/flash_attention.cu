@@ -47,6 +47,15 @@
 //   bytes of barriers = 83,016 bytes at hd 128, 42,056 at hd 64, so two
 //   blocks share an SM. Registers (ptxas of CUDA 12.9): 149 at hd 128, 117
 //   at hd 64, no spills.
+//   hd 112 (zamba2-7b's shared block) runs on hd 128's tiles: the tensor
+//   maps carry the true hd, so TMA zero-fills columns 112..127 of the
+//   second panel on a load and clips them on the store of O
+//   (hopper.cuh). Q K^T takes 7 k-steps of 16 and never reads the pad;
+//   P V runs at n128, whose last 16 columns are P times V's zero pad and
+//   are never stored. The mbarriers expect the whole boxes' bytes, the
+//   zero fill included. So the kernel moves hd 112's bytes from device
+//   memory and spends hd 128's shared memory and registers and 8/7 of its
+//   P V products.
 //   Why one consumer warpgroup a block and not two over 128 rows: with two
 //   (288 threads, about 150 registers) only one block fits an SM, and each
 //   block's Q load and O store stall its SM; two independent 64-row blocks
@@ -65,9 +74,11 @@
 //   banks). Each warp owns 8 query rows. For scores each lane owns one key of
 //   the tile; the row max is a warp-shuffle reduction, the row sum l is kept
 //   per lane and reduced once at the end. The probabilities go through a
-//   per-warp slice of shared memory, and for P V each lane owns hd/32 output
-//   columns of the 8 rows. Shared memory: 74,240 bytes at hd 128, 41,472 at
-//   hd 64.
+//   per-warp slice of shared memory, and for P V each lane owns W/32 output
+//   columns of the 8 rows, W = hd rounded up to a multiple of 32 (the tiles
+//   are W wide in shared memory, zeros past hd: at hd 112, W = 128 and
+//   lanes 28..31 hold only pad columns, which are never stored). Shared
+//   memory: 74,240 bytes at hd 128 and 112, 41,472 at hd 64.
 //
 // Both grids are (batch x head, query tiles) with the query tiles of the
 // longest causal extent scheduled first, so that the short tiles fill the
@@ -100,9 +111,15 @@ constexpr int kWarps = 8;
 constexpr int kRows = kBlockQ / kWarps;    // query rows per warp
 constexpr int kThreads = kWarps * 32;
 
+// the columns a row of hd takes in shared memory: whole lanes of 32
+__host__ __device__ constexpr int width(int hd) {
+  return (hd + 31) / 32 * 32;
+}
+
 template <int HD>
 constexpr int smem_floats() {
-  return kBlockQ * HD + kBlockK * (HD + 4) + kBlockK * HD +
+  constexpr int W = width(HD);
+  return kBlockQ * W + kBlockK * (W + 4) + kBlockK * W +
          kWarps * kBlockK * kRows;
 }
 
@@ -122,24 +139,26 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Rows [row0, row0 + NROWS) of an (S, HD) matrix whose rows lie
 // `row_stride` floats apart into shared memory times `mul`, `stride` floats
-// apart; rows at or past S become zeros. Each thread keeps one 16-byte
-// column and steps its one pointer by whole passes of the block, so that
-// what it holds across the key loop does not grow with the row stride.
+// apart, width(HD) columns a row; rows at or past S, and columns past HD,
+// become zeros. Each thread keeps one 16-byte column and steps its one
+// pointer by whole passes of the block, so that what it holds across the
+// key loop does not grow with the row stride.
 template <int HD, int NROWS>
 __device__ __forceinline__ void load_tile(float* dst, int stride,
                                           const float* __restrict__ src,
                                           int row_stride, int row0, int S,
                                           float mul) {
-  constexpr int kPerRow = HD / 4;                  // float4s per row
+  constexpr int kPerRow = width(HD) / 4;           // float4s per row
   constexpr int kPass = kThreads / kPerRow;        // rows per pass
   const int r0 = threadIdx.x / kPerRow, c = (threadIdx.x % kPerRow) * 4;
   static_assert(NROWS % kPass == 0, "whole passes");
+  const bool col_ok = HD == width(HD) || c < HD;
   const float* p = src + static_cast<long long>(row0 + r0) * row_stride + c;
 #pragma unroll
   for (int j = 0; j < NROWS / kPass; ++j) {
     const int r = r0 + j * kPass;
     float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < S) {
+    if (col_ok && row0 + r < S) {
       f = *reinterpret_cast<const float4*>(p);
       f.x *= mul; f.y *= mul; f.z *= mul; f.w *= mul;
     }
@@ -155,13 +174,15 @@ __global__ void __launch_bounds__(kThreads)
                       float* __restrict__ lse, Strides sq, Strides sk,
                       Strides sv, Strides so, int H, int KV, int S,
                       int causal, int window, float sm_scale) {
-  constexpr int kStride = HD + 4;          // padded K row
-  constexpr int kCols = HD / 32;           // output columns per lane
+  constexpr int W = width(HD);             // a row's columns in smem
+  constexpr int kStride = W + 4;           // padded K row
+  constexpr int kCols = W / 32;            // output columns per lane
+  static_assert(HD % kCols == 0, "a lane's columns are all or none past hd");
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + kBlockQ * HD;
+  float* ks = qs + kBlockQ * W;
   float* vs = ks + kBlockK * kStride;
-  float* ps = vs + kBlockK * HD;
+  float* ps = vs + kBlockK * W;
 
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;   // longest causal rows first
@@ -173,10 +194,10 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = qt * kBlockQ;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row0 = q0 + warp * kRows;      // this warp's first query row
-  const float* qw = qs + warp * kRows * HD;
+  const float* qw = qs + warp * kRows * W;
   float* pw = ps + warp * kBlockK * kRows;  // [key][row] probabilities
 
-  load_tile<HD, kBlockQ>(qs, HD, qb, static_cast<int>(sq.s), q0, S,
+  load_tile<HD, kBlockQ>(qs, W, qb, static_cast<int>(sq.s), q0, S,
                          sm_scale);
 
   // the keys some row of this tile can see: [k_begin, k_end)
@@ -195,7 +216,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int k0 = (k_begin / kBlockK) * kBlockK; k0 < k_end; k0 += kBlockK) {
     __syncthreads();   // the last tile's K, V and P are read (and Q loaded)
     load_tile<HD, kBlockK>(ks, kStride, kb, k_row, k0, S, 1.f);
-    load_tile<HD, kBlockK>(vs, HD, vb, v_row, k0, S, 1.f);
+    load_tile<HD, kBlockK>(vs, W, vb, v_row, k0, S, 1.f);
     __syncthreads();
 
     float s[kRows];
@@ -207,7 +228,7 @@ __global__ void __launch_bounds__(kThreads)
       const float4 kk = *reinterpret_cast<const float4*>(kr + d);
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
-        const float4 qq = *reinterpret_cast<const float4*>(qw + i * HD + d);
+        const float4 qq = *reinterpret_cast<const float4*>(qw + i * W + d);
         s[i] = fmaf(qq.x, kk.x, s[i]);
         s[i] = fmaf(qq.y, kk.y, s[i]);
         s[i] = fmaf(qq.z, kk.z, s[i]);
@@ -239,7 +260,7 @@ __global__ void __launch_bounds__(kThreads)
       const float pr[kRows] = {p0.x, p0.y, p0.z, p0.w,
                                p1.x, p1.y, p1.z, p1.w};
       float vv[kCols];
-      const float* vr = vs + c * HD + lane * kCols;
+      const float* vr = vs + c * W + lane * kCols;
       if constexpr (kCols == 4) {
         const float4 t = *reinterpret_cast<const float4*>(vr);
         vv[0] = t.x; vv[1] = t.y; vv[2] = t.z; vv[3] = t.w;
@@ -264,8 +285,10 @@ __global__ void __launch_bounds__(kThreads)
     const int qpos = row0 + i;
     if (qpos < S) {
       float* orow = ob + qpos * so.s + lane * kCols;
+      if (HD == W || lane * kCols < HD) {
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) orow[j] = acc[i][j] / denom;
+        for (int j = 0; j < kCols; ++j) orow[j] = acc[i][j] / denom;
+      }
       if (lse != nullptr && lane == 0)
         lse[static_cast<long long>(bh) * S + qpos] = m[i] + logf(l_row);
     }
@@ -306,11 +329,12 @@ constexpr int kStages = 2;                 // K tiles, and V tiles, in flight
 constexpr int kConsumerWarps = 4;          // one warpgroup
 constexpr int kThreads = 32 * kConsumerWarps + 32;   // + the producer warp
 
-// shared-memory layout, in bytes from a 1024-aligned base
+// shared-memory layout, in bytes from a 1024-aligned base; tiles whole
+// panels wide (padded_hd)
 template <int HD>
 struct Layout {
-  static constexpr int kQ = kBM * HD * 2;            // Q, later O
-  static constexpr int kTile = kBN * HD * 2;         // one K or V tile
+  static constexpr int kQ = kBM * padded_hd(HD) * 2;     // Q, later O
+  static constexpr int kTile = kBN * padded_hd(HD) * 2;  // one K or V tile
   static constexpr int kK = kQ;                      // K ring
   static constexpr int kV = kK + kStages * kTile;    // V ring
   static constexpr int kBar = kV + kStages * kTile;  // mbarriers
@@ -375,7 +399,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                        float* __restrict__ lse, int H, int KV, int S,
                        int causal, int window, float scale_log2) {
   using L = Layout<HD>;
-  constexpr int kPanels = HD / kPanel;
+  constexpr int HDP = padded_hd(HD);         // O's and V's columns
+  constexpr int kPanels = HDP / kPanel;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -459,9 +484,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) mbar_arrive(v_empty(stage(t)));
   };
 
-  float o[HD / 2];
+  float o[HDP / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
   float sc[kBN / 2];
   uint32_t pa[kBN / 16][4];
@@ -483,7 +508,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     wait_v(t - 1);
     wgmma_fence();
     issue_abt<HD>(sc, sq, sk + stage(t) * L::kTile);
-    issue_pb<HD>(o, pa, sv + stage(t - 1) * L::kTile);
+    issue_pb<HDP>(o, pa, sv + stage(t - 1) * L::kTile);
     wgmma_wait<1>();                   // groups retire in order: S is done
     fence_regs(sc);
     release_k(t);
@@ -494,12 +519,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(pa);
     release_v(t - 1);
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+    for (int i = 0; i < HDP / 2; ++i) o[i] *= alpha[(i / 2) % 2];
     to_a_fragments(sc, pa);
   }
   wait_v(t_hi - 1);
   wgmma_fence();
-  issue_pb<HD>(o, pa, sv + stage(t_hi - 1) * L::kTile);
+  issue_pb<HDP>(o, pa, sv + stage(t_hi - 1) * L::kTile);
   wgmma_wait<0>();
   fence_regs(o);
   fence_regs(pa);
@@ -522,7 +547,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             (m[r] + log2f(l[r])) * 0.6931471805599453f;
     }
   }
-  write_tile<HD>(smem, o, inv, warp, lane);
+  write_tile<HDP>(smem, o, inv, warp, lane);
   // the generic-proxy writes above, visible to the TMA store
   fence_async_smem();
   named_sync(1, 128);   // the consumer warps
@@ -560,7 +585,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace
 
 // dtype: 0 = float32 (the SIMT kernel), 1 = bfloat16 (the wgmma kernel); q,
-// k, v and o all of it; hd 64 or 128. `strides` holds 12 element strides,
+// k, v and o all of it; hd 64, 112 or 128. `strides` holds 12 element strides,
 // (batch, head, row) of q, k, v and o in turn; hd's stride is 1. Every
 // pointer and every stride is a multiple of 16 bytes; row strides fit in
 // int32. lse, when not null, receives each row's log-sum-exp, (B, H, S)
@@ -588,12 +613,18 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == 0 && hd == 64)
     return simt::launch<64>(q, k, v, o, lse, st, B, H, KV, S, causal, window,
                             sm_scale, s);
+  if (dtype == 0 && hd == 112)
+    return simt::launch<112>(q, k, v, o, lse, st, B, H, KV, S, causal, window,
+                             sm_scale, s);
   if (dtype == 0 && hd == 128)
     return simt::launch<128>(q, k, v, o, lse, st, B, H, KV, S, causal, window,
                              sm_scale, s);
   if (dtype == 1 && hd == 64)
     return wg::launch<64>(q, k, v, o, lse, st, B, H, KV, S, causal, window,
                               sm_scale, s);
+  if (dtype == 1 && hd == 112)
+    return wg::launch<112>(q, k, v, o, lse, st, B, H, KV, S, causal, window,
+                           sm_scale, s);
   if (dtype == 1 && hd == 128)
     return wg::launch<128>(q, k, v, o, lse, st, B, H, KV, S, causal, window,
                                sm_scale, s);

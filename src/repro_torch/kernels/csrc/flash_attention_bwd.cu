@@ -80,13 +80,22 @@
 //   (the D pass 0.011, dK/dV 0.039, dQ 0.038), against SDPA's backward at
 //   0.1238 ms and the mma.sync design's 0.2654; 0.0253 ms at the
 //   LiteModel's (4, 4, 4, 512, 64), against 0.0295 and 0.1051.
+//   hd 112 (zamba2-7b's shared block) runs on hd 128's tiles, as the
+//   forward does (hopper.cuh): the tensor maps carry the true hd, so TMA
+//   zero-fills columns 112..127 of every tile's second panel and clips
+//   them from the stores of dq, dk and dv. The four score-like products
+//   contract over hd in 7 k-steps and never read the pad; dV, dK and dQ
+//   run at n128, their pad columns products of zero columns. The prep
+//   kernel gives a row 16 lanes, of which lanes 14 and 15 load nothing.
 // * float32: SIMT (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel), since the
 //   tensor cores would take fp32 only as TF32; its floor is near 16.1 GFLOP
 //   / 67 TFLOP/s = 0.24 ms. Tiles are staged as fp32 with rows padded to
 //   hd + 1 floats, so that the 32 lanes reading 32 rows at one column hit
-//   32 banks; each thread owns a 4 x 2 (S-like products) or 8 x hd/32 (dK,
-//   dV, dQ) patch of outputs in registers. Shared memory at hd 128: 107,648
-//   bytes (dK/dV) and 108,032 (dQ), two blocks per SM.
+//   32 banks; each thread owns a 4 x 2 (S-like products) or 8 x
+//   ceil(hd/32) (dK, dV, dQ) patch of outputs in registers, the columns
+//   past hd (at hd 112, lanes 16..31 of the fourth) idle and never stored.
+//   Shared memory at hd 128: 107,648 bytes (dK/dV) and 108,032 (dQ), two
+//   blocks per SM.
 
 #include "hopper.cuh"
 
@@ -115,6 +124,11 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 b = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// a lane's output columns: lane + 32 c for c < lane_cols(hd)
+__host__ __device__ constexpr int lane_cols(int hd) {
+  return (hd + 31) / 32;
 }
 
 template <typename T>
@@ -179,25 +193,28 @@ __device__ __forceinline__ void dot_rows(float (&out)[MA / 8][MB / 32],
 
 // acc[r][c] += sum_k C(k, warp + 8r) X[k][lane + 32c] over k < NK, with
 // C(k, row) = C[k][row] (TRANS) or C[row][k], LDC floats a row; X rows LDX
-// floats apart
+// floats apart, HD columns (a column past HD adds zeros)
 template <int NR, int HD, int NK, int LDC, int LDX, bool TRANS>
-__device__ __forceinline__ void acc_product(float (&acc)[NR / 8][HD / 32],
-                                            const float* C, const float* X) {
+__device__ __forceinline__ void acc_product(
+    float (&acc)[NR / 8][lane_cols(HD)], const float* C, const float* X) {
+  constexpr int kC = lane_cols(HD);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll 2
   for (int k = 0; k < NK; ++k) {
-    float cv[NR / 8], xv[HD / 32];
+    float cv[NR / 8], xv[kC];
 #pragma unroll
     for (int r = 0; r < NR / 8; ++r) {
       const int row = warp + 8 * r;
       cv[r] = TRANS ? C[k * LDC + row] : C[row * LDC + k];
     }
 #pragma unroll
-    for (int c = 0; c < HD / 32; ++c) xv[c] = X[k * LDX + lane + 32 * c];
+    for (int c = 0; c < kC; ++c)
+      xv[c] = HD % 32 == 0 || lane + 32 * c < HD ? X[k * LDX + lane + 32 * c]
+                                                 : 0.f;
 #pragma unroll
     for (int r = 0; r < NR / 8; ++r)
 #pragma unroll
-      for (int c = 0; c < HD / 32; ++c)
+      for (int c = 0; c < kC; ++c)
         acc[r][c] = fmaf(cv[r], xv[c], acc[r][c]);
   }
 }
@@ -234,10 +251,18 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) D[row] = s;
 }
 
+// the prep kernel's lanes a row: one 16-byte pack of o and of dO each, a
+// power of two, so that a row's lanes reduce by shuffles within the row
+__host__ __device__ constexpr int prep_lanes(int hd) {
+  return hopper::padded_hd(hd) / 8;
+}
+
 // The bf16 kernels' D and lse in log2 units, for rows (b H + h) pitch + i:
 // D = sum_d dO o and lse2 = lse log2(e) for i < S, 0 on the rows of [S,
-// pitch), which the wgmma kernels copy 64 at a time. A row is HD / 8 lanes,
-// each one 16-byte pack of o and of dO; a warp holds 32 / (HD / 8) rows.
+// pitch), which the wgmma kernels copy 64 at a time. A row is
+// prep_lanes(HD) lanes, each one 16-byte pack of o and of dO (at hd 112 the
+// last two of 16 lanes load nothing); a warp holds 32 / prep_lanes(HD)
+// rows.
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
@@ -246,7 +271,7 @@ __global__ void __launch_bounds__(kThreads)
                           float* __restrict__ D, float* __restrict__ lse2,
                           Strides so, Strides sdo, int H, int S, int pitch,
                           long long rows) {
-  constexpr int kLanes = HD / 8, kRowsPerWarp = 32 / kLanes;
+  constexpr int kLanes = prep_lanes(HD), kRowsPerWarp = 32 / kLanes;
   const int lane = threadIdx.x & 31, l = lane % kLanes;
   const long long row =
       (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) *
@@ -255,7 +280,7 @@ __global__ void __launch_bounds__(kThreads)
   const int i = static_cast<int>(row % pitch);
   const bool live = row < rows && i < S;
   float s = 0.f;
-  if (live) {
+  if (live && 8 * l < HD) {
     const int b = static_cast<int>(bh / H), h = static_cast<int>(bh % H);
     const uint4 a = *reinterpret_cast<const uint4*>(
         o + b * so.b + h * so.h + i * so.s + 8 * l);
@@ -307,11 +332,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   load_rows<T, HD, kKvBK, LD>(Ks, k + b * sk.b + kvh * sk.h, sk.s, k0, S);
   load_rows<T, HD, kKvBK, LD>(Vs, v + b * sv.b + kvh * sv.h, sv.s, k0, S);
 
-  float dk_acc[kKvBK / 8][HD / 32], dv_acc[kKvBK / 8][HD / 32];
+  constexpr int kC = lane_cols(HD);
+  float dk_acc[kKvBK / 8][kC], dv_acc[kKvBK / 8][kC];
 #pragma unroll
   for (int r = 0; r < kKvBK / 8; ++r)
 #pragma unroll
-    for (int c = 0; c < HD / 32; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
+    for (int c = 0; c < kC; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
 
   // the query rows some key of the tile can see: [i_lo, i_hi)
   const int i_lo = causal ? k0 : 0;
@@ -370,7 +396,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int j = k0 + warp + 8 * r;
     if (j < S) {
 #pragma unroll
-      for (int c = 0; c < HD / 32; ++c) {
+      for (int c = 0; c < kC; ++c) {
+        if (HD % 32 != 0 && lane + 32 * c >= HD) break;
         dkb[j * sdk.s + lane + 32 * c] = from_f32<T>(dk_acc[r][c] * sm_scale);
         dvb[j * sdv.s + lane + 32 * c] = from_f32<T>(dv_acc[r][c]);
       }
@@ -411,11 +438,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   const T* kb = k + b * sk.b + kvh * sk.h;
   const T* vb = v + b * sv.b + kvh * sv.h;
 
-  float dq_acc[kQBQ / 8][HD / 32];
+  constexpr int kC = lane_cols(HD);
+  float dq_acc[kQBQ / 8][kC];
 #pragma unroll
   for (int r = 0; r < kQBQ / 8; ++r)
 #pragma unroll
-    for (int c = 0; c < HD / 32; ++c) dq_acc[r][c] = 0.f;
+    for (int c = 0; c < kC; ++c) dq_acc[r][c] = 0.f;
 
   // the keys some row of this tile can see: [k_begin, k_end)
   const int k_end = causal ? min(S, q0 + kQBQ) : S;
@@ -450,8 +478,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int i = q0 + warp + 8 * r;
     if (i < S) {
 #pragma unroll
-      for (int c = 0; c < HD / 32; ++c)
+      for (int c = 0; c < kC; ++c) {
+        if (HD % 32 != 0 && lane + 32 * c >= HD) break;
         dqb[i * sdq.s + lane + 32 * c] = from_f32<T>(dq_acc[r][c] * sm_scale);
+      }
     }
   }
 }
@@ -470,10 +500,11 @@ constexpr int kThreads = 128 * (1 + kConsumers);   // warpgroup 0 produces
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 
-// shared-memory layout, in bytes from a 1024-aligned base
+// shared-memory layout, in bytes from a 1024-aligned base; tiles whole
+// panels wide (padded_hd)
 template <int HD, int STAGES = kStages>
 struct Layout {
-  static constexpr int kTile = kTileRows * HD * 2;    // one bf16 tile
+  static constexpr int kTile = kTileRows * padded_hd(HD) * 2;  // a bf16 tile
   // two fixed tiles (dK/dV: K, V; dQ: Q, dO), then the ring, whose stage s
   // holds two streamed tiles (dK/dV: Q, dO; dQ: K, V)
   static constexpr int kRing = 2 * kTile;
@@ -487,23 +518,25 @@ struct Layout {
   static constexpr int kAlloc = kBytes + 1024;         // room to align the base
 };
 
-// a 64-row tile of a (B, N, S, hd) map at (row, head, batch), panel by panel
+// a 64-row tile of a (B, N, S, hd) map at (row, head, batch), panel by
+// panel (columns past hd zero-filled)
 template <int HD>
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
                                           uint32_t bar, int row, int head,
                                           int batch) {
 #pragma unroll
-  for (int p = 0; p < HD / kPanel; ++p)
+  for (int p = 0; p < padded_hd(HD) / kPanel; ++p)
     tma_load(dst + p * kTileRows * kRowBytes, map, bar, p * kPanel, row, head,
              batch);
 }
 
+// and back (columns past hd clipped)
 template <int HD>
 __device__ __forceinline__ void store_tile(const CUtensorMap* map,
                                            uint32_t src, int row, int head,
                                            int batch) {
 #pragma unroll
-  for (int p = 0; p < HD / kPanel; ++p)
+  for (int p = 0; p < padded_hd(HD) / kPanel; ++p)
     tma_store(map, src + p * kTileRows * kRowBytes, p * kPanel, row, head,
               batch);
 }
@@ -577,7 +610,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 int S, int pitch, int causal, int window,
                                 float scale_log2, float sm_scale) {
   using L = Layout<HD>;
-  static_assert(kStages * L::kStage >= 2 * kTileRows * HD * 4,
+  constexpr int HDP = padded_hd(HD);   // the dK and dV accumulators' columns
+  static_assert(kStages * L::kStage >= 2 * kTileRows * HDP * 4,
                 "consumer 1's dK and dV sums fit the ring");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem;
@@ -625,9 +659,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
   const int key = k0 + 16 * warp + lane / 4;   // and key + 8
-  float dv[HD / 2], dk[HD / 2];
+  float dv[HDP / 2], dk[HDP / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dv[i] = dk[i] = 0.f;
+  for (int i = 0; i < HDP / 2; ++i) dv[i] = dk[i] = 0.f;
   float st[kTileRows / 2], dpt[kTileRows / 2];
   uint32_t pa[kTileRows / 16][4], da[kTileRows / 16][4];
 
@@ -665,7 +699,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     to_a_fragments(st, pa);
     wgmma_fence();
-    issue_pb<HD>(dv, pa, sdo);      // dV += P^T dO
+    issue_pb<HDP>(dv, pa, sdo);     // dV += P^T dO
     fence_regs(dv);
     wgmma_wait<1>();                // dP^T is done
     fence_regs(dpt);
@@ -678,7 +712,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     to_a_fragments(dpt, da);
     wgmma_fence();
-    issue_pb<HD>(dk, da, sq);       // dK += dS^T Q
+    issue_pb<HDP>(dk, da, sq);      // dK += dS^T Q
     wgmma_wait<0>();
     fence_regs(dv);
     fence_regs(dk);
@@ -693,15 +727,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* red = reinterpret_cast<float*>(smem + L::kRing);
   if (c == 1) {
     put_partial(dv, red, tid);
-    put_partial(dk, red + (HD / 2) * 128, tid);
+    put_partial(dk, red + (HDP / 2) * 128, tid);
   }
   named_sync(1, 128 * kConsumers);
   if (c == 1) return;
   add_partial(dv, red, tid);
-  add_partial(dk, red + (HD / 2) * 128, tid);
+  add_partial(dk, red + (HDP / 2) * 128, tid);
   const float one[2] = {1.f, 1.f}, scale[2] = {sm_scale, sm_scale};
-  write_tile<HD>(smem, dk, scale, warp, lane);            // over K
-  write_tile<HD>(smem + L::kTile, dv, one, warp, lane);   // over V
+  write_tile<HDP>(smem, dk, scale, warp, lane);            // over K
+  write_tile<HDP>(smem + L::kTile, dv, one, warp, lane);   // over V
   fence_async_smem();
   named_sync(2, 128);
   if (tid == 0) {
@@ -738,7 +772,8 @@ __global__ void __launch_bounds__(CONS == 2 ? kThreads : 160,
                               float scale_log2, float sm_scale) {
   constexpr int kSt = CONS == 2 ? kStages : 2;
   using L = Layout<HD, kSt>;
-  static_assert(CONS == 1 || kSt * L::kStage >= kTileRows * HD * 4,
+  constexpr int HDP = padded_hd(HD);   // the dQ accumulator's columns
+  static_assert(CONS == 1 || kSt * L::kStage >= kTileRows * HDP * 4,
                 "consumer 1's dQ sums fit the ring");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem;
@@ -783,9 +818,9 @@ __global__ void __launch_bounds__(CONS == 2 ? kThreads : 160,
   const long long r0 = static_cast<long long>(bh) * pitch + row;
   const float lr[2] = {lse2[r0], lse2[r0 + 8]};   // rows < pitch
   const float dr[2] = {D[r0], D[r0 + 8]};
-  float dq[HD / 2];
+  float dq[HDP / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < HDP / 2; ++i) dq[i] = 0.f;
   float sc[kTileRows / 2], dp[kTileRows / 2];
   uint32_t da[kTileRows / 16][4];
 
@@ -818,7 +853,7 @@ __global__ void __launch_bounds__(CONS == 2 ? kThreads : 160,
       dp[r] = sc[r] * (dp[r] - dr[(r / 2) % 2]);
     to_a_fragments(dp, da);
     wgmma_fence();
-    issue_pb<HD>(dq, da, sk);       // dQ += dS K
+    issue_pb<HDP>(dq, da, sk);      // dQ += dS K
     wgmma_wait<0>();
     fence_regs(dq);
     fence_regs(da);
@@ -835,7 +870,7 @@ __global__ void __launch_bounds__(CONS == 2 ? kThreads : 160,
     add_partial(dq, red, tid);
   }
   const float scale[2] = {sm_scale, sm_scale};
-  write_tile<HD>(smem, dq, scale, warp, lane);   // over Q
+  write_tile<HDP>(smem, dq, scale, warp, lane);   // over Q
   fence_async_smem();
   named_sync(2, 128);
   if (tid == 0) {
@@ -914,7 +949,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     const int pitch = (S + hopper::kTileRows - 1) / hopper::kTileRows *
                       hopper::kTileRows;
     const long long rows = static_cast<long long>(B) * H * pitch;
-    constexpr int kRowsPerBlock = kWarps * 32 / (HD / 8);
+    constexpr int kRowsPerBlock = kWarps * 32 / prep_lanes(HD);
     float* lse2 = D + rows;
     flash_bwd_prep_kernel<HD><<<static_cast<unsigned>(
                                     (rows + kRowsPerBlock - 1) /
@@ -966,7 +1001,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dO, dq, dk, dv all of it);
-// hd 64 or 128. `strides` holds 24 element strides, (batch, head, row) of
+// hd 64, 112 or 128. `strides` holds 24 element strides, (batch, head, row) of
 // q, k, v, o, dO, dq, dk and dv in turn; hd's stride is 1, every pointer
 // and stride a multiple of 16 bytes. lse (B, H, S) fp32 is the forward's.
 // D is an fp32 scratch of B H S floats (float32) or 2 B H pitch floats,
@@ -994,12 +1029,19 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   if (dtype == 0 && hd == 64)
     return launch<float, 64>(q, k, v, o, dO, l, d, dq, dk, dv, st, B, H, KV,
                              S, causal, window, sm_scale, s);
+  if (dtype == 0 && hd == 112)
+    return launch<float, 112>(q, k, v, o, dO, l, d, dq, dk, dv, st, B, H, KV,
+                              S, causal, window, sm_scale, s);
   if (dtype == 0 && hd == 128)
     return launch<float, 128>(q, k, v, o, dO, l, d, dq, dk, dv, st, B, H, KV,
                               S, causal, window, sm_scale, s);
   if (dtype == 1 && hd == 64)
     return launch<__nv_bfloat16, 64>(q, k, v, o, dO, l, d, dq, dk, dv, st, B,
                                      H, KV, S, causal, window, sm_scale, s);
+  if (dtype == 1 && hd == 112)
+    return launch<__nv_bfloat16, 112>(q, k, v, o, dO, l, d, dq, dk, dv, st,
+                                      B, H, KV, S, causal, window, sm_scale,
+                                      s);
   if (dtype == 1 && hd == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, o, dO, l, d, dq, dk, dv, st,
                                       B, H, KV, S, causal, window, sm_scale,

@@ -6,11 +6,16 @@
 // the host-side tensor-map encoding of a strided (B, N, S, hd) view.
 //
 // Tiles: every tile is 64 rows (the m64 of one wgmma) by hd bf16 columns,
-// stored as hd / 64 panels of 64 rows x 128 bytes, one panel per 64
-// columns, with the 128-byte swizzle that TMA writes and the wgmma
+// stored as padded_hd(hd) / 64 panels of 64 rows x 128 bytes, one panel per
+// 64 columns, with the 128-byte swizzle that TMA writes and the wgmma
 // descriptors read. A tile is K-major for an operand whose contraction runs
 // along hd, MN-major ("transposed") for one whose contraction runs along its
-// rows.
+// rows. An hd that is not a multiple of 64 (112: zamba2's shared block) is
+// padded to whole panels: the tensor map knows the true hd, so TMA fills the
+// last panel's columns past it with zeros on a load and clips them on a
+// store. A product that contracts over hd runs hd / 16 k-steps and never
+// reads the pad; one whose N is hd runs at the padded width, and its pad
+// columns, zero products of zero columns, are never stored.
 #pragma once
 
 #include <cuda.h>          // CUtensorMap and its enums; libcuda is not linked
@@ -29,6 +34,12 @@ constexpr int kTileRows = 64;              // rows of a tile: one m64
 constexpr int kPanel = 64;                 // bf16 columns per 128-byte row
 constexpr int kRowBytes = 128;             // one swizzled row of a panel
 constexpr int kTensorMapError = 10000;     // + the CUresult of a refused map
+
+// the columns a tile of hd columns takes in shared memory and in a wgmma
+// accumulator: whole 64-column panels (64 -> 64, 112 -> 128, 128 -> 128)
+__host__ __device__ constexpr int padded_hd(int hd) {
+  return (hd + kPanel - 1) / kPanel * kPanel;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -364,8 +375,9 @@ inline EncodeTiled encode_tiled() {
 
 // A map of the bf16 (B, N, S, hd) view at `ptr` with element strides `st`,
 // cut into boxes of 64 hd columns (one 128-byte swizzle row) by `rows` rows.
-// Rows past S read as zeros and are not written. Returns 0 or the CUresult
-// of the refusal.
+// Rows past S, and columns past hd in a box that straddles it, read as zeros
+// and are not written. A box's transaction bytes are the whole box's, the
+// zero fill included. Returns 0 or the CUresult of the refusal.
 inline int make_map(CUtensorMap* map, const void* ptr, const Strides& st,
                     int B, int N, int S, int hd, int rows) {
   const EncodeTiled encode = encode_tiled();

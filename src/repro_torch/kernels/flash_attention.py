@@ -28,8 +28,10 @@ from repro_torch.kernels import _build, ref
 #: nowhere else (CPU calls go to the plain version, uncounted)
 launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (64, 128)
+#: head dims the kernels are instantiated for; 112 (zamba2-7b's shared
+#: block) runs on 128's tiles, its last 16 columns zero-filled by TMA (bf16)
+#: or by the loads (fp32) and never stored
+HEAD_DIMS = (64, 112, 128)
 
 #: rows of the bf16 backward's tiles; its D and lse scratch rows are padded
 #: to a multiple of it
@@ -195,8 +197,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sliding_window: int = 0) -> torch.Tensor:
     """q (B, H, S, hd), k and v (B, KV, S, hd) with H % KV == 0, one dtype
     (float32 or bfloat16) -> (B, H, S, hd) in that dtype. Query head h
-    reads KV head h // (H / KV). Any S; hd 64 or 128 on CUDA, where q, k
-    and v may be strided views (hd's stride 1, the others multiples of 16
+    reads KV head h // (H / KV). Any S; hd 64, 112 or 128 on CUDA, where q,
+    k and v may be strided views (hd's stride 1, the others multiples of 16
     bytes) and the result is the (B, H, S, hd) view of a (B, S, H, hd)
     tensor, so that ``.transpose(1, 2)`` gives it back contiguous."""
     _check_args(q, k, v, sliding_window)

@@ -37,6 +37,12 @@ TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # 2e-6, which assumes the CPU's order of summation; bf16 as there
 TOL_NORM = {"float32": 1e-5, "bfloat16": 2e-2}
 TOL_FLASH = {"float32": 2e-5, "bfloat16": 2e-2}
+# flash at hd 112 (B, H, KV, S, hd, window, dtype): zamba2-7b's shared
+# block at full width, a ragged S, a sliding window, a group of 4
+HD112_CASES = [(B, H, KV, S, 112, w, dt)
+               for B, H, KV, S, w in ((4, 32, 32, 512, 0), (2, 4, 4, 300, 0),
+                                      (1, 4, 4, 256, 64), (2, 8, 2, 256, 0))
+               for dt in ("bfloat16", "float32")]
 
 
 @pytest.fixture
@@ -142,7 +148,13 @@ def test_cuda_cohort_matches_cpu(cuda):
                                        (2048, 3072, "float32"),
                                        (1000, 3072, "float32"),
                                        (64, 777, "float32"),
-                                       (64, 777, "bfloat16")])
+                                       (64, 777, "bfloat16"),
+                                       # zamba2-7b: prefill and training,
+                                       # decode
+                                       (2048, 3584, "bfloat16"),
+                                       (4, 3584, "bfloat16"),
+                                       (2048, 3584, "float32"),
+                                       (4, 3584, "float32")])
 def test_cuda_rmsnorm_matches_plain(cuda, N, d, dtype):
     rng = np.random.default_rng(N + d)
     tdt = getattr(torch, dtype)
@@ -222,7 +234,10 @@ def test_cuda_rmsnorm_bwd_graph_replay_is_eager_bitwise(cuda, N, d, variant):
     (4, 12, 2, 512, 128, 0, "float32"),
     # musicgen-medium: H = KV at hd 64
     (4, 24, 24, 512, 64, 0, "bfloat16"),
-    (4, 24, 24, 512, 64, 0, "float32")])
+    (4, 24, 24, 512, 64, 0, "float32"),
+    # zamba2-7b's shared block: H = KV = 32 at hd 112, run on hd 128's
+    # tiles; a ragged S, a window and a group of 4 at hd 112
+    *HD112_CASES])
 def test_cuda_flash_attention_matches_plain(cuda, B, H, KV, S, hd, window,
                                             dtype, layout):
     """bf16 runs the wgmma kernel, fp32 the SIMT kernel; both read strided
@@ -326,7 +341,9 @@ def test_cuda_generate_matches_cpu(cuda):
                                        (2048, 3072, "float32"),
                                        (4, 3072, "float32"),
                                        (64, 777, "float32"),
-                                       (64, 777, "bfloat16")])
+                                       (64, 777, "bfloat16"),
+                                       (2048, 3584, "bfloat16"),
+                                       (4, 3584, "bfloat16")])
 def test_cuda_add_rmsnorm_is_add_then_rmsnorm_bitwise(cuda, N, d, dtype):
     rng = np.random.default_rng(N + d)
     tdt = getattr(torch, dtype)
@@ -376,7 +393,9 @@ def test_cuda_add_rmsnorm_gradients_match_cpu(cuda):
                                        (1000, 3072, "bfloat16"),
                                        (1000, 3072, "float32"),
                                        (64, 777, "float32"),
-                                       (64, 777, "bfloat16")])
+                                       (64, 777, "bfloat16"),
+                                       (2048, 3584, "bfloat16"),
+                                       (2048, 3584, "float32")])
 @pytest.mark.parametrize("variant", ["rmsnorm", "add", "add_no_gs"])
 def test_cuda_rmsnorm_bwd_matches_plain(cuda, N, d, dtype, variant):
     """The norm backward kernels against their plain closed forms, at the
@@ -427,7 +446,8 @@ def test_cuda_rmsnorm_bwd_matches_plain(cuda, N, d, dtype, variant):
     (4, 12, 2, 512, 128, 0, "bfloat16"),
     (4, 12, 2, 512, 128, 0, "float32"),
     (4, 24, 24, 512, 64, 0, "bfloat16"),
-    (4, 24, 24, 512, 64, 0, "float32")])
+    (4, 24, 24, 512, 64, 0, "float32"),
+    *HD112_CASES])
 def test_cuda_flash_attention_bwd_matches_plain(cuda, B, H, KV, S, hd, window,
                                                 dtype, layout):
     """The flash backward kernels against the plain closed form on the
@@ -640,12 +660,17 @@ def test_cuda_apply_moe_matches_cpu(cuda, cf):
 def _ssm_cut(name, dtype):
     """The SSM family's smoke cuts: xlstm-1.3b's with slstm_every 2 over 3
     layers (a group of one mLSTM and one sLSTM block, then an mLSTM tail),
-    zamba2-7b's (2 Mamba2 blocks and the shared attention block) and its
+    zamba2-7b's (2 Mamba2 blocks and the shared attention block), the same
+    at zamba2-7b's head dim (d 224 over 2 heads: hd 112) and its
     pure-Mamba2 LiteModel."""
     import dataclasses
     if name == "xlstm":
         cfg = dataclasses.replace(get_config("xlstm-1.3b").smoke(),
                                   n_layers=3)
+    elif name == "zamba2_hd112":
+        cfg = dataclasses.replace(get_config("zamba2-7b").smoke(),
+                                  d_model=224, n_heads=2, n_kv_heads=2,
+                                  head_dim=112)
     else:
         cfg = get_config("zamba2-7b").smoke()
         cfg = cfg.lite() if name == "mamba2" else cfg
@@ -653,7 +678,8 @@ def _ssm_cut(name, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["xlstm", "zamba2", "mamba2"])
+@pytest.mark.parametrize("name", ["xlstm", "zamba2", "zamba2_hd112",
+                                  "mamba2"])
 def test_cuda_ssm_graphed_generate_is_the_eager_decode_loop(cuda, name):
     """The SSM family served on the card in bf16 (chip_smoke.py phases 5h
     and 9g at smoke size): the decode step, captured into a CUDA graph,
@@ -689,7 +715,8 @@ def test_cuda_ssm_graphed_generate_is_the_eager_decode_loop(cuda, name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["xlstm", "zamba2", "mamba2"])
+@pytest.mark.parametrize("name", ["xlstm", "zamba2", "zamba2_hd112",
+                                  "mamba2"])
 def test_cuda_ssm_prefill_decode_and_gradients_match_cpu(cuda, name):
     """The SSM family on the card against the CPU in fp32 (chip_smoke.py
     phase 5i at smoke size): prefill logits and every state, 4 decode steps
@@ -727,7 +754,7 @@ def test_cuda_ssm_prefill_decode_and_gradients_match_cpu(cuda, name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["xlstm", "zamba2"])
+@pytest.mark.parametrize("name", ["xlstm", "zamba2", "zamba2_hd112"])
 def test_cuda_ssm_train_step_launches_and_matches_cpu(cuda, name):
     """One train step of the SSM family with its LiteModel on the card
     (chip_smoke.py phases 9f and 9g at smoke size), fp32: one kd_loss_grad
@@ -755,7 +782,7 @@ def test_cuda_ssm_train_step_launches_and_matches_cpu(cuda, name):
         after = dict(tkd.launches, **trms.launches, **tflash.launches)
         if dev.type == "cuda":
             ran = {k: after[k] - before[k] for k in after}
-            hybrid = name == "zamba2"
+            hybrid = name.startswith("zamba2")
             assert ran["kd_loss_grad"] == 1
             assert ran["flash_attention"] == ran["flash_attention_bwd"] == (
                 1 if hybrid else 0)
