@@ -309,6 +309,43 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 backward's and flash backward's device time by kernel (the
                 norm backward must be one kernel); the flash forward with
                 and without lse; kd_loss_grad at (1, 2048, 128256) fp32.
+ 13. sharded  — the mesh-sharded path over torch.distributed (one card, so
+                no scaling is measured). 13a: a one-rank NCCL group in this
+                process; phase 4's config, 3 rounds of engine="sharded"
+                against engine="batched" from seed 0: equal sizes and
+                intensities, bitwise-equal globals, equal kd_loss_grad
+                launches, seconds a round. 13b-13d: ranks spawned on the one
+                card under gloo (NCCL refuses two ranks on a device), which
+                load the libraries phase 2 built. 13b, world 2: one round
+                of the same config with each engine from seed 0: equal
+                sizes and intensities, both ranks' globals bitwise equal,
+                each rank's kd_loss_grad launches one a padded step of its
+                share (C_p / 2) of every group; the distance to the batched
+                engine's globals is logged beside the batched engine's own
+                distance between its padded and its exact client count on
+                that cohort (the card's GEMMs round differently at another
+                client count, and 40+ SGD steps grow it past 1e-4); two
+                cohorts sharded against batched at atol 1e-5 / rtol 1e-4:
+                the reference's MESH_PARITY cohort (tests/test_sharded.py:
+                1-3 epochs, one-client groups) and four clients in one
+                group, so that each rank trains two real clients.
+                13c, world 2: sharded_kd_loss at
+                (2048, 151936), sharded_rmsnorm at (2048, 3584),
+                sharded_flash_attention at (4, 32, 32, 512, 112) and (4,
+                24, 8, 512, 128), bf16, each bitwise equal to the unsharded
+                kernel on the whole tensor, one launch a rank, and that
+                kernel within phase 3's bf16 tolerance of its plain
+                version. 13d, world 4:
+                flash_decode_sharded at qwen2-vl-2b's decode shape (B 4, H
+                12, KV 2, hd 128, L 32768, the slot in the third slice)
+                against gqa_attention over the whole cache (fp32 1e-5, bf16
+                2e-3), the new k/v in exactly one rank's slice; a 2-layer
+                fp32 cut of qwen2-vl-2b at full width, prefill and 16
+                decode steps through models.api on a (1, 4) mesh against no
+                mesh, logits at 1e-4. 13e: the grouped MoE dispatch, a
+                2-layer fp32 cut of qwen3-moe-30b-a3b at full width, the
+                blocks' forward at G = 2 and 4 on the card and on the CPU:
+                equal routes and kept pairs at every MoE call, y at 1e-3.
 
 The parity phases turn TF32 off for cuDNN and matmuls, so that both sides
 compute in full float32, and restore the defaults afterwards.
@@ -330,9 +367,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_FP32_OPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
-PEAK_BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
+# the card's datasheet rates the bounds divide by (bytes / s, fp32 and bf16
+# operations / s): repro_torch.launch.mesh.HW, copied in by main()
+HW = {}
 L2_BYTES = 50e6                 # H100 L2 cache
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 TOL_NORM = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -731,8 +768,8 @@ def kd_bounds(N, V, elt):
     for name, nbytes, ops in (
             ("kd_loss_fwd", 2 * N * V * elt + 4 * N + 32 * N, 12 * N * V),
             ("kd_loss_bwd", 4 * N * V * elt + 4 * N + 32 * N, 16 * N * V)):
-        t_b = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_o = ops / PEAK_FP32_OPS_PER_S * 1e3
+        t_b = nbytes / HW["hbm_bw"] * 1e3
+        t_o = ops / HW["peak_flops_fp32"] * 1e3
         out[name] = ((t_b, "bytes") if t_b >= t_o else (t_o, "operations"))
     return out
 
@@ -781,7 +818,7 @@ def grad_bound(C, B, V, elt):
     share)."""
     N = C * B
     return _bound(4 * N * V * elt + 4 * N + 24 * C, 28 * N * V,
-                  PEAK_FP32_OPS_PER_S)
+                  HW["peak_flops_fp32"])
 
 
 def phase_grad_timing(torch, shapes, iters=None):
@@ -1002,7 +1039,7 @@ def check_norm_bwd_graph(torch):
 
 
 def _bound(nbytes, ops, ops_per_s):
-    t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_b = nbytes / HW["hbm_bw"] * 1e3
     t_o = ops / ops_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
@@ -1010,13 +1047,15 @@ def _bound(nbytes, ops, ops_per_s):
 def norm_bound(N, d, elt):
     """rmsnorm: x read and y written once, scale read once; about 4 fp32
     operations per element (square-add, two multiplies, the cast)."""
-    return _bound(2 * N * d * elt + d * elt, 4 * N * d, PEAK_FP32_OPS_PER_S)
+    return _bound(2 * N * d * elt + d * elt, 4 * N * d,
+                  HW["peak_flops_fp32"])
 
 
 def add_norm_bound(N, d, elt):
     """add_rmsnorm: x and delta read, s and y written once, scale read
     once; about 5 fp32 operations per element."""
-    return _bound(4 * N * d * elt + d * elt, 5 * N * d, PEAK_FP32_OPS_PER_S)
+    return _bound(4 * N * d * elt + d * elt, 5 * N * d,
+                  HW["peak_flops_fp32"])
 
 
 def visible_pairs(S, causal, window):
@@ -1036,7 +1075,7 @@ def flash_bound(B, H, KV, S, hd, window, dtype, elt):
     rate for fp32 ones (the softmax's exps are not counted)."""
     nbytes = (2 * B * H + 2 * B * KV) * S * hd * elt
     ops = 4 * hd * B * H * visible_pairs(S, True, window)
-    rate = PEAK_BF16_OPS_PER_S if dtype == "bfloat16" else PEAK_FP32_OPS_PER_S
+    rate = HW["peak_flops_bf16" if dtype == "bfloat16" else "peak_flops_fp32"]
     return _bound(nbytes, ops, rate)
 
 
@@ -2069,10 +2108,10 @@ def decode_bound_ms(torch, engine):
         nbytes += (n_seg - 1) * shared
         log(f"[{cfg.family} serve] decode byte bound with the shared "
             f"block's {shared} B of weights counted once: {once} B, "
-            f"{once / PEAK_BYTES_PER_S * 1e3:.3f} ms; counted at each of its "
+            f"{once / HW['hbm_bw'] * 1e3:.3f} ms; counted at each of its "
             f"{n_seg} invocations: {nbytes} B, "
-            f"{nbytes / PEAK_BYTES_PER_S * 1e3:.3f} ms (the bound used)")
-    return nbytes, nbytes / PEAK_BYTES_PER_S * 1e3, cache_bytes
+            f"{nbytes / HW['hbm_bw'] * 1e3:.3f} ms (the bound used)")
+    return nbytes, nbytes / HW["hbm_bw"] * 1e3, cache_bytes
 
 
 def _leaf_paths(tree, path=()):
@@ -3147,7 +3186,7 @@ def norm_bwd_bound(N, d, elt, add):
     g_s, g_y read and d_s written), scale read and dscale written once;
     about 10 fp32 operations per element."""
     return _bound((4 if add else 3) * N * d * elt + 2 * d * elt, 10 * N * d,
-                  PEAK_FP32_OPS_PER_S)
+                  HW["peak_flops_fp32"])
 
 
 def flash_bwd_bound(B, H, KV, S, hd, window, dtype, elt):
@@ -3158,7 +3197,7 @@ def flash_bwd_bound(B, H, KV, S, hd, window, dtype, elt):
     inputs and the fp32 rate for fp32 ones."""
     nbytes = (4 * B * H + 4 * B * KV) * S * hd * elt + 4 * B * H * S
     ops = 10 * hd * B * H * visible_pairs(S, True, window)
-    rate = PEAK_BF16_OPS_PER_S if dtype == "bfloat16" else PEAK_FP32_OPS_PER_S
+    rate = HW["peak_flops_bf16" if dtype == "bfloat16" else "peak_flops_fp32"]
     return _bound(nbytes, ops, rate)
 
 
@@ -3356,6 +3395,574 @@ def path_times(times, launches_by_key):
 
 
 # ---------------------------------------------------------------------- #
+# 13. the mesh-sharded path
+# ---------------------------------------------------------------------- #
+# 13c's shapes (bf16): kd_loss rows (N, V), rmsnorm (N, d), flash (B, H, KV,
+# S, hd); 13d's decode function at qwen2-vl-2b's decode shape, and its
+# 2-layer model cut (prompt, new tokens, cache slots)
+SHARDED = {"rounds": 3, "kd": (2048, 151936), "rms": (2048, 3584),
+           "flash": ((4, 32, 32, 512, 112), (4, 24, 8, 512, 128)),
+           "decode": {"B": 4, "H": 12, "KV": 2, "hd": 128, "L": 32768},
+           "cut": {"arch": "qwen2-vl-2b", "n_layers": 2, "B": 4,
+                   "prompt": 512, "n_new": 16, "max_len": 1024},
+           "groups": (2, 4), "moe_tokens": (2, 64), "timeout_s": 300,
+           # 13b's (clients, sizes, intensities) held sharded against batched
+           # at atol 1e-5 / rtol 1e-4 (tests/test_torch_sharded.py's): the
+           # reference's MESH_PARITY cohort, four one-client groups, so that
+           # rank 1 of 2 trains padding rows only; and four clients of batch
+           # 32 in one (size, batch, 4-step) group, so that each rank trains
+           # two real clients, one of them on masked steps
+           "parity_cohorts": {
+               "mesh_parity": ([0, 1, 2, 3], ["small", "small", "large",
+                                              "large"], [1, 3, 2, 1]),
+               "one_group": ([0, 1, 2, 4], ["small"] * 4, [3, 4, 4, 3])}}
+
+
+class _Axes:
+    """The axis sizes of a (data=G, model=1) mesh: what the grouped MoE
+    dispatch reads (models.moe._moe_groups), with no process group."""
+
+    def __init__(self, data):
+        self.axis_names = ("data", "model")
+        self.shape = {"data": data, "model": 1}
+
+
+def _flat_globals(torch, server):
+    from repro_torch.utils.pytree import tree_leaves
+    return torch.cat([t.detach().float().cpu().reshape(-1) for t in
+                      tree_leaves([server.lite_params,
+                                   server.global_by_size])])
+
+
+def phase_sharded_world1(torch, card):
+    """13a: engine="sharded" over a one-rank NCCL group against the batched
+    engine, 3 rounds each from the same seed. Returns the sharded engine's
+    launches."""
+    import copy
+    import torch.distributed as dist
+    from repro_torch.fl import FLEnvironment, HAPFLServer
+    from repro_torch.kernels import kd_loss as kd
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(device="cuda")
+    backend = dist.get_backend()
+    if backend != "nccl":
+        raise SystemExit(f"chip_smoke: 13a's one-rank group is {backend}, "
+                         f"the rule says nccl")
+    runs = {}
+    base = FLEnvironment(main_path_config())
+    try:
+        with full_fp32(torch):
+            for engine in ("batched", "sharded"):
+                kw = ({"mesh": mesh} if engine == "sharded"
+                      else {"engine": "batched"})
+                server = HAPFLServer(copy.deepcopy(base), seed=0,
+                                     device="cuda", **kw)
+                reset_all_launches()
+                recs, secs = [], []
+                for _ in range(SHARDED["rounds"]):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    recs.append(server.run_round())
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                runs[engine] = (recs, secs, kd.launches["kd_loss_grad"],
+                                _flat_globals(torch, server), server.engine)
+    finally:
+        dist.destroy_process_group()
+    (ra, sa, la, ga, ea), (rb, sb, lb, gb, eb) = (
+        runs["batched"], runs["sharded"])
+    if (ea, eb) != ("batched", "sharded"):
+        raise SystemExit(f"chip_smoke: 13a engines {ea}, {eb}")
+    for a, b in zip(ra, rb):
+        if (a.sizes, a.intensities) != (b.sizes, b.intensities):
+            raise SystemExit(f"chip_smoke: 13a round {a.round_idx}: sizes / "
+                             f"intensities {a.sizes} {a.intensities} != "
+                             f"{b.sizes} {b.intensities}")
+    if not torch.equal(ga, gb):
+        raise SystemExit(f"chip_smoke: 13a globals differ, max|diff| "
+                         f"{float((ga - gb).abs().max())}")
+    if la != lb or la == 0:
+        raise SystemExit(f"chip_smoke: 13a kd_loss_grad launches batched "
+                         f"{la}, sharded {lb}")
+    log(f"[sharded 13a] world 1, {backend}: {SHARDED['rounds']} rounds, "
+        f"sizes and intensities equal, globals bitwise equal, kd_loss_grad "
+        f"launches {la} each; seconds a round batched "
+        f"{[round(x, 3) for x in sa]}, sharded {[round(x, 3) for x in sb]} "
+        f"({card})")
+    return {"kd_loss_grad": lb}
+
+
+def _rank_share(rec, env, world):
+    """{(C_p / world, B, V): launches} of one rank in one round: one
+    kd_loss_grad a padded step of every size group, on its rows."""
+    from repro_torch.fl.batched import next_pow2
+    from repro_torch.fl.sharded import pad_to_mesh
+    bpe = env.cfg.batches_per_epoch
+    groups = {}
+    for c, s, tau in zip(rec.clients, rec.sizes, rec.intensities):
+        key = (s, env.loaders[c].batch_size, next_pow2(tau * bpe))
+        groups.setdefault(key, []).append(tau * bpe)
+    out = {}
+    for (_, batch, _), steps in groups.items():
+        shape = (pad_to_mesh(len(steps), world) // world, batch,
+                 env.n_classes)
+        out[shape] = out.get(shape, 0) + next_pow2(max(steps))
+    return out
+
+
+def _rank_cohort(torch, dev, out):
+    """13b on one rank. One round of phase 4's config with engine="sharded"
+    over the world, and one with the batched engine on this rank, from the
+    same seed; the batched engine's own distance between its padded and its
+    exact client count on the same cohort. Then SHARDED's parity cohorts
+    sharded against batched. Returns the sharded round's flat globals."""
+    import copy
+    import torch.distributed as dist
+    from repro_torch.fl import (BatchedClientEngine, FLEnvironment,
+                                FLSimConfig, HAPFLServer, ShardedClientEngine)
+    from repro_torch.launch.mesh import make_debug_mesh
+    world = dist.get_world_size()
+    mesh = make_debug_mesh()
+    # one environment built, a fresh copy for each use: every copy's data
+    # streams start where the first's did
+    base = FLEnvironment(main_path_config())
+    runs = {}
+    for engine in ("sharded", "batched"):
+        kw = {"mesh": mesh} if engine == "sharded" else {"engine": "batched"}
+        server = HAPFLServer(copy.deepcopy(base), seed=0, device=dev, **kw)
+        reset_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = server.run_round()
+        torch.cuda.synchronize()
+        runs[engine] = (rec, time.perf_counter() - t0,
+                        all_launches()["kd_loss_grad"],
+                        _flat_globals(torch, server))
+    (rs, ss, ls, gs), (rb, sb, lb, gb) = runs["sharded"], runs["batched"]
+    share = _rank_share(rs, server.env, world)
+
+    def cohort(engine, env, args, **kw):
+        init = HAPFLServer(copy.deepcopy(env), seed=0, engine="batched",
+                           device=dev)
+        got = engine(copy.deepcopy(env)).train_cohort(
+            *args, init.global_by_size, init.lite_params, **kw)
+        return torch.cat([t.detach().reshape(-1) for p in got
+                          for t in _leaves(p)])
+
+    def batched(env):
+        return BatchedClientEngine(env, device=dev)
+
+    def sharded(env):
+        return ShardedClientEngine(env, mesh=mesh, device=dev)
+    plan = (rs.clients, rs.sizes, rs.intensities)
+    yard = float((cohort(batched, base, plan)
+                  - cohort(batched, base, plan, pad_clients=False)
+                  ).abs().max())
+    ref_env = FLEnvironment(FLSimConfig(
+        dataset="mnist", n_train=400, n_test=100, batches_per_epoch=1,
+        default_epochs=2, n_clients=6, k_per_round=4,
+        size_names=("small", "large")))
+    parity = {}
+    for name, args in SHARDED["parity_cohorts"].items():
+        a, b = (cohort(e, ref_env, args) for e in (sharded, batched))
+        parity[name] = {
+            "close": bool(torch.allclose(a, b, atol=1e-5, rtol=1e-4)),
+            "err": float((a - b).abs().max())}
+    out["cohort"] = {
+        "seconds": [ss, sb], "sizes": [rs.sizes, rb.sizes],
+        "intensities": [rs.intensities, rb.intensities],
+        "launches": ls, "batched_launches": lb,
+        "expected": sum(share.values()),
+        "by_shape": {str(k): n for k, n in share.items()},
+        "globals_err": float((gs - gb).abs().max()),
+        "acc_flips": sum(rs.client_acc[c][k] != rb.client_acc[c][k]
+                         for c in rs.client_acc for k in ("local", "lite")),
+        "yardstick": yard, "parity": parity}
+    return gs
+
+
+def _leaves(tree):
+    from repro_torch.utils.pytree import tree_leaves
+    return tree_leaves(tree)
+
+
+def _rank_kernels(torch, dev, out):
+    """13c on one rank: each sharded wrapper against its kernel on the whole
+    tensor, bitwise, and that kernel against its plain version at phase 3's
+    tolerance (the kd forward at V 151936 is no shape of phase 3's); the
+    launches of the sharded call alone."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import (flash_attention_op, kd_loss_op,
+                                         rmsnorm_op)
+    from repro_torch.kernels.sharded import (sharded_flash_attention,
+                                             sharded_kd_loss, sharded_rmsnorm)
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh()
+    g = torch.Generator(dev).manual_seed(13)
+    bf16 = "bfloat16"
+    N, V = SHARDED["kd"]
+    x, y = (_randn(torch, (N, V), bf16, g, 2.0) for _ in range(2))
+    lab = torch.randint(0, V, (N,), generator=g, device=dev)
+    h = _randn(torch, SHARDED["rms"], bf16, g)
+    scale = _randn(torch, SHARDED["rms"][1:], bf16, g)
+    # {name: (sharded call, unsharded kernel, plain version, tolerance)};
+    # the kd forward's terms stacked (4, N) as its plain version gives them
+    cases = {"kd_loss_fwd": (
+        lambda: sharded_kd_loss(x, y, lab, mesh),
+        lambda: torch.stack([kd_loss_op(x, y, lab)[t] for t in TERMS]),
+        lambda: ref.kd_loss_fwd_ref(x, y, lab)[0], TOL[bf16]),
+        "rmsnorm": (lambda: sharded_rmsnorm(h, scale, mesh),
+                    lambda: rmsnorm_op(h, scale),
+                    lambda: ref.rmsnorm_ref(h, scale), TOL_NORM[bf16])}
+    for B, H, KV, S, hd in SHARDED["flash"]:
+        q = _randn(torch, (B, H, S, hd), bf16, g)
+        k, v = (_randn(torch, (B, KV, S, hd), bf16, g) for _ in range(2))
+        cases[f"flash_attention {(B, H, KV, S, hd)}"] = (
+            lambda q=q, k=k, v=v: sharded_flash_attention(q, k, v, mesh),
+            lambda q=q, k=k, v=v: flash_attention_op(q, k, v),
+            lambda q=q, k=k, v=v: ref.flash_attention_ref(q, k, v),
+            TOL_FLASH[bf16])
+    res = {}
+    with torch.no_grad():
+        for name, (sharded, whole, plain, tol) in cases.items():
+            reset_all_launches()
+            got = sharded()
+            torch.cuda.synchronize()
+            launches = {k: n for k, n in all_launches().items() if n}
+            if isinstance(got, dict):
+                got = torch.stack([got[t] for t in TERMS])
+            want = whole()
+            exp = plain().float()
+            res[name] = {
+                "equal": torch.equal(got, want), "launches": launches,
+                "plain_close": bool(torch.allclose(want.float(), exp,
+                                                   atol=tol, rtol=tol)),
+                "plain_err": float((want.float() - exp).abs().max()),
+                "tol": tol}
+            del got, want, exp
+    out["kernels"] = res
+
+
+def _rank_decode(torch, dev, out):
+    """13d on one rank: the sharded flash decode's function against plain
+    attention over the whole cache; a 2-layer cut of qwen2-vl-2b decoded on
+    a (1, 4) mesh against no mesh."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.axes import use_axis_rules
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import api
+    from repro_torch.models.attention import (flash_decode_sharded,
+                                              gqa_attention)
+    world = dist.get_world_size()
+    mesh = make_debug_mesh(model=world)
+    d = SHARDED["decode"]
+    B, H, KV, hd, L = d["B"], d["H"], d["KV"], d["hd"], d["L"]
+    Ls = L // world
+    slot = 2 * Ls + Ls // 2                    # in the third slice
+    mine = slice(dist.get_rank() * Ls, (dist.get_rank() + 1) * Ls)
+    fn = {}
+    for name in ("float32", "bfloat16"):
+        g = torch.Generator(dev).manual_seed(17)
+        q, kn, vn = (_randn(torch, (B, 1, n, hd), name, g)
+                     for n in (H, KV, KV))
+        ck, cv = (_randn(torch, (B, L, KV, hd), name, g) for _ in range(2))
+        part_k, part_v = ck[:, mine].clone(), cv[:, mine].clone()
+        before = part_k.clone()
+        pos = torch.tensor(slot, device=dev)
+        got = flash_decode_sharded(q, part_k, part_v, kn, vn, pos, pos + 1,
+                                   mesh)
+        ck[:, slot], cv[:, slot] = kn[:, 0], vn[:, 0]
+        want = gqa_attention(q, ck, cv, causal=False, kv_len_valid=pos + 1,
+                             q_start=pos)
+        fn[name] = {"err": float((got.float() - want.float()).abs().max()),
+                    "wrote": not torch.equal(part_k, before),
+                    "slice_ok": torch.equal(part_k, ck[:, mine])
+                    and torch.equal(part_v, cv[:, mine])}
+        del q, kn, vn, ck, cv, part_k, part_v, before, got, want
+    out["decode_fn"] = fn
+
+    c = SHARDED["cut"]
+    cfg = dataclasses.replace(get_config(c["arch"]),
+                              n_layers=c["n_layers"], dtype=torch.float32)
+    params = api.init_model(torch.Generator(dev).manual_seed(19), cfg, dev)
+    batch = api.dummy_batch(cfg, c["B"], c["prompt"] + c["n_new"],
+                            torch.Generator(dev).manual_seed(23),
+                            with_labels=False, device=dev)
+    S = c["prompt"]
+    runs, counts = {}, {}
+    for name, m in (("mesh", mesh), ("plain", None)):
+        ctx = use_axis_rules(m) if m is not None else contextlib.nullcontext()
+        logits = []
+        reset_all_launches()
+        with ctx, torch.no_grad():
+            _, pre = api.prefill(params, cfg, {
+                "embeddings": batch["embeddings"][:, :S],
+                "positions": batch["positions"][:, :, :S]})
+            cache = api.make_decode_cache(cfg, c["B"], c["max_len"], dev)
+            api.fill_decode_cache(cfg, cache, pre)
+            for t in range(S, S + c["n_new"]):
+                lg, cache = api.decode_step(
+                    params, cfg, {"embeddings": batch["embeddings"][:, t:t + 1]},
+                    cache, t)
+                logits.append(lg)
+        torch.cuda.synchronize()
+        counts[name] = {k: n for k, n in all_launches().items() if n}
+        runs[name] = (torch.stack(logits), tuple(cache["blocks"]["k"].shape))
+    out["decode_cut"] = {
+        "err": float((runs["mesh"][0] - runs["plain"][0]).abs().max()),
+        "cache": runs["mesh"][1], "plain_cache": runs["plain"][1],
+        "launches": counts["mesh"], "plain_launches": counts["plain"]}
+
+
+def _rank_main(rank, world, port, out_dir):
+    """One rank of a gloo world on the one card: its sub-phases' results
+    into rank<r>.json (13b's globals into rank<r>.pt)."""
+    import os
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import init_world
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backend, dev = init_world(rank, world, f"tcp://localhost:{port}",
+                              device="cuda")
+    out = {"backend": backend, "device": str(dev)}
+    import torch.distributed as dist
+    try:
+        if world == 2:
+            torch.save(_rank_cohort(torch, dev, out),
+                       Path(out_dir) / f"rank{rank}.pt")
+            _rank_kernels(torch, dev, out)
+        else:
+            _rank_decode(torch, dev, out)
+    finally:
+        dist.destroy_process_group()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(world, out_dir):
+    """Run _rank_main on `world` spawned processes; a rank that fails, or a
+    world that outlives SHARDED's timeout, fails the script (the other
+    ranks are terminated)."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    ctx = mp.spawn(_rank_main, args=(world, _free_port(), str(out_dir)),
+                   nprocs=world, join=False)
+    while not ctx.join(timeout=5):
+        if time.perf_counter() - t0 > SHARDED["timeout_s"]:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+            raise SystemExit(f"chip_smoke: the world of {world} ranks did not "
+                             f"end in {SHARDED['timeout_s']} s")
+    return ([json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+             for r in range(world)], time.perf_counter() - t0)
+
+
+def phase_sharded_ranks(torch, card):
+    """13b-13d: worlds of 2 and 4 gloo ranks on the one card. Returns the
+    ranks' launches by sub-phase."""
+    import tempfile
+    from collections import Counter
+    with tempfile.TemporaryDirectory() as tmp:
+        w2, s2 = spawn_ranks(2, tmp)
+        g = [torch.load(Path(tmp) / f"rank{r}.pt") for r in range(2)]
+        w4, s4 = spawn_ranks(4, tmp)
+    for ranks in (w2, w4):
+        if {r["backend"] for r in ranks} != {"gloo"}:
+            raise SystemExit(f"chip_smoke: ranks on one card must run gloo, "
+                             f"got {[r['backend'] for r in ranks]}")
+    # 13b
+    for r, res in enumerate(w2):
+        c = res["cohort"]
+        if c["sizes"][0] != c["sizes"][1] or (
+                c["intensities"][0] != c["intensities"][1]):
+            raise SystemExit(f"chip_smoke: 13b rank {r}: sizes / intensities "
+                             f"differ from the batched engine's")
+        if c["launches"] != c["expected"]:
+            raise SystemExit(f"chip_smoke: 13b rank {r}: kd_loss_grad "
+                             f"launches {c['launches']} != {c['expected']} "
+                             f"({c['by_shape']})")
+        for name, par in c["parity"].items():
+            if not par["close"]:
+                raise SystemExit(f"chip_smoke: 13b rank {r}: the {name} "
+                                 f"cohort sharded is {par['err']} from "
+                                 f"batched (atol 1e-5, rtol 1e-4)")
+    if not torch.equal(g[0], g[1]):
+        raise SystemExit("chip_smoke: 13b the ranks' globals differ")
+    c = w2[0]["cohort"]
+    parity = ", ".join(
+        f"{name} cohort "
+        f"{max(r['cohort']['parity'][name]['err'] for r in w2):.3e}"
+        for name in SHARDED["parity_cohorts"])
+    log(f"[sharded 13b] world 2, gloo on {w2[0]['device']}: one round of "
+        f"phase 4's config, sizes {c['sizes'][0]}, intensities "
+        f"{c['intensities'][0]}: the ranks' globals bitwise equal; max|diff| "
+        f"to the batched engine's round {c['globals_err']:.3e} "
+        f"({c['acc_flips']} of {2 * len(c['sizes'][0])} client accuracies "
+        f"differ), where the batched engine alone differs from itself by "
+        f"{c['yardstick']:.3e} between its padded and its exact client "
+        f"count on this cohort; kd_loss_grad launches a rank "
+        f"{[r['cohort']['launches'] for r in w2]} (batched "
+        f"{c['batched_launches']}) by (C_p / 2, B, V) {c['by_shape']}; "
+        f"seconds a round sharded / batched "
+        f"{[[round(x, 3) for x in r['cohort']['seconds']] for r in w2]}; "
+        f"sharded vs batched max|diff| (atol 1e-5, rtol 1e-4) "
+        f"{parity}; the world {s2:.2f} s with its start ({card})")
+    # 13c
+    for r, res in enumerate(w2):
+        for name, k in res["kernels"].items():
+            kernel = name.split()[0]
+            if (not k["equal"] or not k["plain_close"]
+                    or k["launches"] != {kernel: 1}):
+                raise SystemExit(f"chip_smoke: 13c rank {r} {name}: equal "
+                                 f"{k['equal']}, max|diff| to the plain "
+                                 f"version {k['plain_err']} (tol {k['tol']}), "
+                                 f"launches {k['launches']}")
+    log(f"[sharded 13c] world 2: each sharded call bitwise equal to the "
+        f"unsharded kernel, one launch a rank; the kernel's max|diff| to its "
+        f"plain version (bf16) " + ", ".join(
+            f"{name} {max(r['kernels'][name]['plain_err'] for r in w2):.3e} "
+            f"({k['tol']})" for name, k in w2[0]["kernels"].items())
+        + f" ({card})")
+    # 13d
+    for r, res in enumerate(w4):
+        for name, f in res["decode_fn"].items():
+            tol = 1e-5 if name == "float32" else 2e-3
+            if f["err"] > tol or not f["slice_ok"]:
+                raise SystemExit(f"chip_smoke: 13d rank {r} {name}: err "
+                                 f"{f['err']} (tol {tol}), slice {f['slice_ok']}")
+        cut = res["decode_cut"]
+        if cut["err"] > 1e-4:
+            raise SystemExit(f"chip_smoke: 13d rank {r}: cut logits err "
+                             f"{cut['err']} > 1e-4")
+        if cut["launches"] != cut["plain_launches"] or not cut["launches"]:
+            raise SystemExit(f"chip_smoke: 13d rank {r}: launches "
+                             f"{cut['launches']} != {cut['plain_launches']}")
+    wrote = [[res["decode_fn"][n]["wrote"] for res in w4]
+             for n in ("float32", "bfloat16")]
+    if wrote != [[False, False, True, False]] * 2:
+        raise SystemExit(f"chip_smoke: 13d the new k/v landed in {wrote}")
+    log(f"[sharded 13d] world 4, gloo: flash_decode_sharded at (B, H, KV, "
+        f"hd, L) {tuple(SHARDED['decode'].values())} against gqa_attention "
+        f"over the whole cache, max|diff| fp32 "
+        f"{max(r['decode_fn']['float32']['err'] for r in w4):.3e} (1e-5), "
+        f"bf16 {max(r['decode_fn']['bfloat16']['err'] for r in w4):.3e} "
+        f"(2e-3), the new k/v in rank 2's slice only; the "
+        f"{SHARDED['cut']['n_layers']}-layer fp32 cut of "
+        f"{SHARDED['cut']['arch']}: prefill {SHARDED['cut']['prompt']} + "
+        f"{SHARDED['cut']['n_new']} steps on a (1, 4) mesh, cache slice "
+        f"{w4[0]['decode_cut']['cache']} of {w4[0]['decode_cut']['plain_cache']}"
+        f", logits max|diff| {max(r['decode_cut']['err'] for r in w4):.3e} "
+        f"(1e-4) to no mesh, launches a rank {w4[0]['decode_cut']['launches']}"
+        f"; the world {s4:.2f} s with its start ({card})")
+    return {"13b": [{"kd_loss_grad": r["cohort"]["launches"]} for r in w2],
+            "13c": [dict(sum((Counter(k["launches"])
+                              for k in r["kernels"].values()), Counter()))
+                    for r in w2],
+            "13d": [r["decode_cut"]["launches"] for r in w4]}
+
+
+def phase_moe_groups(torch, card):
+    """13e: the grouped MoE dispatch on a 2-layer fp32 cut of
+    qwen3-moe-30b-a3b at full width, the blocks' forward at G = 2 and 4 on
+    the card and on the CPU: routes and kept pairs equal at every MoE call,
+    y at 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.launch.axes import use_axis_rules
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.api import init_model
+    import numpy as np
+    cfg = dataclasses.replace(get_config(MOE["arch"]),
+                              n_layers=MOE["parity_layers"],
+                              dtype=torch.float32)
+    gpu = init_model(torch.Generator("cuda").manual_seed(29), cfg, "cuda")
+    sides = {"cuda": gpu,
+             "cpu": params_from_numpy(params_to_numpy(gpu), device="cpu")}
+    B, S = SHARDED["moe_tokens"]
+    tok = np.random.default_rng(29).integers(0, cfg.vocab_size, (B, S))
+    slots, apply = moe.dispatch_slots, transformer.apply_moe
+    log_line = []
+    for G in SHARDED["groups"]:
+        calls, side = {"cuda": [], "cpu": []}, ["cuda"]
+        kept, ys = {"cuda": [], "cpu": []}, {"cuda": [], "cpu": []}
+
+        def rec_slots(*a):
+            out = slots(*a)
+            kept[side[0]].append(out[1].cpu())
+            return out
+
+        def rec_apply(*a):
+            out = apply(*a)
+            ys[side[0]].append(out[0].detach().cpu())
+            return out
+        moe.dispatch_slots, transformer.apply_moe = rec_slots, rec_apply
+        try:
+            with full_fp32(torch), torch.no_grad(), \
+                    recorded_routes(calls, side), use_axis_rules(_Axes(G)):
+                for dev, params in sides.items():
+                    side[0] = dev
+                    reset_all_launches()
+                    transformer.apply_blocks(params, cfg, {
+                        "tokens": torch.as_tensor(tok, device=dev)})
+        finally:
+            moe.dispatch_slots, transformer.apply_moe = slots, apply
+        gap = compare_routes(torch, calls, cfg.n_layers, f"moe G={G}")
+        if [k.shape[0] for k in kept["cuda"]] != [G] * cfg.n_layers:
+            raise SystemExit(f"chip_smoke: 13e G={G}: dispatch groups "
+                             f"{[k.shape for k in kept['cuda']]}")
+        for i, (a, b) in enumerate(zip(kept["cuda"], kept["cpu"])):
+            if not torch.equal(a, b):
+                raise SystemExit(f"chip_smoke: 13e G={G}: kept pairs differ "
+                                 f"at MoE call {i}")
+        err = _assert_trees_close(torch, ys["cuda"], ys["cpu"], 1e-3,
+                                  f"13e G={G} y")
+        dropped = [round(1 - float(k.float().mean()), 4) for k in kept["cpu"]]
+        log_line.append(f"G {G}: routes and kept pairs equal at all "
+                        f"{len(kept['cpu'])} calls (least gap {gap:.3e}), y "
+                        f"max|diff| {err:.3e}, dropped share {dropped}")
+    del sides, gpu
+    free_device_memory(torch)
+    log(f"[sharded 13e] {cfg.n_layers}-layer fp32 cut of {MOE['arch']}, "
+        f"{B} x {S} tokens, card vs CPU (atol 1e-3): " + "; ".join(log_line)
+        + f" ({card})")
+
+
+def phase_sharded(torch, card):
+    """Phase 13, with its wall time."""
+    t0 = time.perf_counter()
+    launches = {"13a": [phase_sharded_world1(torch, card)],
+                **phase_sharded_ranks(torch, card)}
+    phase_moe_groups(torch, card)
+    wall = time.perf_counter() - t0
+    log(f"[sharded] phase 13 wall {wall:.2f} s ({card})")
+    return launches
+
+
+def add_sharded_launches(record, launches):
+    """Each kernel row of the record gets its phase-13 launches by rank and
+    sub-phase ({sub-phase: [{kernel: launches}] a rank})."""
+    for row in record["kernels"]:
+        got = {sub: [r.get(row["name"], 0) for r in ranks]
+               for sub, ranks in launches.items()}
+        got = {sub: n for sub, n in got.items() if any(n)}
+        if got:
+            row["sharded"] = {
+                "launches_by_rank": got,
+                "path": "phase 13: 13a engine=sharded on a one-rank NCCL "
+                        "group, 13b-13d gloo ranks on the one card"}
+
+
+# ---------------------------------------------------------------------- #
 def main() -> int:
     import torch
     t_script = time.perf_counter()
@@ -3365,6 +3972,8 @@ def main() -> int:
                          "script: run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import HW as card_hw
+    HW.update(card_hw)
     phase_build()
     errs = phase_kernels(torch, CHECK_SHAPES)
     grad_errs = phase_kd_grad(torch, GRAD_SHAPES)
@@ -3712,6 +4321,8 @@ def main() -> int:
             f"{m['tokens_per_s']:.1f} tokens/s, peak {m['peak_bytes']} B"
             + (f"; the sLSTM blocks {100 * m['slstm']['share']:.1f}% of a "
                f"prefill" if "slstm" in m else ""))
+    # phase 13, the mesh-sharded path
+    add_sharded_launches(record, phase_sharded(torch, card))
     log(f"[main] chip_smoke wall {time.perf_counter() - t_script:.1f} s")
     log(card)
     log(json.dumps(record))

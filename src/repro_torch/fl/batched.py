@@ -63,6 +63,14 @@ def make_batched_trainer(raw_step, init_opt):
     return train
 
 
+def to_device(xs, ys, mask, device):
+    """A group's host arrays as tensors on `device`; the labels int32, the
+    kernel's label type, so that no step casts them."""
+    return (torch.from_numpy(xs).to(device),
+            torch.from_numpy(ys.astype(np.int32, copy=False)).to(device),
+            torch.from_numpy(mask).to(device))
+
+
 class BatchedClientEngine:
     """Trains a whole HAPFL cohort with one batched step per size group and
     step, on `device` (CUDA when None)."""
@@ -76,12 +84,28 @@ class BatchedClientEngine:
             raw, init_opt = make_mutual_train_fns(
                 lambda p, x, c=c: apply_cnn_fast(p, c, x),
                 lambda p, x: apply_cnn_fast(p, env.lite_cfg, x), lr=lr)
-            self._trainers[s] = make_batched_trainer(raw, init_opt)
+            self._trainers[s] = self._build_trainer(raw, init_opt)
+
+    # hooks the mesh-sharded subclass (fl/sharded.py) overrides ---------- #
+    def _build_trainer(self, raw_step, init_opt):
+        return make_batched_trainer(raw_step, init_opt)
 
     @staticmethod
     def _client_pad(n: int) -> int:
         """Padded client-axis length for an n-client group."""
         return max(next_pow2(n), 4)
+
+    def _dispatch(self, size: str, start, xs, ys, mask):
+        """Train one size group: `start` {local, lite} broadcast to the
+        padded client axis of the host arrays xs (C, S, B, ...), ys (C, S,
+        B) and mask (C, S); returns the stacked trained params."""
+        stacked = tree_map(
+            lambda p: p.expand((xs.shape[0],) + p.shape).contiguous(), start)
+        return self._trainers[size](stacked,
+                                    *to_device(xs, ys, mask, self.device))
+
+    def _group_label(self, size: str, Cp: int, S: int) -> str:
+        return f"train_cohort[{size}]x{Cp}s{S}"
 
     def train_cohort(self, clients: Sequence[int], sizes: Sequence[str],
                      intensities: Sequence[int], global_by_size: Dict,
@@ -119,17 +143,10 @@ class BatchedClientEngine:
                 mask = np.concatenate(
                     [mask, np.zeros((pad,) + mask.shape[1:], mask.dtype)])
             start = {"local": global_by_size[s], "lite": lite_params}
-            stacked = tree_map(
-                lambda p: p.expand((Cp,) + p.shape).contiguous(), start)
             # names the group's step loop both in our tracer (wall span)
             # and in any active torch.profiler trace
-            with _tracer().annotation(f"train_cohort[{s}]x{Cp}s{S}"):
-                trained = self._trainers[s](
-                    stacked, torch.from_numpy(xs).to(self.device),
-                    # int32, the kernel's label type: no cast per step
-                    torch.from_numpy(ys.astype(np.int32, copy=False)).to(
-                        self.device),
-                    torch.from_numpy(mask).to(self.device))
+            with _tracer().annotation(self._group_label(s, Cp, S)):
+                trained = self._dispatch(s, start, xs, ys, mask)
             for j, i in enumerate(idx):
                 out[i] = tree_map(lambda a, j=j: a[j], trained)
         return out

@@ -13,10 +13,10 @@ The round body is factored into the reference's wave-level callbacks
 virtual times; `run_round` composes them into the synchronous barrier
 round. Params, PPO agents and training live on `device` (CUDA unless the
 caller asks for the CPU); data, client selection, latency and the update
-codecs' wire format are host numpy, identical to the reference's.
-
-Not ported yet, and raising NotImplementedError where asked for: the
-mesh-sharded engine (ROADMAP.md §1 item 13).
+codecs' wire format are host numpy, identical to the reference's. Under
+``engine="sharded"`` (or a ``mesh=``) every rank of the mesh runs this
+server from the same seed and trains its slice of each cohort
+(`fl/sharded.py`).
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ from repro_torch.core.latency import straggling_latency
 from repro_torch.core.nested import nested_aggregate
 from repro_torch.fl.batched import BatchedClientEngine
 from repro_torch.fl.env import FLEnvironment
+from repro_torch.fl.sharded import ShardedClientEngine
 from repro_torch.models.cnn import init_cnn
 from repro_torch.obs.rl import wave_diagnostics
 from repro_torch.obs.trace import current as _tracer
@@ -96,12 +97,17 @@ class HAPFLServer:
         # (PPO1 reward degrades); 2e-3 learns cleanly (DESIGN.md §8).
         if engine not in ("auto", "batched", "sequential", "sharded"):
             raise ValueError(f"unknown engine {engine!r}")
+        # an explicit mesh selects the mesh-sharded cohort engine
+        # (fl/sharded.py) unless the caller pinned another one;
+        # engine="sharded" without a mesh spans the world
+        if mesh is not None and engine == "auto":
+            engine = "sharded"
+        if mesh is not None and engine != "sharded":
+            raise ValueError(f"mesh= requires engine='sharded' (got "
+                             f"{engine!r})")
+        self.mesh = mesh
         if aggregation not in ("group", "cross_size"):
             raise ValueError(f"unknown aggregation {aggregation!r}")
-        if mesh is not None or engine == "sharded":
-            raise NotImplementedError(
-                "the mesh-sharded engine is not ported yet (ROADMAP.md §1 "
-                "item 13)")
         self.device = resolve_device(device)
         # update codec (repro_torch.comm, DESIGN.md §13): every client
         # update is round-tripped through it before aggregation sees it.
@@ -143,9 +149,15 @@ class HAPFLServer:
         self.global_by_size = {s: init_cnn(self.gen, c, self.device)
                                for s, c in env.pool.items()}
         # one engine for both: "batched" trains a size group per step,
-        # "sequential" loops over clients through the same step
-        self.batched_engine = BatchedClientEngine(env, lr=cfg.lr,
-                                                  device=self.device)
+        # "sequential" loops over clients through the same step; "sharded"
+        # splits each size group's clients over the mesh's ranks
+        if engine == "sharded":
+            self.batched_engine = ShardedClientEngine(
+                env, mesh=mesh, lr=cfg.lr, device=self.device)
+            self.mesh = self.batched_engine.mesh
+        else:
+            self.batched_engine = BatchedClientEngine(env, lr=cfg.lr,
+                                                      device=self.device)
         self.history: List[RoundRecord] = []
         self._round = 0
         self._last_rl_diag: Optional[Dict[str, Dict]] = None
@@ -246,7 +258,7 @@ class HAPFLServer:
             plan.accs_local = [0.0] * m
             plan.accs_lite = [0.0] * m
             return plan
-        if self.engine == "batched":
+        if self.engine in ("batched", "sharded"):
             plan.client_params = self.batched_engine.train_cohort(
                 plan.clients, plan.sizes, plan.intensities,
                 self.global_by_size, self.lite_params)

@@ -11,6 +11,9 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.axes import current_mesh
+from repro_torch.models.attention import (batch_shards, decode_shards,
+                                          fill_kv_slice)
 from repro_torch.models.transformer import (apply_blocks, apply_model,
                                             init_cache, init_params, unembed)
 from repro_torch.utils.device import resolve_device
@@ -56,7 +59,46 @@ def decode_step(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 def make_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device=None):
-    return init_cache(cfg, batch, max_len, resolve_device(device))
+    """The zeroed decode cache (`init_cache`). Under a current mesh
+    (`launch.axes.use_axis_rules`) on which the decode is length-sharded
+    (`models.attention.decode_shards`), each KV cache is this rank's slice:
+    (batch / dp, kv_len / model) with dp the batch axes' product; kv_len
+    must then divide by the model axis."""
+    mesh = current_mesh()
+    shards = decode_shards(cfg, mesh)
+    split = (1, 1)
+    if shards > 1:
+        kv_len = (min(max_len, cfg.sliding_window) if cfg.sliding_window
+                  else max_len)
+        if kv_len % shards:
+            raise ValueError(f"the length-sharded decode splits the KV "
+                             f"cache's {kv_len} slots over the model axis "
+                             f"of {shards}: they must divide")
+        split = (batch_shards(mesh, batch), shards)
+    return init_cache(cfg, batch, max_len, resolve_device(device), split)
+
+
+def fill_decode_cache(cfg: ModelConfig, cache, prefill_cache) -> None:
+    """Write a prefill cache into a decode cache made by `make_decode_cache`,
+    in place, leaf paired with leaf by key: a KV cache {"k", "v": (..., B,
+    S, KV, hd)} goes to the ring buffer's slots (position t at slot t % L;
+    the last L positions of a longer prompt), under a length-sharded mesh
+    only the slots and batch rows of this rank's slice; every other leaf (a
+    recurrent state) is copied. Unlike `ServeEngine.generate`, which mirrors
+    the reference's engine, this keeps the prompt's whole state."""
+    mesh = current_mesh()
+    shards = decode_shards(cfg, mesh)
+    _fill(cache, prefill_cache, mesh if shards > 1 else None, shards)
+
+
+def _fill(big, small, mesh, shards: int) -> None:
+    for key, leaf in big.items():
+        if isinstance(leaf, dict):
+            _fill(leaf, small[key], mesh, shards)
+        elif set(big) == {"k", "v"}:
+            fill_kv_slice(leaf, small[key], mesh, shards)
+        else:
+            leaf.copy_(small[key])
 
 
 def dummy_batch(cfg: ModelConfig, batch: int, seq: int,

@@ -6,8 +6,8 @@ kernel wrappers: `repro_torch.kernels.ops.rmsnorm_op` alone, and
 `add_rmsnorm_op` where the residual add before the norm folds into it
 (`apply_add_norm`); the CUDA kernels on the card, their plain versions on
 the CPU. The reference's ``shard(...)`` annotations are
-dropped: they do nothing without a device mesh, and the mesh is ROADMAP §1
-item 13.
+dropped: `launch.axes.shard` returns its input unchanged, since eager
+PyTorch has no per-activation sharding constraint.
 """
 from __future__ import annotations
 

@@ -7,9 +7,12 @@ expert's capacity C is dropped, and the router carries the load-balance and
 z losses. The arithmetic is the reference's, step by step, so that the same
 tokens drop.
 
-Dispatch uses one group. The reference's ``_moe_groups`` makes one group per
-data-parallel shard of a device mesh and returns 1 without one; the grouped
-dispatch waits for the mesh (ROADMAP §1 item 13).
+Dispatch runs in G groups (GShard-style, `_moe_groups`): one per
+data-parallel shard of the current mesh (`launch.axes.use_axis_rules`), 1
+without one. Each group of N / G tokens has its own capacity C and its own
+positions, so which pairs drop depends on G, as in the reference. The port
+computes every group on every rank (its model code runs replicated); the
+aux losses are taken over all groups.
 
 No step syncs with the host: C comes from shapes alone, the routing and the
 positions are tensor ops, and dropped pairs go to a sentinel row that is
@@ -26,6 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.axes import current_mesh, current_rules
+from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.layers import dense_init
 from repro_torch.utils.device import resolve_device
 
@@ -74,16 +79,35 @@ def route(router: torch.Tensor, cfg: ModelConfig, x: torch.Tensor):
 def dispatch_slots(top_i: torch.Tensor, E: int, C: int):
     """(dest, keep) of the N k (token, slot) pairs in token-major order: a
     pair's position in its expert is the count of earlier pairs routed to
-    it; pairs at position C or later drop to the sentinel row E C."""
-    flat_e = top_i.reshape(-1)
+    it; pairs at position C or later drop to the sentinel row E C. top_i
+    (N, k), or (G, Ng, k) for G groups counted apart: (G, Ng k) out."""
+    flat_e = top_i.reshape(top_i.shape[:-2] + (-1,))
     # (E, N k), each expert's running count along its row: a scan over the
     # innermost axis, which the card runs row-parallel (over the outer axis
     # of an (N k, E) tensor it runs E columns of N k steps each)
-    onehot = torch.arange(E, device=flat_e.device)[:, None] == flat_e
-    pos = onehot.cumsum(1, dtype=torch.int32).gather(0, flat_e[None])[0] - 1
+    onehot = torch.arange(E, device=flat_e.device)[:, None] == flat_e[
+        ..., None, :]
+    pos = onehot.cumsum(-1, dtype=torch.int32).gather(
+        -2, flat_e[..., None, :])[..., 0, :] - 1
     keep = pos < C
     dest = torch.where(keep, flat_e * C + pos, E * C)
     return dest, keep
+
+
+def _moe_groups(cfg: ModelConfig, n_tokens: int) -> int:
+    """Dispatch groups: the product of the current mesh's batch axes (its
+    data-parallel degree), halved until it divides n_tokens; 1 without a
+    mesh."""
+    mesh = current_mesh()
+    g = 1
+    if mesh is not None:
+        sizes = axis_sizes(mesh)
+        for a in current_rules().get("batch", ()):
+            if a in sizes:
+                g *= sizes[a]
+    while g > 1 and n_tokens % g != 0:
+        g //= 2
+    return max(g, 1)
 
 
 def apply_moe(params, cfg: ModelConfig,
@@ -93,24 +117,37 @@ def apply_moe(params, cfg: ModelConfig,
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     N = B * S
+    G = _moe_groups(cfg, N)
+    Ng = N // G
     xt = x.reshape(N, d)
     logits, probs, top_p, top_i = route(params["router"], cfg, xt)
 
-    # aux losses (Switch / GShard): only the top-1 expert counts in ce
+    # aux losses (Switch / GShard) over all groups' tokens: only the top-1
+    # expert counts in ce
     me = probs.mean(0)
     ce = (top_i[:, :1] == torch.arange(E, device=x.device)).float().mean(0)
     lb_loss = E * (me * ce).sum()
     z_loss = torch.logsumexp(logits, dim=-1).square().mean()
 
-    C = expert_capacity(N, k, E, cfg.capacity_factor)
-    dest, keep = dispatch_slots(top_i, E, C)
+    # per-group capacity dispatch: group g's pairs go to rows [g R, (g + 1)
+    # R) of one (G R, d) buffer, R = E C + 1 with its own sentinel row
+    C = expert_capacity(Ng, k, E, cfg.capacity_factor)
+    R = E * C + 1
+    dest, keep = dispatch_slots(top_i.view(G, Ng, k), E, C)
+    if G > 1:
+        dest = dest + R * torch.arange(G, device=x.device)[:, None]
+    dest = dest.reshape(N * k)
     xr = xt[:, None].expand(N, k, d).reshape(N * k, d)  # each token k times
-    buf = x.new_zeros((E * C + 1, d)).index_add(0, dest, xr)
-    expert_in = buf[:-1].view(E, C, d)
+    buf = x.new_zeros((G * R, d)).index_add(0, dest, xr).view(G, R, d)
+    # (E, G C, d): each expert's slots of every group in one product
+    expert_in = buf[:, :-1].reshape(G, E, C, d).transpose(0, 1).reshape(
+        E, G * C, d)
     h = F.silu(torch.bmm(expert_in, params["w_gate"])) * torch.bmm(
         expert_in, params["w_up"])
-    expert_out = torch.bmm(h, params["w_down"])                # (E, C, d)
-    out_buf = torch.cat([expert_out.view(E * C, d), x.new_zeros((1, d))])
+    expert_out = torch.bmm(h, params["w_down"])            # (E, G C, d)
+    out_buf = torch.cat([
+        expert_out.view(E, G, C, d).transpose(0, 1).reshape(G, E * C, d),
+        x.new_zeros((G, 1, d))], dim=1).view(G * R, d)
     y = out_buf.index_select(0, dest).view(N, k, d) * top_p.to(x.dtype)[..., None]
     y = y.sum(1).view(B, S, d)
     aux = {"lb_loss": lb_loss, "z_loss": z_loss,

@@ -253,7 +253,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device):
     return params
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+               kv_split: Tuple[int, int] = (1, 1)):
     """Zeroed decode cache, the reference's keys, shapes and dtypes: an
     attention stack's {"blocks": {"k", "v": (L, B, kv_len, KV, hd)}} (kv_len
     the window for sliding-window configs: a ring buffer); xlstm's
@@ -262,14 +263,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
     (n_seg, seg, ...), "shared": {"k", "v"} (n_seg, ...), "mamba_tail"};
     pure Mamba2's {"mamba": (n_layers, ...)}. Recurrent states are fp32,
     the conv window and the KV cache cfg.dtype; each layout holds only the
-    keys of the stacks it has."""
+    keys of the stacks it has. kv_split (batch shards, length shards) makes
+    each KV cache this rank's (batch / dp, kv_len / model) slice, as the
+    length-sharded decode (`models.attention.flash_decode_sharded`) holds
+    it."""
     kv_len = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    dp, shards = kv_split
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     def attn_cache(lead):
-        s = lead + (batch, kv_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        s = lead + (batch // dp, kv_len // shards, cfg.n_kv_heads,
+                    cfg.resolved_head_dim)
         return {"k": zeros(s, cfg.dtype), "v": zeros(s, cfg.dtype)}
 
     def mamba_cache(lead):

@@ -27,8 +27,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention, kd_loss, rmsnorm
+from repro_torch.launch.axes import current_mesh
 from repro_torch.models.api import (decode_step as _decode,
                                     make_decode_cache, prefill as _prefill)
+from repro_torch.models.attention import decode_shards
 from repro_torch.utils.device import resolve_device
 
 #: every kernel wrapper's launch counts
@@ -111,6 +113,13 @@ class _DecodeStep:
 
     def __init__(self, decode, params, cfg: ModelConfig, batch: int,
                  max_len: int, device: torch.device):
+        if decode_shards(cfg, current_mesh()) > 1:
+            # its collectives are gloo's where ranks share a card, and a
+            # gloo collective cannot be captured in a CUDA graph; the
+            # engine's prefill load also writes a whole cache
+            raise RuntimeError(
+                "ServeEngine does not run the length-sharded decode of the "
+                "current mesh; drive it through models.api.decode_step")
         shape = (batch, 1) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
         self.tokens = torch.zeros(shape, dtype=torch.int64, device=device)
         self.index = torch.zeros((), dtype=torch.int64, device=device)

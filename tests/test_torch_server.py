@@ -136,13 +136,21 @@ def test_pretrain_rl_matches_reference():
 
 
 def test_unported_options_raise():
-    """Only the mesh-sharded engine is still unported; cross-size
-    aggregation and codecs construct (tests/test_torch_nested.py and
-    tests/test_torch_comm.py hold them against the reference)."""
+    """No option is left unported: the mesh-sharded engine, cross-size
+    aggregation and codecs construct (tests/test_torch_sharded.py,
+    tests/test_torch_nested.py and tests/test_torch_comm.py hold them
+    against the reference); a mesh with another engine and an unknown
+    engine raise ValueError."""
+    import torch.distributed as dist
     env = tfl.FLEnvironment(tfl.FLSimConfig(**KW))
-    for kw in ({"engine": "sharded"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfl.HAPFLServer(env, device="cpu", **kw)
+    try:
+        srv = tfl.HAPFLServer(env, device="cpu", engine="sharded")
+        assert srv.engine == "sharded" and srv.mesh is not None
+        with pytest.raises(ValueError, match="sharded"):
+            tfl.HAPFLServer(env, device="cpu", engine="batched",
+                            mesh=srv.mesh)
+    finally:
+        dist.destroy_process_group()
     srv = tfl.HAPFLServer(env, device="cpu", aggregation="cross_size",
                           codec="int8")
     assert (srv.aggregation, srv.codec.name) == ("cross_size", "int8")
