@@ -346,6 +346,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 2-layer fp32 cut of qwen3-moe-30b-a3b at full width, the
                 blocks' forward at G = 2 and 4 on the card and on the CPU:
                 equal routes and kept pairs at every MoE call, y at 1e-3.
+ 14. launch   — the launch tooling (repro_torch.launch: specs, sharding,
+                dryrun). 14a: each path served or trained above (phases 5,
+                5c, 5e, 5f, 5h, 9, 9c-9g) dry-run on the meta device at its
+                own config and shapes (prefill and decode for a serve
+                path, one step for a train path): the kernel calls the dry
+                run counts (a generate: one prefill's plus n_new decode
+                steps'; training: a step's times the steps) must equal the
+                launches the card counted on that path; beside each
+                measured time, compute_s, memory_s, the roofline share
+                max(compute_s, memory_s) / measured and the mfu, model
+                FLOPs / (measured s x 989 TFLOP/s); it runs on the host
+                while 14b's first world runs. 14b: gloo ranks on the
+                one card at worlds 2 and 4, llama3.2-3b at full width (1
+                layer): its bf16 params, its AdamW state and a decode cache
+                sharded on a (1, w) and a (w, 1) mesh by the FSDP x TP
+                rules and gathered back, bitwise; each rank's bytes equal
+                the specs' sum; the gathers collective_stats reads equal
+                the formula's. 14c: mixtral-8x7b's bytes a card from the
+                specs on the production node mesh (1, 8).
 
 The parity phases turn TF32 off for cuDNN and matmuls, so that both sides
 compute in full float32, and restore the defaults afterwards.
@@ -368,7 +387,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 # the card's datasheet rates the bounds divide by (bytes / s, fp32 and bf16
-# operations / s): repro_torch.launch.mesh.HW, copied in by main()
+# operations / s): repro_torch.kernels.cost.HW, copied in by main()
 HW = {}
 L2_BYTES = 50e6                 # H100 L2 cache
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
@@ -519,6 +538,14 @@ FLASH_BWD_SHAPES = [(4, 24, 8, 512, 128, 0, "bfloat16", "bshd"),
                       for dt in ("bfloat16", "float32")
                       for lay in ("bshd", "bhsd")],
                     *HD112_SHAPES]
+
+def _cost():
+    """The kernels' work formulas and bounds, which the dry run reads too:
+    one source, `repro_torch.kernels.cost` (importable once main() has put
+    src/ on the path)."""
+    from repro_torch.kernels import cost
+    return cost
+
 
 def free_device_memory(torch):
     """Collect what the caller dropped (reference cycles included) and hand
@@ -756,24 +783,6 @@ def _eager_ms(torch, fn, iters):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def kd_bounds(N, V, elt):
-    """Least time (ms) the card could take for each kernel's work, as
-    {name: (bound_ms, bound_by)}: bytes moved once over 3.35 TB/s against
-    fp32 operations over 67 TFLOP/s, the larger of the two. Forward reads x,
-    y (N*V each) and labels, writes 8 fp32 rows of N; it does 2 exp and
-    about 10 fp32 operations per (x, y) element pair. Backward reads x, y,
-    labels, 4 stats and 4 upstream rows, writes dx, dy; 2 exp and about 14
-    operations per pair."""
-    out = {}
-    for name, nbytes, ops in (
-            ("kd_loss_fwd", 2 * N * V * elt + 4 * N + 32 * N, 12 * N * V),
-            ("kd_loss_bwd", 4 * N * V * elt + 4 * N + 32 * N, 16 * N * V)):
-        t_b = nbytes / HW["hbm_bw"] * 1e3
-        t_o = ops / HW["peak_flops_fp32"] * 1e3
-        out[name] = ((t_b, "bytes") if t_b >= t_o else (t_o, "operations"))
-    return out
-
-
 def phase_timing(torch, shapes):
     """{(kernel, N, V, dtype): times} at each shape, for the kernel and its
     plain version: device ms from graph replays, eager wall ms per call."""
@@ -788,7 +797,7 @@ def phase_timing(torch, shapes):
                "kd_loss_bwd": (
                    lambda: kd.kd_loss_bwd(x, y, lab, stats, grads),
                    lambda: ref.kd_loss_bwd_ref(x, y, lab, stats, grads))}
-        bounds = kd_bounds(N, V, x.element_size())
+        bounds = _cost().kd_bounds(N, V, x.element_size())
         for name, (kernel, plain) in fns.items():
             # plain, kernel, kernel, plain: the two kernel and two plain
             # timings are averaged, so drift in clocks hits both alike
@@ -811,16 +820,6 @@ def phase_timing(torch, shapes):
     return times
 
 
-def grad_bound(C, B, V, elt):
-    """kd_loss_grad: x, y read and dx, dy written once, labels read and the
-    (6, C) means written; about 28 fp32 operations and 4 exps per (x, y)
-    element pair (the forward's and the backward's, less what they
-    share)."""
-    N = C * B
-    return _bound(4 * N * V * elt + 4 * N + 24 * C, 28 * N * V,
-                  HW["peak_flops_fp32"])
-
-
 def phase_grad_timing(torch, shapes, iters=None):
     """Times of kd_loss_grad and its plain version at each (C, B, V,
     dtype), over `iters` calls (by default 200, or 20 at a million logits
@@ -834,7 +833,7 @@ def phase_grad_timing(torch, shapes, iters=None):
                "library": None, "kernel_warm": None}
         times[("kd_loss_grad", C, B, V, dtype)] = _time_set(
             torch, "kd_loss_grad", (C, B, V, dtype), fns,
-            grad_bound(C, B, V, x.element_size()),
+            _cost().grad_bound(C, B, V, x.element_size()),
             iters or (200 if C * B * V < 1e6 else 20))
     return times
 
@@ -1038,47 +1037,6 @@ def check_norm_bwd_graph(torch):
             f"bitwise equal to an eager launch")
 
 
-def _bound(nbytes, ops, ops_per_s):
-    t_b = nbytes / HW["hbm_bw"] * 1e3
-    t_o = ops / ops_per_s * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
-def norm_bound(N, d, elt):
-    """rmsnorm: x read and y written once, scale read once; about 4 fp32
-    operations per element (square-add, two multiplies, the cast)."""
-    return _bound(2 * N * d * elt + d * elt, 4 * N * d,
-                  HW["peak_flops_fp32"])
-
-
-def add_norm_bound(N, d, elt):
-    """add_rmsnorm: x and delta read, s and y written once, scale read
-    once; about 5 fp32 operations per element."""
-    return _bound(4 * N * d * elt + d * elt, 5 * N * d,
-                  HW["peak_flops_fp32"])
-
-
-def visible_pairs(S, causal, window):
-    """(query, key) pairs the masks leave visible, for one head."""
-    total = 0
-    for i in range(S):
-        hi = i + 1 if causal else S
-        lo = max(0, i - window + 1) if window else 0
-        total += hi - lo
-    return total
-
-
-def flash_bound(B, H, KV, S, hd, window, dtype, elt):
-    """flash_attention: Q and O (B, H, S, hd) and K, V (B, KV, S, hd) moved
-    once; QK^T and PV over the visible pairs, 2 operations per
-    multiply-add, at the bf16 tensor-core rate for bf16 inputs and the fp32
-    rate for fp32 ones (the softmax's exps are not counted)."""
-    nbytes = (2 * B * H + 2 * B * KV) * S * hd * elt
-    ops = 4 * hd * B * H * visible_pairs(S, True, window)
-    rate = HW["peak_flops_bf16" if dtype == "bfloat16" else "peak_flops_fp32"]
-    return _bound(nbytes, ops, rate)
-
-
 def _time_set(torch, name, shape, fns, bound, iters):
     """fns: {"kernel", "plain", "library" (or None), "kernel_warm"} ->
     times dict. kernel, plain and library cycle over enough copies of
@@ -1163,7 +1121,8 @@ def phase_norm_flash_timing(torch, norm_shapes, add_shapes, flash_shapes):
                "kernel_warm": lambda: rn.rmsnorm(x, sc)}
         times[("rmsnorm", N, d, dtype)] = _time_set(
             torch, "rmsnorm", (N, d, dtype), fns,
-            norm_bound(N, d, x.element_size()), 200 if N * d < 1e6 else 50)
+            _cost().norm_bound(N, d, x.element_size()),
+            200 if N * d < 1e6 else 50)
     for N, d, dtype in add_shapes:
         x, delta, sc = _add_norm_inputs(torch, N, d, dtype)
         nxt = _cold_copies((x, delta, sc), 4 * x.numel() * x.element_size())
@@ -1173,7 +1132,7 @@ def phase_norm_flash_timing(torch, norm_shapes, add_shapes, flash_shapes):
                "kernel_warm": lambda: rn.add_rmsnorm(x, delta, sc)}
         times[("add_rmsnorm", N, d, dtype)] = _time_set(
             torch, "add_rmsnorm", (N, d, dtype), fns,
-            add_norm_bound(N, d, x.element_size()),
+            _cost().add_norm_bound(N, d, x.element_size()),
             200 if N * d < 1e6 else 50)
     sdpa = _sdpa(torch)
     for B, H, KV, S, hd, window, dtype, layout in flash_shapes:
@@ -1190,7 +1149,8 @@ def phase_norm_flash_timing(torch, norm_shapes, add_shapes, flash_shapes):
         key = ("flash_attention", B, H, KV, S, hd, window, dtype, layout)
         times[key] = _time_set(
             torch, "flash_attention", key[1:], fns,
-            flash_bound(B, H, KV, S, hd, window, dtype, q.element_size()), 10)
+            _cost().flash_bound(B, H, KV, S, hd, window, dtype,
+                                q.element_size()), 10)
     return times
 
 
@@ -1988,6 +1948,9 @@ def phase_serve(torch, cfg=None, tag="serve"):
                 "replay_ms": replay_ms, "loop_ms": loop_ms,
                 "eager_ms": eager_ms,
                 "tokens_per_s": B * n_new / tn, "peak_bytes": peak}
+    PATHS[tag] = {"cfg": cfg, "mode": "serve", "launches": dict(launches),
+                  "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+                  "replay_ms": replay_ms}
     return engine, batch, launches, shapes, measured
 
 
@@ -2592,6 +2555,8 @@ def phase_train(torch, cfg=None, tag="train"):
         raise SystemExit(f"chip_smoke: {tag}: non-finite params after "
                          f"training")
     mean = sum(secs) / n
+    PATHS[tag] = {"cfg": cfg, "mode": "train", "launches": dict(launches),
+                  "steps": n, "step_s": mean}
     log(f"[{tag}] seconds per step after the first {secs} (mean "
         f"{mean:.4f}), {B * S / mean:.1f} tokens/s ({B} x {S} tokens a "
         f"step), max_memory_allocated {peak} B")
@@ -3181,26 +3146,6 @@ def phase_fleet_parity(torch):
         f" held shares {', '.join(shares)})")
 
 
-def norm_bwd_bound(N, d, elt, add):
-    """rmsnorm_bwd: x, dy read and dx written once (add_rmsnorm_bwd: s,
-    g_s, g_y read and d_s written), scale read and dscale written once;
-    about 10 fp32 operations per element."""
-    return _bound((4 if add else 3) * N * d * elt + 2 * d * elt, 10 * N * d,
-                  HW["peak_flops_fp32"])
-
-
-def flash_bwd_bound(B, H, KV, S, hd, window, dtype, elt):
-    """flash_attention_bwd: q, o, dO, dq (B, H, S, hd) and k, v, dk, dv
-    (B, KV, S, hd) moved once, lse read once; five products over the
-    visible pairs (Q K^T again, dO V^T, P^T dO, dS^T Q, dS K), 2
-    operations per multiply-add, at the bf16 tensor-core rate for bf16
-    inputs and the fp32 rate for fp32 ones."""
-    nbytes = (4 * B * H + 4 * B * KV) * S * hd * elt + 4 * B * H * S
-    ops = 10 * hd * B * H * visible_pairs(S, True, window)
-    rate = HW["peak_flops_bf16" if dtype == "bfloat16" else "peak_flops_fp32"]
-    return _bound(nbytes, ops, rate)
-
-
 def _backward_ms(torch, fwd, nxt, iters):
     """Device ms of a PyTorch function's backward alone: graph replays of
     its forward and backward together, less those of its forward alone.
@@ -3294,7 +3239,8 @@ def phase_train_timing(torch, shapes):
                "library": None,
                "kernel_warm": lambda: rn.rmsnorm_bwd(x, sc, dy)}
         t = _time_set(torch, "rmsnorm_bwd", (N, d, dtype), fns,
-                      norm_bwd_bound(N, d, x.element_size(), False), 50)
+                      _cost().norm_bwd_bound(N, d, x.element_size(),
+                                             False), 50)
         lib_nxt = _cold_copies((x, sc, dy), nbytes)
 
         def rms_inputs():
@@ -3315,7 +3261,8 @@ def phase_train_timing(torch, shapes):
                "library": None,
                "kernel_warm": lambda: rn.add_rmsnorm_bwd(x, sc, gs, dy)}
         t = _time_set(torch, "add_rmsnorm_bwd", (N, d, dtype), fns,
-                      norm_bwd_bound(N, d, x.element_size(), True), 50)
+                      _cost().norm_bwd_bound(N, d, x.element_size(),
+                                             True), 50)
         lib_nxt = _cold_copies((x, dy, sc, gs), nbytes)
 
         def lib_inputs():
@@ -3344,7 +3291,8 @@ def phase_train_timing(torch, shapes):
                "kernel_warm": lambda: fa.flash_attention_bwd(
                    q, k, v, o, lse, do, sliding_window=window)}
         t = _time_set(torch, "flash_attention_bwd", key, fns,
-                      flash_bwd_bound(*key[:7], q.element_size()), 10)
+                      _cost().flash_bwd_bound(*key[:7],
+                                              q.element_size()), 10)
         lib_nxt = _cold_copies((q, k, v, do), nbytes)
 
         def sdpa_inputs():
@@ -3748,21 +3696,28 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def spawn_ranks(world, out_dir):
-    """Run _rank_main on `world` spawned processes; a rank that fails, or a
-    world that outlives SHARDED's timeout, fails the script (the other
-    ranks are terminated)."""
+def spawn_ranks(world, out_dir, target=None, during=None):
+    """Run `target` (_rank_main when None) on `world` spawned processes,
+    each writing rank<r>.json, and `during()` in this process while they
+    run; a rank that fails, `during` raising, or a world that outlives
+    SHARDED's timeout fails the script (the other ranks are terminated)."""
     import torch.multiprocessing as mp
+    timeout_s = SHARDED["timeout_s"]
     t0 = time.perf_counter()
-    ctx = mp.spawn(_rank_main, args=(world, _free_port(), str(out_dir)),
+    ctx = mp.spawn(target or _rank_main,
+                   args=(world, _free_port(), str(out_dir)),
                    nprocs=world, join=False)
-    while not ctx.join(timeout=5):
-        if time.perf_counter() - t0 > SHARDED["timeout_s"]:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.terminate()
-            raise SystemExit(f"chip_smoke: the world of {world} ranks did not "
-                             f"end in {SHARDED['timeout_s']} s")
+    try:
+        if during is not None:
+            during()
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > timeout_s:
+                raise SystemExit(f"chip_smoke: the world of {world} ranks "
+                                 f"did not end in {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
     return ([json.loads((Path(out_dir) / f"rank{r}.json").read_text())
              for r in range(world)], time.perf_counter() - t0)
 
@@ -3963,6 +3918,235 @@ def add_sharded_launches(record, launches):
 
 
 # ---------------------------------------------------------------------- #
+# 14. the launch tooling: the dry run of each measured path, the sharding
+# rules on real weights, mixtral-8x7b's placement on meta
+# ---------------------------------------------------------------------- #
+#: the paths served and trained above, by tag: their config, the launches
+#: the card counted and the measured times (phase_serve, phase_train)
+PATHS = {}
+#: 14b: llama3.2-3b at full width cut to `layers`, sharded at each world
+LAUNCH = {"arch": "llama3.2-3b", "layers": 1, "worlds": (2, 4),
+          "seed": 0, "mixtral": "mixtral-8x7b", "node_mesh": (1, 8)}
+
+
+def dryrun_path(torch, tag, path):
+    """14a for one measured path: the dry run of its step(s) on meta at its
+    own config and shapes, the kernel calls held against the card's
+    launches, the roofline terms beside the measured times. A decode step's
+    share and mfu are over the graph's replay device time, the steadier
+    reading; over the wall-clock difference of two generate lengths too."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.sharding import MeshShape
+    cfg = path["cfg"]
+    one = MeshShape((1, 1), ("data", "model"))
+    # a stack with no tail is extrapolated exactly from 1 and 2 units
+    probes = dryrun._unit_layout(cfg)[2] == 0
+    # part: (shape, the measured seconds by name, the times the card ran it)
+    if path["mode"] == "serve":
+        parts = {"prefill": (ShapeConfig("serve_prefill", SERVE["prompt"],
+                                         SERVE["batch"], "prefill"),
+                             {"wall": path["prefill_ms"] / 1e3}, 1),
+                 "decode": (ShapeConfig("serve_decode", SERVE["max_len"],
+                                        SERVE["batch"], "decode"),
+                            {"replay": path["replay_ms"] / 1e3,
+                             "wall": path["decode_ms"] / 1e3},
+                            SERVE["n_new"])}
+    else:
+        parts = {"step": (ShapeConfig("train", TRAIN["seq"],
+                                       TRAIN["batch"], "train"),
+                           {"wall": path["step_s"]}, path["steps"])}
+    expected = {}
+    for part, (shape, measured, times) in parts.items():
+        t0 = time.perf_counter()
+        res = dryrun.dry_run(cfg, shape, one, probes=probes)
+        count_s = time.perf_counter() - t0
+        for name, k in res["kernels"].items():
+            calls = k["calls"]
+            if abs(calls - round(calls)) > 1e-9:
+                raise SystemExit(f"chip_smoke: 14a {tag} {part}: {calls} "
+                                 f"{name} calls is not whole")
+            expected[name] = expected.get(name, 0) + times * round(calls)
+        least_s = max(res["compute_s"], res["memory_s"])
+        model_s = res["model_flops_total"] / HW["peak_flops_bf16"]
+        shares = "; ".join(
+            f"{how} {secs * 1e3:.3f} ms: roofline share "
+            f"{100 * least_s / secs:.2f}%, mfu {100 * model_s / secs:.3f}%"
+            for how, secs in measured.items())
+        log(f"[launch] 14a {tag} {part} ({cfg.name}, {shape.global_batch} "
+            f"x {shape.seq_len}): dry run (counted in {count_s:.2f} s on "
+            f"meta, probes {probes}): {res['flops_total']:.6e} FLOPs, "
+            f"{res['bytes_total']:.6e} B, compute_s "
+            f"{res['compute_s'] * 1e3:.4f} ms, memory_s "
+            f"{res['memory_s'] * 1e3:.4f} ms ({res['dominant']}), model "
+            f"{res['model_flops_total']:.6e} FLOPs; measured {shares}; "
+            f"kernels (calls, FLOPs and bytes a call) "
+            + ", ".join(f"{k} {v['calls']:g} ({v['flops'] / v['calls']:.6e}"
+                        f", {v['bytes'] / v['calls']:.6e})"
+                        for k, v in res["kernels"].items()))
+    counted = {k: n for k, n in path["launches"].items() if n}
+    if counted != expected:
+        raise SystemExit(f"chip_smoke: 14a {tag}: the dry run counts "
+                         f"{expected} kernel calls, the card launched "
+                         f"{counted}")
+    log(f"[launch] 14a {tag}: the dry run's kernel calls equal the card's "
+        f"launches {counted}")
+
+
+def _rank_launch(rank, world, port, out_dir):
+    """One rank of 14b: llama3.2-3b at full width (LAUNCH's layers) on the
+    card, its params, AdamW state (m and v drawn at random) and a decode
+    cache (drawn at random) sharded and gathered back on a (1, w) and a
+    (w, 1) mesh. Results into rank<r>.json."""
+    import os
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.dryrun import collective_formula
+    from repro_torch.launch.hlo_analysis import collective_stats
+    from repro_torch.launch.mesh import _mesh, axis_sizes, init_world
+    from repro_torch.models.api import make_decode_cache
+    from repro_torch.train import make_train_state
+    from repro_torch.utils.pytree import tree_leaves
+    import torch.distributed as dist
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    backend, dev = init_world(rank, world, f"tcp://localhost:{port}",
+                              device="cuda")
+    out = {"backend": backend, "device": str(dev), "meshes": {}}
+    try:
+        cfg = dataclasses.replace(get_config(LAUNCH["arch"]),
+                                  n_layers=LAUNCH["layers"])
+        gen = torch.Generator(dev).manual_seed(LAUNCH["seed"])
+        state = make_train_state(gen, cfg, cfg.lite(), device=dev)
+        B = SERVE["batch"]
+        cache = make_decode_cache(cfg, B, SERVE["max_len"], dev)
+        for leaf in tree_leaves(state["opt"]) + tree_leaves(cache):
+            if leaf.dim():
+                leaf.copy_(torch.randn(leaf.shape, generator=gen,
+                                       device=dev).to(leaf.dtype))
+        for sizes in ((1, world), (world, 1)):
+            mesh = _mesh(sizes, ("data", "model"))
+            n_of = axis_sizes(mesh)
+            p_sh = sh.params_shardings(state["params"], mesh)
+            trees = {"params": (state["params"], p_sh),
+                     "opt": (state["opt"], sh.opt_shardings(state["opt"],
+                                                           p_sh, mesh)),
+                     "cache": (cache, sh.cache_shardings(cache, mesh, B))}
+            res = {}
+            for name, (tree, specs) in trees.items():
+                t0 = time.perf_counter()
+                local = sh.shard_tree(tree, specs, mesh)
+                with collective_stats() as stats:
+                    back = sh.gather_tree(local, specs, mesh)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                pairs = list(zip(tree_leaves(tree), tree_leaves(back)))
+                split = [(t.numel() * t.element_size(),
+                          sum(1 for e in spec for a in sh.entry_axes(e)
+                              if n_of[a] > 1))
+                         for t, spec in sh.zip_specs(tree, specs)]
+                res[name] = {
+                    "bitwise": all(a.dtype == b.dtype and torch.equal(a, b)
+                                   for a, b in pairs),
+                    "bytes": sum(t.numel() * t.element_size()
+                                 for t in tree_leaves(local)),
+                    "spec_bytes": sh.tree_bytes(tree, specs, mesh),
+                    "whole_bytes": sh.tree_bytes(tree),
+                    "gathers": stats.get("all-gather",
+                                         {"count": 0, "bytes": 0}),
+                    "expected": {"count": sum(d for _, d in split),
+                                 "bytes": sum(b for b, d in split if d)},
+                    "s": time.perf_counter() - t0}
+                if name == "params":
+                    res[name]["formula"] = collective_formula(
+                        {"params": tree}, {"params": specs},
+                        ShapeConfig("prefill", 1, B, "prefill"),
+                        mesh).get("all-gather", {"count": 0, "bytes": 0})
+                del local, back, pairs
+            out["meshes"]["x".join(map(str, sizes))] = res
+    finally:
+        dist.destroy_process_group()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def phase_launch_sharding(torch, during=None):
+    """14b: the shard -> gather round trip at LAUNCH's worlds, gloo ranks on
+    the one card; `during()` runs here while the first world's ranks
+    do."""
+    import tempfile
+    for world in LAUNCH["worlds"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks, secs = spawn_ranks(world, tmp, _rank_launch, during)
+        during = None
+        for r, res in enumerate(ranks):
+            if res["backend"] != "gloo":
+                raise SystemExit(f"chip_smoke: 14b ranks on one card must "
+                                 f"run gloo, got {res['backend']}")
+            for mesh, trees in res["meshes"].items():
+                for name, t in trees.items():
+                    bad = [] if t["bitwise"] else ["not bitwise"]
+                    if t["bytes"] != t["spec_bytes"]:
+                        bad.append(f"{t['bytes']} B held, the specs say "
+                                   f"{t['spec_bytes']}")
+                    if t["gathers"] != t["expected"]:
+                        bad.append(f"gathers {t['gathers']}, expected "
+                                   f"{t['expected']}")
+                    if name == "params" and t["gathers"] != t["formula"]:
+                        bad.append(f"gathers {t['gathers']}, the dry "
+                                   f"run's formula {t['formula']}")
+                    if bad or not t["gathers"]["count"]:
+                        raise SystemExit(f"chip_smoke: 14b world {world} "
+                                         f"rank {r} mesh {mesh} {name}: "
+                                         f"{bad or 'nothing gathered'}")
+        for mesh, trees in ranks[0]["meshes"].items():
+            log(f"[launch] 14b world {world}, mesh {mesh}: "
+                + "; ".join(f"{name} {t['whole_bytes']} B whole, "
+                            f"{t['bytes']} B a rank, {t['gathers']['count']} "
+                            f"gathers of {t['gathers']['bytes']} B, "
+                            f"{t['s']:.2f} s" for name, t in trees.items())
+                + " (bitwise on every rank)")
+        log(f"[launch] 14b world {world}: {secs:.2f} s")
+
+
+def phase_launch_mixtral():
+    """14c: mixtral-8x7b's bytes a card, from the specs on meta, on the
+    production node mesh."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch.dryrun import input_shardings
+    from repro_torch.launch.sharding import MeshShape, tree_bytes
+    from repro_torch.launch.specs import input_specs
+    cfg = get_config(LAUNCH["mixtral"])
+    mesh = MeshShape(LAUNCH["node_mesh"], ("data", "model"))
+    for name in ("train_4k", "prefill_32k", "decode_32k"):
+        shape = INPUT_SHAPES[name]
+        specs = input_specs(cfg, shape)
+        per = tree_bytes(specs, input_shardings(specs, shape, mesh), mesh)
+        log(f"[launch] 14c {cfg.name} {name} on a {LAUNCH['node_mesh']} "
+            f"mesh: {per} B a card of {tree_bytes(specs)} B "
+            f"({100 * per / HW['hbm_bytes']:.1f}% of "
+            f"{HW['hbm_bytes']:.0f} B); running it waits for more than one "
+            f"card")
+
+
+def phase_launch(torch, card):
+    """Phase 14, with its wall time: 14a (host work on meta tensors) runs
+    while 14b's first world of ranks does."""
+    t0 = time.perf_counter()
+
+    def dry_runs():
+        for tag, path in PATHS.items():
+            dryrun_path(torch, tag, path)
+        log(f"[launch] 14a {time.perf_counter() - t0:.2f} s")
+
+    free_device_memory(torch)
+    phase_launch_sharding(torch, during=dry_runs)
+    phase_launch_mixtral()
+    log(f"[launch] phase 14 wall {time.perf_counter() - t0:.2f} s ({card})")
+
+
+# ---------------------------------------------------------------------- #
 def main() -> int:
     import torch
     t_script = time.perf_counter()
@@ -3972,7 +4156,7 @@ def main() -> int:
                          "script: run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import HW as card_hw
+    from repro_torch.kernels.cost import HW as card_hw
     HW.update(card_hw)
     phase_build()
     errs = phase_kernels(torch, CHECK_SHAPES)
@@ -3991,7 +4175,10 @@ def main() -> int:
     # kd_loss_fwd / kd_loss_bwd, off the path now, at the path's rows
     rows_main = [(C * B, V, "float32") for C, B, V, _ in grad_main]
     errs.update(phase_kernels(torch, [s for s in rows_main if s not in errs]))
-    times = phase_timing(torch, rows_main + VOCAB_SHAPES)
+    # and at 13c's rank rows of the sharded kd forward (half of SHARDED's
+    # (2048, 151936) bf16 at world 2)
+    times = phase_timing(torch, rows_main + VOCAB_SHAPES + [
+        (SHARDED["kd"][0] // 2, SHARDED["kd"][1], "bfloat16")])
     grad_times = phase_grad_timing(torch, grad_main + GRAD_VOCAB)
 
     engine, batch, serve_launches, serve_shapes, _ = phase_serve(torch)
@@ -4323,6 +4510,8 @@ def main() -> int:
                f"prefill" if "slstm" in m else ""))
     # phase 13, the mesh-sharded path
     add_sharded_launches(record, phase_sharded(torch, card))
+    # phase 14, the launch tooling
+    phase_launch(torch, card)
     log(f"[main] chip_smoke wall {time.perf_counter() - t_script:.1f} s")
     log(card)
     log(json.dumps(record))

@@ -14,5 +14,8 @@
   ops              — the kernels under tracer annotations: the model's and
                      the HAPFL step's entry points
   ref              — plain PyTorch versions (the CPU path and the on-card oracle)
+  cost             — each kernel's bytes and operations by formula, its bound
+                     on the card, and the dry run's tally of the kernels
+                     met on meta tensors
   _build           — builds csrc/*.cu with nvcc at first use, loads them via ctypes
 """

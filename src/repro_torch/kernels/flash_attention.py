@@ -10,7 +10,10 @@ their inputs through their strides, so the transposed views of the model's
 (B, S, H, hd) tensors go in without a copy, and every output (o, and dq,
 dk, dv) is a (B, H, S, hd) view of a (B, S, H, hd) tensor. A wrapper takes
 the plain version (`repro_torch.kernels.ref`) only for tensors on the CPU.
-For CUDA tensors it launches its kernels or raises. Where autograd records,
+For CUDA tensors it launches its kernels or raises. For meta tensors (the
+dry run) it returns empty outputs of the kernels' shapes and records their
+work (`kernels.cost`), launching nothing: the plain version's S x S scores
+are not the work the card does. Where autograd records,
 the forward runs under `FlashAttention`, which also keeps the rows'
 log-sum-exp, and its backward is the backward kernels.
 """
@@ -22,7 +25,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, cost, ref
 
 #: kernel launches; the wrapper adds one where it launches its kernel and
 #: nowhere else (CPU calls go to the plain version, uncounted)
@@ -80,6 +83,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     o = _bshd_like(q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if q.device.type == "meta":
+        cost.record("flash_attention", cost.flash_work(
+            B, H, k.shape[1], S, hd, sliding_window, q.element_size(),
+            causal))
+        return (o, lse) if with_lse else o
     strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, o)
                                          for st in t.stride()[:3]))
     with torch.cuda.device(q.device):
@@ -107,6 +115,11 @@ def bwd_scratch_shape(B: int, H: int, S: int, dtype: torch.dtype):
 def _launch_bwd(q, k, v, o, lse, do, causal: bool, sliding_window: int):
     B, H, S, hd = q.shape
     dq, dk, dv = _bshd_like(q), _bshd_like(k), _bshd_like(v)
+    if q.device.type == "meta":
+        cost.record("flash_attention_bwd", cost.flash_bwd_work(
+            B, H, k.shape[1], S, hd, sliding_window, q.element_size(),
+            causal))
+        return dq, dk, dv
     delta = torch.empty(bwd_scratch_shape(B, H, S, q.dtype),
                         dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*(
@@ -235,7 +248,7 @@ def _check_args(q, k, v, sliding_window: int) -> None:
 
 
 def _check_cuda(q, k, v, S: int, hd: int) -> None:
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention runs on CUDA or the CPU, got "
                          f"{q.device}")
     if hd not in HEAD_DIMS:

@@ -10,7 +10,9 @@ gradients of the mutual-KD loss in one launch. `kd_loss_fwd`,
 autograd differentiates. A
 wrapper takes the plain version (`repro_torch.kernels.ref`) only for tensors
 on the CPU. For CUDA tensors it launches its kernel or raises: a build or
-launch failure is never covered by the plain version.
+launch failure is never covered by the plain version. For meta tensors (the
+dry run) it returns empty outputs of the kernel's shapes and records its
+work (`kernels.cost`), launching nothing.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, cost, ref
 
 #: kernel launches per wrapper; each wrapper adds one where it launches its
 #: kernel and nowhere else (CPU calls go to the plain version, uncounted)
@@ -67,7 +69,7 @@ def _check(x: torch.Tensor, y: torch.Tensor, labels: torch.Tensor) -> None:
 
 def _cuda_args(x, y, labels, *more):
     """Checks that only the kernel path needs; returns int32 labels."""
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"kd_loss kernels run on CUDA, got {x.device}")
     for t in (x, y, labels) + more:
         if not t.is_contiguous():
@@ -87,6 +89,9 @@ def kd_loss_fwd(x: torch.Tensor, y: torch.Tensor, labels: torch.Tensor
     lab = _cuda_args(x, y, labels)
     N, V = x.shape
     out = torch.empty((8, N), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        cost.record("kd_loss_fwd", cost.kd_fwd_work(N, V, x.element_size()))
+        return out[:4], out[4:]
     with torch.cuda.device(x.device):
         err = _lib().kd_loss_fwd(
             x.data_ptr(), y.data_ptr(), lab.data_ptr(), out.data_ptr(), N, V,
@@ -112,6 +117,9 @@ def kd_loss_bwd(x: torch.Tensor, y: torch.Tensor, labels: torch.Tensor,
         return ref.kd_loss_bwd_ref(x, y, labels, stats, grads)
     lab = _cuda_args(x, y, labels, stats, grads)
     dx, dy = torch.empty_like(x), torch.empty_like(y)
+    if x.device.type == "meta":
+        cost.record("kd_loss_bwd", cost.kd_bwd_work(N, V, x.element_size()))
+        return dx, dy
     with torch.cuda.device(x.device):
         err = _lib().kd_loss_bwd(
             x.data_ptr(), y.data_ptr(), lab.data_ptr(), stats.data_ptr(),
@@ -206,7 +214,7 @@ def kd_loss_grad(x: torch.Tensor, y: torch.Tensor, labels: torch.Tensor,
         raise ValueError(f"lambdas must be 4 weights, got {lambdas}")
     if x.device.type == "cpu":
         return ref.kd_loss_grad_ref(x, y, labels, lambdas)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"kd_loss kernels run on CUDA, got {x.device}")
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("kd_loss_grad needs contiguous logits")
@@ -218,6 +226,9 @@ def kd_loss_grad(x: torch.Tensor, y: torch.Tensor, labels: torch.Tensor,
     dx, dy = torch.empty_like(x), torch.empty_like(y)
     rows = torch.empty((6, C * B), dtype=torch.float32, device=x.device)
     means = torch.empty((6, C), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        cost.record("kd_loss_grad", cost.grad_work(C, B, V, x.element_size()))
+        return dx, dy, means
     with torch.cuda.device(x.device):
         err = _lib().kd_loss_grad(
             x.data_ptr(), y.data_ptr(), labels.data_ptr(), labels.stride(0),

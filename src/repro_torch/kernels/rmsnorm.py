@@ -5,7 +5,10 @@ The CUDA kernels in ``csrc/rmsnorm.cu`` replace the Pallas TPU kernel
 ``src/repro/kernels/rmsnorm.py::_rmsnorm_kernel`` and add the backward it
 lacks; that file's header says what bounds them and how they are laid out.
 A wrapper takes the plain version (`repro_torch.kernels.ref`) only for
-tensors on the CPU. For CUDA tensors it launches its kernel or raises.
+tensors on the CPU. For CUDA tensors it launches its kernel or raises. For
+meta tensors (the dry run, `repro_torch.launch.dryrun`) it returns empty
+outputs of the kernel's shapes and records the kernel's work
+(`kernels.cost`), launching nothing.
 Where autograd records (grad mode on and an input that needs a gradient),
 the CUDA launch runs under `RMSNorm` / `AddRMSNorm`, whose backward is the
 backward kernel; elsewhere (serving, under no_grad) the launch runs alone.
@@ -17,7 +20,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, cost, ref
 
 #: kernel launches per wrapper; each wrapper adds one where it launches its
 #: kernel and nowhere else (CPU calls go to the plain version, uncounted)
@@ -72,7 +75,7 @@ def _check(rows, scale: torch.Tensor, what: str) -> None:
 
 def _check_cuda(rows, scale: torch.Tensor, what: str) -> None:
     x = rows[0]
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"{what} runs on CUDA or the CPU, got {x.device}")
     if not all(t.is_contiguous() for t in (*rows, scale)):
         raise ValueError(f"the {what} kernel needs contiguous tensors")
@@ -185,6 +188,9 @@ class AddRMSNorm(torch.autograd.Function):
 def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     N, d = x.shape
     y = torch.empty_like(x)
+    if x.device.type == "meta":
+        cost.record("rmsnorm", cost.norm_work(N, d, x.element_size()))
+        return y
     with torch.cuda.device(x.device):
         err = _lib().rmsnorm_fwd(
             x.data_ptr(), scale.data_ptr(), y.data_ptr(), N, d, float(eps),
@@ -199,6 +205,9 @@ def _launch_add(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
                 eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     N, d = x.shape
     s, y = torch.empty_like(x), torch.empty_like(x)
+    if x.device.type == "meta":
+        cost.record("add_rmsnorm", cost.add_norm_work(N, d, x.element_size()))
+        return s, y
     with torch.cuda.device(x.device):
         err = _lib().add_rmsnorm_fwd(
             x.data_ptr(), delta.data_ptr(), scale.data_ptr(), s.data_ptr(),
@@ -256,6 +265,10 @@ def _launch_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                 g_s: Optional[torch.Tensor], eps: float,
                 name: str) -> Tuple[torch.Tensor, torch.Tensor]:
     N, d = x.shape
+    if x.device.type == "meta":
+        cost.record(name, cost.norm_bwd_work(N, d, x.element_size(),
+                                             g_s is not None))
+        return torch.empty_like(x), torch.empty_like(scale)
     key = (x.device, N, d, x.element_size())
     if key not in _grids:
         _grids[key] = bwd_grid(N, d, x.element_size(),

@@ -88,5 +88,5 @@ def shard(x, *names):
     no per-activation sharding constraint, so the port's model code runs
     replicated on every rank and splits work explicitly where the reference
     shards it (the length-sharded decode, the grouped MoE dispatch). The
-    weights' placement is `launch/sharding.py`'s (ROADMAP §1 item 17)."""
+    weights' placement is `launch/sharding.py`'s (`shard_tree`)."""
     return x

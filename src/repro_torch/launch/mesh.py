@@ -21,27 +21,17 @@ from __future__ import annotations
 
 import logging
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+# HW, the card's datasheet figures, lives with the kernels' cost formulas
+from repro_torch.kernels.cost import HW  # noqa: F401
 from repro_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
-
-# NVIDIA H100 SXM5 80 GB, datasheet figures (dense, no sparsity) at the card's
-# 700 W power limit: what chip_smoke.py's kernel bounds divide by. A card set
-# below 700 W runs slower under load.
-HW = {
-    "card": "NVIDIA H100 SXM5 80GB, 700 W (datasheet)",
-    "peak_flops_bf16": 989e12,   # FLOP/s
-    "peak_flops_fp32": 67e12,    # FLOP/s, outside the tensor cores
-    "hbm_bw": 3.35e12,           # B/s
-    "nvlink_bw": 900e9,          # B/s a card, all links together
-    "hbm_bytes": 80e9,
-}
 
 # the production layout's "model" axis: the 8 cards of one NVLink node
 NODE_CARDS = 8
@@ -149,6 +139,19 @@ def axis_sizes(mesh) -> Dict[str, int]:
     return {a: int(mesh.shape[a]) for a in mesh.axis_names}
 
 
+#: the records of the open `launch.hlo_analysis.collective_stats()` blocks,
+#: {kind: {"count", "bytes"}} each: every collective below adds its output
+#: bytes to all of them
+_STATS: List[Dict[str, Dict[str, int]]] = []
+
+
+def _record(kind: str, nbytes: int) -> None:
+    for stats in _STATS:
+        row = stats.setdefault(kind, {"count": 0, "bytes": 0})
+        row["count"] += 1
+        row["bytes"] += nbytes
+
+
 def _staged(x: torch.Tensor, group) -> bool:
     """gloo's collectives are run on host copies of CUDA tensors."""
     return x.device.type != "cpu" and dist.get_backend(group) == "gloo"
@@ -170,6 +173,7 @@ def all_gather_rows(x: torch.Tensor, mesh: DeviceMesh,
     parts = [torch.empty_like(raw) for _ in range(n)]
     dist.all_gather(parts, raw, group=group)
     out = torch.cat(parts)
+    _record("all-gather", out.numel())
     if staged:
         out = out.to(x.device)
     return out.view(x.dtype).view((n * x.shape[0],) + tuple(x.shape[1:]))
@@ -180,6 +184,7 @@ def all_reduce_(x: torch.Tensor, op, mesh: DeviceMesh,
     """In-place all_reduce of `x` with `op` (a `dist.ReduceOp`) over the
     ranks of `axis`; returns x."""
     group = mesh.get_group(axis)
+    _record("all-reduce", x.numel() * x.element_size())
     if _staged(x, group):
         host = x.cpu()
         dist.all_reduce(host, op=op, group=group)

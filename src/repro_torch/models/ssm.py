@@ -331,6 +331,25 @@ def init_slstm(gen: torch.Generator, cfg: ModelConfig, device,
     }
 
 
+def _slstm_scan(pre_all, r, h, c, n, m):
+    """The sLSTM's time loop. pre_all (L, H, B, 4 dh): each step's input
+    pre-activations; r (H, dh, 4 dh); h, c, n, m (H, B, dh) the state.
+    Returns the outputs (H, B, L, dh) and the final state."""
+    hs = []
+    for pre_t in pre_all.unbind(0):
+        zi, ii, fi, oi = (pre_t + torch.bmm(h, r)).chunk(4, -1)
+        fm = fi + m
+        m_new = torch.maximum(fm, ii)
+        i_g = torch.exp(ii - m_new)
+        f_g = torch.exp(fm - m_new)
+        c = f_g * c + i_g * torch.tanh(zi)
+        n = f_g * n + i_g
+        h = torch.sigmoid(oi) * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, 2), (h, c, n, m)
+
+
 def apply_slstm(params, cfg: ModelConfig, x, cache=None,
                 d_model: Optional[int] = None):
     """x: (B, L, d). cache: None, "init" (prefill) or {"h", "c", "n", "m":
@@ -359,19 +378,8 @@ def apply_slstm(params, cfg: ModelConfig, x, cache=None,
     else:
         h = c = n = x.new_zeros((H, B, dh), dtype=torch.float32)
         m = x.new_full((H, B, dh), NEG_BIG, dtype=torch.float32)
-    hs = []
-    for pre_t in pre_all.unbind(0):
-        zi, ii, fi, oi = (pre_t + torch.bmm(h, r)).chunk(4, -1)
-        fm = fi + m
-        m_new = torch.maximum(fm, ii)
-        i_g = torch.exp(ii - m_new)
-        f_g = torch.exp(fm - m_new)
-        c = f_g * c + i_g * torch.tanh(zi)
-        n = f_g * n + i_g
-        h = torch.sigmoid(oi) * c / torch.clamp(n, min=1e-6)
-        m = m_new
-        hs.append(h)
-    y = torch.stack(hs, 2).permute(1, 2, 0, 3).reshape(B, L, d).to(x.dtype)
+    hs, (h, c, n, m) = _slstm_scan(pre_all, r, h, c, n, m)
+    y = hs.permute(1, 2, 0, 3).reshape(B, L, d).to(x.dtype)
     new_cache = None
     if isinstance(cache, dict):
         for key, t in zip(("h", "c", "n", "m"), (h, c, n, m)):

@@ -798,3 +798,63 @@ def test_cuda_ssm_train_step_launches_and_matches_cpu(cuda, name):
         assert abs(card_m[k] - v) <= 1e-3 * max(1.0, abs(v)), k
     for a, b in zip(card_p, host_p):
         torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_unchanged_by_the_meta_path(cuda):
+    """Each kernel, at one shape: a call on meta tensors (the dry run's)
+    launches nothing and records its formula's work; the CUDA calls before
+    and after it give bitwise equal results, one launch each."""
+    from repro_torch.kernels import cost
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    x, dlt, dy = rnd(512, 3072), rnd(512, 3072), rnd(512, 3072)
+    sc = rnd(3072)
+    q = rnd(2, 512, 24, 128).transpose(1, 2)
+    k, v = (rnd(2, 512, 8, 128).transpose(1, 2) for _ in range(2))
+    o, lse = tflash._launch(q, k, v, True, 0, with_lse=True)
+    do = rnd(2, 512, 24, 128).transpose(1, 2)
+    xl, yl = rnd(256, 32000), rnd(256, 32000)
+    lab = torch.randint(0, 32000, (256,), generator=g, device="cuda")
+    _, stats = tkd.kd_loss_fwd(xl, yl, lab)
+    grads = torch.randn((4, 256), generator=g, device="cuda")
+    calls = {
+        "rmsnorm": (trms, lambda *t: trms.rmsnorm(*t), (x, sc)),
+        "add_rmsnorm": (trms, lambda *t: trms.add_rmsnorm(*t), (x, dlt, sc)),
+        "rmsnorm_bwd": (trms, lambda *t: trms.rmsnorm_bwd(*t), (x, sc, dy)),
+        "add_rmsnorm_bwd": (trms, lambda *t: trms.add_rmsnorm_bwd(*t),
+                            (x, sc, dlt, dy)),
+        "flash_attention": (tflash, lambda *t: tflash.flash_attention(*t),
+                            (q, k, v)),
+        "flash_attention_bwd": (tflash,
+                                lambda *t: tflash.flash_attention_bwd(*t),
+                                (q, k, v, o, lse, do)),
+        "kd_loss_fwd": (tkd, lambda *t: tkd.kd_loss_fwd(*t), (xl, yl, lab)),
+        "kd_loss_bwd": (tkd, lambda *t: tkd.kd_loss_bwd(*t),
+                        (xl, yl, lab, stats, grads)),
+        "kd_loss_grad": (tkd, lambda *t: tkd.kd_loss_grad(
+            *t, (0.4, 0.6, 0.5, 0.5)), (xl[None], yl[None], lab[None])),
+    }
+    for name, (mod, fn, args) in calls.items():
+        n0 = mod.launches[name]
+        first = fn(*args)
+        torch.cuda.synchronize()
+        assert mod.launches[name] == n0 + 1, name
+        meta = [t.to("meta") if isinstance(t, torch.Tensor) else t
+                for t in args]
+        with cost.counting() as tally:
+            out = fn(*meta)
+        assert mod.launches[name] == n0 + 1, name
+        assert tally[name]["calls"] == 1 and tally[name]["bytes"] > 0, name
+        for t, m in zip(first if isinstance(first, tuple) else (first,),
+                        out if isinstance(out, tuple) else (out,)):
+            assert m.is_meta and m.shape == t.shape and m.dtype == t.dtype
+        again = fn(*args)
+        torch.cuda.synchronize()
+        assert mod.launches[name] == n0 + 2, name
+        for a, b in zip(first if isinstance(first, tuple) else (first,),
+                        again if isinstance(again, tuple) else (again,)):
+            assert torch.equal(a, b), name
