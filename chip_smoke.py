@@ -16,13 +16,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 the built libraries).
   3. kernels  — hold each kernel against its plain PyTorch version:
                 kd_loss_fwd / kd_loss_bwd at the HAPFL path's row counts (4
-                and 8 padded clients x batch 32), a ragged N, a ragged V and
-                a vocabulary shape in fp32 and bf16 (tolerances of
-                tests/test_kernels.py: fp32 1e-4, bf16 5e-2); kd_loss_grad
-                at (8, 32, 10), (4, 32, 10), V = 777 and the vocabulary
-                shape (4, 512, 32000) in fp32 and bf16 at the same
-                tolerances, its accuracies exact and two launches bitwise
-                equal; rmsnorm at the serve path's (2048, 3072) and (4,
+                and 8 padded clients x batch 32), a ragged N, a ragged V in
+                both dtypes, a vocabulary shape in fp32 and bf16, 13c's
+                (1024, 151936) bf16 and a few such rows, (64, 151936), in
+                bf16 and in fp32 (the forward's 8-block cluster), and on
+                the unaligned row slice x[3:67] of a (70, 4099) bf16
+                tensor (the terms and stats, fp32, at 1e-4 in both dtypes;
+                bf16 gradients within one bf16 ulp of each element plus
+                2^-10 of the tensor's largest |value|); two launches of
+                each bitwise equal, and a row's terms, stats and gradients
+                bitwise the same in an N-row call and in a call on a slice
+                of those rows (the kernels pick their variant from V and
+                the dtype alone); kd_loss_grad at (8, 32, 10), (4, 32,
+                10), V = 777 and the vocabulary shape (4, 512, 32000) in
+                fp32 and bf16 at the tolerances of tests/test_kernels.py
+                (fp32 1e-4, bf16 5e-2), its accuracies exact and two
+                launches bitwise equal; rmsnorm at the serve path's (2048, 3072) and (4,
                 3072), a ragged N and an odd d; add_rmsnorm at the same
                 shapes bitwise equal to `x + delta` followed by the rmsnorm
                 kernel; flash_attention at the serve path's prefill shape,
@@ -201,7 +210,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 prefill's whole cache, logits and every cache leaf at atol
                 and rtol 1e-3; one loss_and_grads with its LiteModel: loss,
                 metrics, grad norm and every gradient at 1e-3.
-
+  6. timing   — each kernel, its plain version and, where one PyTorch call
                 computes the same function, that call (F.rms_norm,
                 x + delta then F.rms_norm, F.scaled_dot_product_attention),
                 at every shape and layout its path gave it. `ms` is device
@@ -212,7 +221,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 the 50 MB L2, so that each call reads device memory, as the
                 bound assumes; `warm_ms` reuses one copy. `eager_ms` is the
                 wall time per call of back-to-back eager calls, the
-                wrapper's host cost included.
+                wrapper's host cost included. kd_loss_fwd / kd_loss_bwd
+                are timed the same way, L2-cold, at the HAPFL path's rows,
+                (2048, 32000) in both dtypes, 13c's (1024, 151936) bf16 and
+                the few rows (64, 151936) bf16, each with its share of its
+                bound.
   7. parity   — with PPO off and the same starting globals, one ragged
                 cohort trained on the card (through the kernels) equals the
                 same cohort trained on the CPU (plain versions); a 2-layer
@@ -391,6 +404,14 @@ ROOT = Path(__file__).resolve().parent
 HW = {}
 L2_BYTES = 50e6                 # H100 L2 cache
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# kd_loss_fwd / kd_loss_bwd against their plain versions, tensor by tensor:
+# an fp32 output (terms, stats, fp32 gradients) within TOL["float32"] for
+# either logits dtype, since both sides compute it in fp32 from the same
+# values; a bf16 gradient, which both sides round from fp32, within one bf16
+# ulp of each element (rtol 2^-7) plus 2^-10 of the tensor's largest |value|
+KD_BF16_RTOL = 2.0 ** -7
+KD_BF16_ATOL_SHARE = 2.0 ** -10
+KD_TOL_TEXT = "fp32 1e-4; bf16 2^-7 |ref| + 2^-10 max|ref|"
 TOL_NORM = {"float32": 1e-5, "bfloat16": 2e-2}
 TOL_FLASH = {"float32": 2e-5, "bfloat16": 2e-2}
 TERMS = ("ce_x", "ce_y", "kl_xy", "kl_yx")
@@ -414,8 +435,25 @@ GRAD_VOCAB = [(4, 512, 32000, "float32"), (4, 512, 32000, "bfloat16")]
 LAMBDAS = (0.4, 0.6, 0.5, 0.5)
 CHECK_SHAPES = [(128, 10, "float32"), (256, 10, "float32"),
                 (1000, 10, "float32"), (64, 777, "float32"),
-                (2048, 32000, "float32"), (2048, 32000, "bfloat16")]
-VOCAB_SHAPES = [(2048, 32000, "float32"), (2048, 32000, "bfloat16")]
+                (64, 777, "bfloat16"), (2048, 32000, "float32"),
+                (2048, 32000, "bfloat16"), (1024, 151936, "bfloat16"),
+                (64, 151936, "bfloat16"),
+                # fp32 rows that take the forward's 8-block cluster
+                (64, 151936, "float32")]
+# kd_loss_fwd / kd_loss_bwd timed beyond the path's rows: the vocabulary
+# shape in both dtypes, 13c's rank rows and a few such rows
+VOCAB_SHAPES = [(2048, 32000, "float32"), (2048, 32000, "bfloat16"),
+                (1024, 151936, "bfloat16"), (64, 151936, "bfloat16")]
+# bitwise checks of kd_loss_fwd / kd_loss_bwd (N, V, dtype, rows): two
+# launches equal, and rows [a, b) of an N-row call equal to a call on the
+# slice x[a:b] (13c's rank half; a few rows; an unaligned V)
+KD_BITWISE = [(1024, 151936, "bfloat16", (512, 1024)),
+              (1024, 151936, "bfloat16", (1, 65)),
+              (2048, 32000, "float32", (5, 69)),
+              (2048, 32000, "bfloat16", (1000, 1100)),
+              (64, 777, "bfloat16", (3, 40)),
+              (70, 4099, "bfloat16", (3, 67)),
+              (256, 10, "float32", (128, 256))]
 
 # the serve path: llama3.2-3b at full width, 4 prompts x 512 tokens, 32 new
 SERVE = {"arch": "llama3.2-3b", "batch": 4, "prompt": 512, "n_new": 32,
@@ -675,6 +713,19 @@ def _close(torch, got, exp, tol, what):
                                    msg=lambda m: f"{what}: {m}")
 
 
+def _close_kd(torch, got, exp, what):
+    """kd_loss_fwd / kd_loss_bwd outputs against their plain versions at the
+    kd limits (KD_BF16_RTOL above), each tensor by its own dtype."""
+    for a, b in zip(got, exp):
+        if a.dtype == torch.float32:
+            atol = rtol = TOL["float32"]
+        else:
+            atol = KD_BF16_ATOL_SHARE * float(b.float().abs().max())
+            rtol = KD_BF16_RTOL
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol,
+                                   msg=lambda m: f"{what}: {m}")
+
+
 def phase_kernels(torch, shapes):
     """{(N, V, dtype): (fwd max|err|, bwd max|err|)} at each shape."""
     from repro_torch.kernels import kd_loss as kd, ref
@@ -687,11 +738,10 @@ def phase_kernels(torch, shapes):
             torch.cuda.synchronize()
             exp_terms, exp_stats = ref.kd_loss_fwd_ref(x, y, lab)
             exp_dx, exp_dy = _stopgrad_grads(torch, ref, x, y, lab, grads)
-            tol = TOL[dtype]
-            _close(torch, (terms, stats), (exp_terms, exp_stats), tol,
-                   f"kd_loss_fwd {N}x{V} {dtype}")
-            _close(torch, (dx, dy), (exp_dx, exp_dy), tol,
-                   f"kd_loss_bwd {N}x{V} {dtype}")
+            _close_kd(torch, (terms, stats), (exp_terms, exp_stats),
+                      f"kd_loss_fwd {N}x{V} {dtype}")
+            _close_kd(torch, (dx, dy), (exp_dx, exp_dy),
+                      f"kd_loss_bwd {N}x{V} {dtype}")
             # the autograd.Function drives the same pair of kernels
             xa = x.detach().requires_grad_(True)
             ya = y.detach().requires_grad_(True)
@@ -699,14 +749,57 @@ def phase_kernels(torch, shapes):
             fdx, fdy = torch.autograd.grad(
                 sum((g * out[k]).sum() for g, k in zip(grads, TERMS)),
                 (xa, ya))
-            _close(torch, (fdx, fdy), (exp_dx, exp_dy), tol,
-                   f"KDLoss.backward {N}x{V} {dtype}")
+            _close_kd(torch, (fdx, fdy), (exp_dx, exp_dy),
+                      f"KDLoss.backward {N}x{V} {dtype}")
             e_f = _max_err(torch, (terms, stats), (exp_terms, exp_stats))
             e_b = _max_err(torch, (dx, dy), (exp_dx, exp_dy))
             errs[(N, V, dtype)] = (e_f, e_b)
             log(f"[kernels] {N}x{V} {dtype}: fwd max|err| {e_f:.3e}, bwd "
-                f"max|err| {e_b:.3e} (tol {tol})")
+                f"max|err| {e_b:.3e} (tol {KD_TOL_TEXT})")
     return errs
+
+
+def phase_kd_bitwise(torch, cases):
+    """kd_loss_fwd / kd_loss_bwd bitwise against themselves at each (N, V,
+    dtype, (a, b)): two launches on the same inputs, and rows [a, b) of the
+    N-row call against a call on the row slice x[a:b] (a view, so its rows
+    keep their addresses and alignment); the slice's results are also held
+    against the plain versions, which covers a slice whose base is not on
+    16 bytes. Returns the seconds taken."""
+    from repro_torch.kernels import kd_loss as kd, ref
+    t0 = time.perf_counter()
+    with full_fp32(torch):
+        for N, V, dtype, (a, b) in cases:
+            what = f"kd_loss {N}x{V} {dtype} rows {a}:{b}"
+            x, y, lab, grads = _inputs(torch, N, V, dtype, seed=N + V + 1)
+            whole = [kd.kd_loss_fwd(x, y, lab)]
+            whole.append(kd.kd_loss_bwd(x, y, lab, whole[0][1], grads))
+            again = [kd.kd_loss_fwd(x, y, lab)]
+            again.append(kd.kd_loss_bwd(x, y, lab, again[0][1], grads))
+            xs, ys, ls = x[a:b], y[a:b], lab[a:b]
+            gs = grads[:, a:b].contiguous()
+            part = [kd.kd_loss_fwd(xs, ys, ls)]
+            part.append(kd.kd_loss_bwd(xs, ys, ls, part[0][1], gs))
+            torch.cuda.synchronize()
+            flat = lambda r: [t for pair in r for t in pair]
+            if not all(torch.equal(p, q)
+                       for p, q in zip(flat(whole), flat(again))):
+                raise SystemExit(f"chip_smoke: {what}: two launches on the "
+                                 f"same inputs differ")
+            rows = [t[:, a:b] for t in whole[0]] + [t[a:b] for t in whole[1]]
+            if not all(torch.equal(p, q) for p, q in zip(rows, flat(part))):
+                raise SystemExit(f"chip_smoke: {what}: the slice's rows "
+                                 f"differ from the same rows of the {N}-row "
+                                 f"call")
+            exp = list(ref.kd_loss_fwd_ref(xs, ys, ls))
+            exp += _stopgrad_grads(torch, ref, xs, ys, ls, gs)
+            _close_kd(torch, flat(part), exp, f"{what} (plain)")
+            log(f"[kernels] {what}: two launches bitwise equal, the slice "
+                f"(base {xs.data_ptr() % 16} bytes off 16) bitwise the "
+                f"{N}-row call's rows, max|err| to plain "
+                f"{_max_err(torch, flat(part), exp):.3e} (tol {KD_TOL_TEXT})")
+            del x, y, whole, again, part, exp
+    return time.perf_counter() - t0
 
 
 def _grad_inputs(torch, C, B, V, dtype, seed):
@@ -783,40 +876,59 @@ def _eager_ms(torch, fn, iters):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def kd_inputs_cold(torch, N, V, dtype):
+    """Functions giving the next (x, y, labels) and (x, y, labels, stats,
+    grads) of kd_loss_fwd / kd_loss_bwd at (N, V, dtype), cycling over
+    enough copies to spill the L2 between two uses of one copy."""
+    from repro_torch.kernels import kd_loss as kd
+    x, y, lab, grads = _inputs(torch, N, V, dtype, seed=7)
+    _, stats = kd.kd_loss_fwd(x, y, lab)
+    nbytes = 2 * N * V * x.element_size()
+    return (_cold_copies((x, y, lab), nbytes),
+            _cold_copies((x, y, lab, stats, grads), 2 * nbytes))
+
+
 def phase_timing(torch, shapes):
     """{(kernel, N, V, dtype): times} at each shape, for the kernel and its
-    plain version: device ms from graph replays, eager wall ms per call."""
+    plain version: device ms from graph replays over inputs that spill the
+    L2 (as the bound assumes), eager wall ms per call on one fixed set of
+    inputs (the host's cost of a call)."""
     from repro_torch.kernels import kd_loss as kd, ref
     times = {}
     for N, V, dtype in shapes:
-        x, y, lab, grads = _inputs(torch, N, V, dtype, seed=7)
-        _, stats = kd.kd_loss_fwd(x, y, lab)
+        fwd_in, bwd_in = kd_inputs_cold(torch, N, V, dtype)
+        fwd_one, bwd_one = fwd_in(), bwd_in()
         iters = 200 if N * V < 1e6 else 20
-        fns = {"kd_loss_fwd": (lambda: kd.kd_loss_fwd(x, y, lab),
-                               lambda: ref.kd_loss_fwd_ref(x, y, lab)),
-               "kd_loss_bwd": (
-                   lambda: kd.kd_loss_bwd(x, y, lab, stats, grads),
-                   lambda: ref.kd_loss_bwd_ref(x, y, lab, stats, grads))}
-        bounds = _cost().kd_bounds(N, V, x.element_size())
-        for name, (kernel, plain) in fns.items():
+        fns = {"kd_loss_fwd": (lambda: kd.kd_loss_fwd(*fwd_in()),
+                               lambda: ref.kd_loss_fwd_ref(*fwd_in()),
+                               lambda: kd.kd_loss_fwd(*fwd_one),
+                               lambda: ref.kd_loss_fwd_ref(*fwd_one)),
+               "kd_loss_bwd": (lambda: kd.kd_loss_bwd(*bwd_in()),
+                               lambda: ref.kd_loss_bwd_ref(*bwd_in()),
+                               lambda: kd.kd_loss_bwd(*bwd_one),
+                               lambda: ref.kd_loss_bwd_ref(*bwd_one))}
+        bounds = _cost().kd_bounds(N, V, 2 if dtype == "bfloat16" else 4)
+        for name, (kernel, plain, kernel_one, plain_one) in fns.items():
             # plain, kernel, kernel, plain: the two kernel and two plain
             # timings are averaged, so drift in clocks hits both alike
             p1 = _graph_ms(torch, plain, iters)
             k1 = _graph_ms(torch, kernel, iters)
             k2 = _graph_ms(torch, kernel, iters)
             p2 = _graph_ms(torch, plain, iters)
-            k_eager = _eager_ms(torch, kernel, iters)
-            p_eager = _eager_ms(torch, plain, iters)
+            k_eager = _eager_ms(torch, kernel_one, iters)
+            p_eager = _eager_ms(torch, plain_one, iters)
             b_ms, b_by = bounds[name]
-            times[(name, N, V, dtype)] = {
+            t = times[(name, N, V, dtype)] = {
                 "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
                 "bound_ms": b_ms, "bound_by": b_by,
+                "share": b_ms * 2 / (k1 + k2),
                 "eager_ms": k_eager, "plain_eager_ms": p_eager}
             log(f"[timing] {name} {N}x{V} {dtype}: kernel device "
-                f"{(k1 + k2) / 2:.6f} ms ({k1:.6f}, {k2:.6f}), plain device "
-                f"{(p1 + p2) / 2:.6f} ms, bound {b_ms:.7f} ms by {b_by} "
-                f"(3.35 TB/s, 67 TFLOP/s fp32); eager wall per call: "
-                f"kernel {k_eager:.6f} ms, plain {p_eager:.6f} ms")
+                f"{t['ms']:.6f} ms ({k1:.6f}, {k2:.6f}), plain device "
+                f"{t['plain_ms']:.6f} ms, bound {b_ms:.7f} ms by {b_by} "
+                f"(3.35 TB/s, 67 TFLOP/s fp32), {100 * t['share']:.1f}% of "
+                f"it; eager wall per call: kernel {k_eager:.6f} ms, plain "
+                f"{p_eager:.6f} ms")
     return times
 
 
@@ -3558,7 +3670,7 @@ def _rank_kernels(torch, dev, out):
     cases = {"kd_loss_fwd": (
         lambda: sharded_kd_loss(x, y, lab, mesh),
         lambda: torch.stack([kd_loss_op(x, y, lab)[t] for t in TERMS]),
-        lambda: ref.kd_loss_fwd_ref(x, y, lab)[0], TOL[bf16]),
+        lambda: ref.kd_loss_fwd_ref(x, y, lab)[0], TOL["float32"]),
         "rmsnorm": (lambda: sharded_rmsnorm(h, scale, mesh),
                     lambda: rmsnorm_op(h, scale),
                     lambda: ref.rmsnorm_ref(h, scale), TOL_NORM[bf16])}
@@ -4160,6 +4272,8 @@ def main() -> int:
     HW.update(card_hw)
     phase_build()
     errs = phase_kernels(torch, CHECK_SHAPES)
+    bitwise_s = phase_kd_bitwise(torch, KD_BITWISE)
+    log(f"[main] the kd bitwise checks: {bitwise_s:.2f} s")
     grad_errs = phase_kd_grad(torch, GRAD_SHAPES)
     nf_errs = phase_norm_flash_kernels(torch)
     bwd_errs = phase_bwd_kernels(torch)
@@ -4175,10 +4289,9 @@ def main() -> int:
     # kd_loss_fwd / kd_loss_bwd, off the path now, at the path's rows
     rows_main = [(C * B, V, "float32") for C, B, V, _ in grad_main]
     errs.update(phase_kernels(torch, [s for s in rows_main if s not in errs]))
-    # and at 13c's rank rows of the sharded kd forward (half of SHARDED's
-    # (2048, 151936) bf16 at world 2)
-    times = phase_timing(torch, rows_main + VOCAB_SHAPES + [
-        (SHARDED["kd"][0] // 2, SHARDED["kd"][1], "bfloat16")])
+    t_timing = time.perf_counter()
+    times = phase_timing(torch, rows_main + VOCAB_SHAPES)
+    log(f"[main] the kd timings: {time.perf_counter() - t_timing:.2f} s")
     grad_times = phase_grad_timing(torch, grad_main + GRAD_VOCAB)
 
     engine, batch, serve_launches, serve_shapes, _ = phase_serve(torch)
@@ -4380,7 +4493,11 @@ def main() -> int:
          "shapes": [[C * B, V, n] for (C, B, V), n in sorted(shapes.items())],
          "dtype": "float32",
          "path": "core.distill.mutual_losses, off the HAPFL path (timed at "
-                 "its row counts)"}
+                 "its row counts)",
+         "vocab": [{"shape": [N, V, dtype],
+                    **{k: times[(name, N, V, dtype)][k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by", "share")}}
+                   for N, V, dtype in VOCAB_SHAPES]}
         for i, name in enumerate(("kd_loss_fwd", "kd_loss_bwd"))]}
     record["kernels"].append({
         "name": "kd_loss_grad", "route": "cuda",

@@ -33,6 +33,11 @@ from repro_torch.utils.pytree import tree_leaves, tree_map
 TERMS = ("ce_x", "ce_y", "kl_xy", "kl_yx")
 # the tolerances of tests/test_kernels.py
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# kd_loss_fwd / kd_loss_bwd gradients in bf16, which the kernel and the plain
+# version both round from fp32: one bf16 ulp of each element, plus 2^-10 of
+# the tensor's largest |value| (chip_smoke.py's KD_BF16_* limits)
+KD_BF16_RTOL = 2.0 ** -7
+KD_BF16_ATOL_SHARE = 2.0 ** -10
 # rmsnorm and flash attention: fp32 looser than tests/test_kernels.py's
 # 2e-6, which assumes the CPU's order of summation; bf16 as there
 TOL_NORM = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -76,21 +81,19 @@ def _stopgrad_reference(x, y, lab, g):
     return torch.autograd.grad(loss, (x, y))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("N,V,dtype", [(128, 10, "float32"),
-                                       (256, 10, "float32"),
-                                       (1000, 10, "float32"),
-                                       (64, 777, "float32"),
-                                       (2048, 32000, "float32"),
-                                       (2048, 32000, "bfloat16")])
-def test_cuda_kernels_match_plain(cuda, N, V, dtype):
-    x, y, lab = _inputs(N, V, seed=5)
-    tdt = getattr(torch, dtype)
-    xt = torch.from_numpy(x).to(cuda, tdt).requires_grad_(True)
-    yt = torch.from_numpy(y).to(cuda, tdt).requires_grad_(True)
-    labt = torch.from_numpy(lab).to(cuda)
-    g = torch.from_numpy(np.random.default_rng(6).standard_normal(
-        (4, N)).astype(np.float32)).to(cuda)
+def _assert_kd_grad_close(got, exp):
+    if got.dtype == torch.float32:
+        atol = rtol = TOL["float32"]
+    else:
+        atol = KD_BF16_ATOL_SHARE * float(exp.float().abs().max())
+        rtol = KD_BF16_RTOL
+    torch.testing.assert_close(got.float(), exp.float(), atol=atol, rtol=rtol)
+
+
+def _check_kd_kernels(xt, yt, labt, g):
+    """KDLoss through the kernels (one forward and one backward launch)
+    against the plain forward and its stop-gradient autograd: the terms,
+    fp32, at the fp32 limit whatever the logits' dtype."""
     before = dict(tkd.launches)
     got = tkd.kd_loss(xt, yt, labt)
     loss = sum((gi * got[k]).sum() for gi, k in zip(g, TERMS))
@@ -99,12 +102,92 @@ def test_cuda_kernels_match_plain(cuda, N, V, dtype):
     assert tkd.launches["kd_loss_fwd"] == before["kd_loss_fwd"] + 1
     assert tkd.launches["kd_loss_bwd"] == before["kd_loss_bwd"] + 1
     exp = kd_loss_ref(xt, yt, labt)
-    tol = TOL[dtype]
     for k in TERMS:
-        torch.testing.assert_close(got[k], exp[k], atol=tol, rtol=tol)
+        torch.testing.assert_close(got[k], exp[k], atol=TOL["float32"],
+                                   rtol=TOL["float32"])
     ex, ey = _stopgrad_reference(xt, yt, labt, g)
-    torch.testing.assert_close(dx.float(), ex.float(), atol=tol, rtol=tol)
-    torch.testing.assert_close(dy.float(), ey.float(), atol=tol, rtol=tol)
+    _assert_kd_grad_close(dx, ex)
+    _assert_kd_grad_close(dy, ey)
+
+
+def _kd_tensors(N, V, dtype, device, seed=5):
+    x, y, lab = _inputs(N, V, seed=seed)
+    tdt = getattr(torch, dtype)
+    g = np.random.default_rng(seed + 1).standard_normal((4, N))
+    return (torch.from_numpy(x).to(device, tdt),
+            torch.from_numpy(y).to(device, tdt),
+            torch.from_numpy(lab).to(device),
+            torch.from_numpy(g.astype(np.float32)).to(device))
+
+
+# the HAPFL path's rows, a ragged N, a ragged V in both dtypes, the
+# vocabulary shape in both dtypes, chip_smoke.py 13c's rank rows and a few
+# such rows in bf16 and in fp32 (the forward's 8-block cluster)
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,V,dtype", [(128, 10, "float32"),
+                                       (256, 10, "float32"),
+                                       (1000, 10, "float32"),
+                                       (64, 777, "float32"),
+                                       (64, 777, "bfloat16"),
+                                       (2048, 32000, "float32"),
+                                       (2048, 32000, "bfloat16"),
+                                       (1024, 151936, "bfloat16"),
+                                       (64, 151936, "bfloat16"),
+                                       (64, 151936, "float32")])
+def test_cuda_kernels_match_plain(cuda, N, V, dtype):
+    x, y, lab, g = _kd_tensors(N, V, dtype, cuda)
+    _check_kd_kernels(x.requires_grad_(True), y.requires_grad_(True), lab, g)
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_on_an_unaligned_row_slice(cuda):
+    """Rows 3:67 of a (70, 4099) bf16 tensor: the slice's base and every
+    row's start lie off 16 bytes, so the kernels take their scalar loads."""
+    x, y, lab, g = _kd_tensors(70, 4099, "bfloat16", cuda)
+    xs = x.requires_grad_(True)[3:67]
+    ys = y.requires_grad_(True)[3:67]
+    assert xs.data_ptr() % 16 != 0
+    _check_kd_kernels(xs, ys, lab[3:67], g[:, 3:67])
+
+
+def _kd_launches(x, y, lab, g):
+    terms, stats = tkd.kd_loss_fwd(x, y, lab)
+    dx, dy = tkd.kd_loss_bwd(x, y, lab, stats, g.contiguous())
+    return terms, stats, dx, dy
+
+
+# (N, V, dtype, rows): the variants of the forward (a warp, a block and a
+# cluster of blocks a row), vector and scalar loads
+KD_BITWISE = [(256, 10, "float32", (128, 256)),
+              (64, 777, "bfloat16", (3, 40)),
+              (70, 4099, "bfloat16", (3, 67)),
+              (2048, 32000, "float32", (5, 69)),
+              (2048, 32000, "bfloat16", (1000, 1100)),
+              (1024, 151936, "bfloat16", (512, 1024))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,V,dtype", [case[:3] for case in KD_BITWISE])
+def test_cuda_kd_kernels_two_launches_bitwise(cuda, N, V, dtype):
+    x, y, lab, g = _kd_tensors(N, V, dtype, cuda, seed=7)
+    first = _kd_launches(x, y, lab, g)
+    second = _kd_launches(x, y, lab, g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,V,dtype,rows", KD_BITWISE)
+def test_cuda_kd_kernels_rows_independent_of_n(cuda, N, V, dtype, rows):
+    """A row's terms, stats and gradients are the same bits whether it is
+    computed in the N-row call or in a call on a slice of those rows."""
+    a, b = rows
+    x, y, lab, g = _kd_tensors(N, V, dtype, cuda, seed=8)
+    terms, stats, dx, dy = _kd_launches(x, y, lab, g)
+    part = _kd_launches(x[a:b], y[a:b], lab[a:b], g[:, a:b])
+    for whole, got in zip((terms[:, a:b], stats[:, a:b], dx[a:b], dy[a:b]),
+                          part):
+        assert torch.equal(whole, got)
 
 
 @pytest.mark.gpu

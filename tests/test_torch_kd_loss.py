@@ -32,8 +32,11 @@ def _inputs(N, V, seed=0, scale=3.0):
     return x, y, rng.integers(0, V, N).astype(np.int32)
 
 
+# V 777 and V 4099: rows whose length is no multiple of 16 bytes in either
+# dtype, which the CUDA kernels read with scalar loads
 @pytest.mark.parametrize("N,V,block_n", [(64, 512, 32), (128, 1000, 32),
-                                         (32, 2048, 32), (64, 777, 64)])
+                                         (32, 2048, 32), (64, 777, 64),
+                                         (48, 777, 16), (32, 4099, 32)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ref_matches_pallas_kernel(N, V, block_n, dtype):
     x, y, lab = _inputs(N, V)
@@ -46,6 +49,27 @@ def test_ref_matches_pallas_kernel(N, V, block_n, dtype):
     for k in TERMS:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(exp[k]),
                                    atol=TOL[dtype], rtol=TOL[dtype], err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ref_on_an_unaligned_row_slice(dtype):
+    """The plain versions on rows 3:67 of a (70, 4099) tensor (a view whose
+    base lies off 16 bytes, as chip_smoke.py and the card tests give the
+    kernels) equal the same rows of the whole call, forward and backward."""
+    x, y, lab = (torch.from_numpy(a) for a in _inputs(70, 4099, seed=5))
+    tdt = getattr(torch, dtype)
+    x, y = x.to(tdt), y.to(tdt)
+    g = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (4, 70)).astype(np.float32))
+    terms, stats = tkd.kd_loss_fwd(x, y, lab)
+    dx, dy = tkd.kd_loss_bwd(x, y, lab, stats, g)
+    xs, ys, ls = x[3:67], y[3:67], lab[3:67]
+    assert xs.data_ptr() % 16 != 0
+    t_s, s_s = tkd.kd_loss_fwd(xs, ys, ls)
+    dx_s, dy_s = tkd.kd_loss_bwd(xs, ys, ls, s_s, g[:, 3:67].contiguous())
+    for whole, part in ((terms[:, 3:67], t_s), (stats[:, 3:67], s_s),
+                        (dx[3:67], dx_s), (dy[3:67], dy_s)):
+        torch.testing.assert_close(part, whole, atol=1e-6, rtol=1e-6)
 
 
 def _stopgrad_reference(x, y, lab, g):
