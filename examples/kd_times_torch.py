@@ -34,9 +34,14 @@ SHAPES = [(128, 10, "float32"), (2048, 32000, "float32"),
           (2048, 32000, "bfloat16"), (1024, 151936, "bfloat16"),
           (64, 151936, "bfloat16")]
 #: kd_loss_grad (C, B, V, dtype): the HAPFL step's, the vocabulary shape in
-#: both dtypes and qwen3-moe's training step's
+#: both dtypes, and the training steps' (llama3.2-3b's, qwen3-moe's and
+#: qwen2-vl's, the latter also in bf16, xlstm-1.3b's, zamba2-7b's and
+#: musicgen-medium's)
 GRAD_SHAPES = [(4, 32, 10, "float32"), (4, 512, 32000, "float32"),
-               (4, 512, 32000, "bfloat16"), (1, 2048, 151936, "float32")]
+               (4, 512, 32000, "bfloat16"), (1, 2048, 128256, "float32"),
+               (1, 2048, 151936, "float32"), (1, 2048, 151936, "bfloat16"),
+               (1, 2048, 50304, "float32"), (1, 2048, 32000, "float32"),
+               (1, 8192, 2048, "float32")]
 #: calls a timing at a vocabulary shape, ten times as many below 1e6
 #: elements, as chip_smoke.py's phase 6
 ITERS = 20

@@ -75,36 +75,61 @@
 // backward and about 30 small reductions around them per step.
 //
 // What bounds it: it reads x and y and writes dx and dy once, 4 N V
-// elements, so it is memory-bound at vocabulary widths; at the CNN path's
-// (C B, 10) rows the launch sets its time, and one launch is the design.
+// elements, so it is memory-bound at vocabulary widths, provided each row
+// pair stays on chip between the stats sweep and the gradient sweep: at
+// (2048, 128256) fp32 a row pair is 1.03 MB, and one in flight on each SM
+// is far beyond the 50 MB L2, so a second sweep would come from HBM again.
+// At the CNN path's (C B, 10) rows the launch sets its time, and one launch
+// is the design.
 //
-// Design. One warp per row (a stats sweep of the online (m, s, u) of the
-// forward and the argmax with the first index kept on ties, then a gradient
-// sweep), kWarps rows of one client per block, grid (row blocks, C). Each
-// row's six values go to a scratch (6, N); the last block of a client to
-// finish (an integer atomic per client, reset by that block) sums the
+// Design. Two variants, chosen from V alone, and for the row kernel a
+// cluster size from V and the dtype, so that a row's dx, dy and six values
+// never depend on N, C or the rows beside it:
+//   - V <= kWarpV (128): a warp per row, the whole row pair in registers
+//     (a lane holds elements lane + 32 k), kWarps rows of one client a
+//     block;
+//   - wider rows: a block of up to kRowThreads per row, or a thread block
+//     cluster of 2-16 such blocks once the row pair passes kPairSlice
+//     (108 KB), so that at least two blocks fit an SM and one block's
+//     loads overlap another's sweeps and stores (fp32 V 32000 and 50304: 4
+//     blocks; 128256 and 151936: 16, a non-portable size). Each block
+//     holds its contiguous slice of x and y on chip: the bulk-copy engine
+//     (cp.async.bulk) stages it in shared memory on an mbarrier; where
+//     that would leave room for only two blocks an SM and holding each
+//     thread's first 16-byte unit in registers makes room for three (fp32
+//     V 151936, bf16 151936), those units are loaded into registers
+//     instead. The stats sweep is the forward's max-first step on 16-byte
+//     units plus the argmax with the first index kept on ties. The
+//     slices' states, and the labelled logits, meet in every block through
+//     distributed shared memory and merge in a fixed tree; each block then
+//     writes its slice's dx and dy from its copy with 16-byte streaming
+//     stores. So x and y are read from device memory once. The grid holds
+//     as many clusters as fit the card at once, each taking rows in turn,
+//     so that a loss_chunk call of a few hundred rows fills the SMs too.
+//     Rows whose length or base is not 16-byte aligned (V = 777, 2049)
+//     take the same kernel with a slice staged by scalar loads and scalar
+//     stores.
+// Each row's six values go to a scratch (6, N), written by the row's first
+// block; the last block to finish (an integer atomic, reset by that block:
+// a client's in the warp kernel, the launch's in the row kernel) sums each
 // client's B rows with one fixed assignment of rows to threads, so the
-// result does not depend on which block came last and two runs are bitwise
-// equal; no float atomics. Rows wider than kWideV take a
-// block of kRowThreads each, with the same epilogue. Where the row pair
-// fits in shared memory and rows are 16-byte aligned (bf16 up to V = 58k),
-// the bulk-copy engine (cp.async.bulk) stages it in kChunks pieces, each on
-// its own mbarrier; the stats sweep takes each piece as it lands, and the
-// gradient sweep reads the staged pair again, so x and y are read from
-// device memory once. Otherwise (fp32 at V = 32000) both sweeps read device
-// memory, the second mostly from L2.
+// result does not depend on which block came last and two runs are
+// bitwise equal; no float atomics.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"   // mbarriers, bulk copies
+
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr int kWarps = 8;          // rows per block, one warp each
-constexpr int kUnroll = 4;         // strided loads in flight per lane
+constexpr int kUnroll = 4;         // elements a lane holds of a warp's row
 constexpr float kEmpty = -1e30f;   // running max of a lane that saw nothing
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -170,6 +195,19 @@ struct Pack {
     } else {
       w[0] = static_cast<uint32_t>(__ldcs(
                  reinterpret_cast<const unsigned short*>(row) + vi)) << 16;
+    }
+  }
+
+  // the same from shared memory: no cache hint
+  __device__ __forceinline__ void load_plain(const T* row, int vi) {
+    if constexpr (kWords == 4) {
+      const uint4 q = reinterpret_cast<const uint4*>(row)[vi];
+      w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
+    } else if constexpr (sizeof(T) == 4) {
+      w[0] = reinterpret_cast<const uint32_t*>(row)[vi];
+    } else {
+      w[0] = static_cast<uint32_t>(
+                 reinterpret_cast<const unsigned short*>(row)[vi]) << 16;
     }
   }
 
@@ -466,14 +504,35 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
 }
 
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// 16-byte vectors where every row of x and y starts on 16 bytes
+template <typename T>
+bool vector_rows(const void* x, const void* y, int V) {
+  return static_cast<size_t>(V) * sizeof(T) % 16 == 0 && aligned16(x) &&
+         aligned16(y);
+}
+
 // ---------------------------------------------------------------------- //
 // kd_loss_grad
 // ---------------------------------------------------------------------- //
-constexpr int kWideV = 2048;       // wider rows take a block each
-constexpr int kRowThreads = 512;   // threads of a wide row's block
-constexpr int kChunks = 8;         // bulk-copy pieces of a staged row
-constexpr int kSmemLimit = 232448; // shared memory a block can use
-constexpr int kStageBase = 128;    // staged x begins here, after the barriers
+constexpr int kWarpV = 32 * kUnroll;  // rows up to this take a warp each
+constexpr int kRowThreads = 256;      // threads of a row block, at most
+constexpr int kStageBase = 128;       // the staged slice begins here
+constexpr int kPairSlice = 110592;    // a block's bytes of a row pair, at most
+constexpr int kMaxGradCluster = 16;   // blocks a row, at most (non-portable)
+// room for a row block's static arrays (about 2.3 KB; launch_rows refuses a
+// build whose arrays outgrow it)
+constexpr int kGradStaticSmem = 3072;
+// dynamic shared memory a row block may ask for: the 227 KB a block can use
+// less its static arrays
+constexpr int kGradSmemMax = 232448 - kGradStaticSmem;
+// an SM's shared memory, and what a row block takes beside its dynamic
+// shared memory (its static arrays and the 1 KB the runtime reserves)
+constexpr size_t kSmSmem = 233472;
+constexpr size_t kBlockSmemExtra = kGradStaticSmem + 1024;
 constexpr int kNoIndex = 0x7fffffff;
 
 // Online softmax state plus the running argmax (first index on ties).
@@ -498,11 +557,16 @@ __device__ __forceinline__ void push_stat(Stat& o, float a, float d, int v) {
 
 __device__ __forceinline__ void merge_stat(Stat& o, const Stat& p) {
   if (p.m > o.m || (p.m == o.m && p.arg < o.arg)) o.arg = p.arg;
-  const float m = fmaxf(o.m, p.m);
-  const float ra = __expf(o.m - m), rb = __expf(p.m - m);
-  o.s = o.s * ra + p.s * rb;
-  o.u = o.u * ra + p.u * rb;
-  o.m = m;
+  // the state with the smaller max is rescaled to the other's
+  const float r = __expf(-fabsf(o.m - p.m));
+  if (p.m > o.m) {
+    o.s = o.s * r + p.s;
+    o.u = o.u * r + p.u;
+    o.m = p.m;
+  } else {
+    o.s += p.s * r;
+    o.u += p.u * r;
+  }
 }
 
 __device__ __forceinline__ Stat shfl_stat(const Stat& o, int src, bool xor_) {
@@ -517,10 +581,10 @@ __device__ __forceinline__ Stat shfl_stat(const Stat& o, int src, bool xor_) {
           __shfl_sync(0xffffffffu, o.arg, src)};
 }
 
-// merges the warp's states; every lane gets lane 0's result
-__device__ __forceinline__ void warp_merge(Stat& o) {
-#pragma unroll
-  for (int mask = 16; mask > 0; mask >>= 1)
+// merges the states of lanes [0, width), width a power of two (the
+// others hold empty states); every lane gets lane 0's result
+__device__ __forceinline__ void warp_merge(Stat& o, int width = 32) {
+  for (int mask = width / 2; mask > 0; mask >>= 1)
     merge_stat(o, shfl_stat(o, mask, true));
   o = shfl_stat(o, 0, false);
 }
@@ -529,53 +593,62 @@ struct Lambdas {
   float ce_x, kl_xy, ce_y, kl_yx;  // each already divided by B
 };
 
-// The row's statistics from its two merged states; where dst is not null,
-// its six values go to dst[0], dst[stride], ..., dst[5 * stride].
-__device__ __forceinline__ void row_values(const Stat& sx, const Stat& sy,
-                                           float xl, float yl, int lab,
-                                           bool ok, float* dst, int stride,
-                                           float& lse_x, float& lse_y,
-                                           float& e_x, float& e_y) {
-  lse_x = sx.m + logf(sx.s);
-  lse_y = sy.m + logf(sy.s);
-  e_x = sx.u / sx.s;
-  e_y = sy.u / sy.s;
-  if (dst == nullptr) return;
+// what the gradients of a row need: lse_x, lse_y, e_x, e_y
+struct RowScalars {
+  float lse_x, lse_y, e_x, e_y;
+};
+
+// The row's scalars from its two merged states; where dst is not null, its
+// six values go to dst[0], dst[stride], ..., dst[5 * stride].
+__device__ __forceinline__ RowScalars row_values(const Stat& sx,
+                                                 const Stat& sy, float xl,
+                                                 float yl, int lab, bool ok,
+                                                 float* dst, int stride) {
+  const RowScalars r{sx.m + logf(sx.s), sy.m + logf(sy.s), sx.u / sx.s,
+                     sy.u / sy.s};
+  if (dst == nullptr) return r;
   const float nan = __int_as_float(0x7fc00000);
-  dst[0 * stride] = ok ? lse_x - xl : nan;
-  dst[1 * stride] = ok ? lse_y - yl : nan;
-  dst[2 * stride] = e_x - lse_x + lse_y;
-  dst[3 * stride] = e_y - lse_y + lse_x;
+  dst[0 * stride] = ok ? r.lse_x - xl : nan;
+  dst[1 * stride] = ok ? r.lse_y - yl : nan;
+  dst[2 * stride] = r.e_x - r.lse_x + r.lse_y;
+  dst[3 * stride] = r.e_y - r.lse_y + r.lse_x;
   dst[4 * stride] = sx.arg == lab ? 1.f : 0.f;
   dst[5 * stride] = sy.arg == lab ? 1.f : 0.f;
+  return r;
 }
 
-template <typename T>
-__device__ __forceinline__ void grad_pair(float xv, float yv, bool hot,
-                                          float lse_x, float lse_y, float e_x,
-                                          float e_y, const Lambdas& l, T* dx,
-                                          T* dy) {
+// dx and dy of one element pair; `hot` where the element is the label
+__device__ __forceinline__ void grad_vals(float xv, float yv, bool hot,
+                                          const RowScalars& r,
+                                          const Lambdas& l, float& gx,
+                                          float& gy) {
   const float d = xv - yv;
-  const float px = __expf(xv - lse_x), py = __expf(yv - lse_y);
+  const float px = ex2((xv - r.lse_x) * kLog2e);
+  const float py = ex2((yv - r.lse_y) * kLog2e);
   const float oh = hot ? 1.f : 0.f;
-  *dx = from_f32<T>(l.ce_x * (px - oh) + l.kl_xy * px * (d - e_x));
-  *dy = from_f32<T>(l.ce_y * (py - oh) + l.kl_yx * py * (-d - e_y));
+  gx = l.ce_x * (px - oh) + l.kl_xy * px * (d - r.e_x);
+  gy = l.ce_y * (py - oh) + l.kl_yx * py * (-d - r.e_y);
 }
 
-// Called by every thread of every block once its rows are in `rows`: the
-// last block of client c sums the client's B rows, in row order per
-// thread and a fixed tree across threads, into out (6, C).
-__device__ void client_epilogue(const float* rows, unsigned* counters,
-                                float* out, int c, int C, int B, int N) {
+// Whether this block is the last of `blocks` blocks to pass `counter`;
+// every thread of the block gets the answer. The rows the blocks wrote are
+// fenced by their writers before they pass.
+__device__ __forceinline__ bool last_block(unsigned* counter,
+                                           unsigned blocks) {
   __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1u) == blocks - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// The block sums client c's B rows of `rows` (6, N), in row order per
+// thread and a fixed tree across threads, into out[:, c] (6, C), so the
+// sums do not depend on which block came last.
+__device__ void sum_client(const float* rows, float* out, int c, int C,
+                           int B, int N) {
   __shared__ float partial[6][32];
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    last = atomicAdd(&counters[c], 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
   float acc[6];
 #pragma unroll
   for (int q = 0; q < 6; ++q) acc[q] = 0.f;
@@ -604,15 +677,14 @@ __device__ void client_epilogue(const float* rows, unsigned* counters,
         t += __shfl_xor_sync(0xffffffffu, t, mask);
       if (lane == 0) out[q * C + c] = t / static_cast<float>(B);
     }
-    if (lane == 0) counters[c] = 0u;  // ready for the next launch
   }
+  __syncthreads();  // partial is free for the next client
 }
 
-// One warp's row: the stats sweep, the merge across lanes and the gradient
-// sweep; lane 0 writes the row's six values to dst[0], dst[stride], ...
-// A lane keeps its first kUnroll elements of x and y in registers for the
-// gradient sweep, reads the label before the sweep and picks the labelled
-// logits up on the way.
+// One warp's row of at most kWarpV elements, held in registers (lane i
+// holds elements i, i + 32, ...): the stats sweep, the merge across lanes
+// and the gradients; lane 0 writes the row's six values to dst[0],
+// dst[stride], ... The labelled logits are picked up on the way.
 template <typename T>
 __device__ __forceinline__ void warp_row(const T* __restrict__ x,
                                          const T* __restrict__ y, int lab,
@@ -622,37 +694,25 @@ __device__ __forceinline__ void warp_row(const T* __restrict__ x,
                                          int stride) {
   const int lane = threadIdx.x & 31;
   const bool ok = lab >= 0 && lab < V;
-  const T* xr = x + off;
-  const T* yr = y + off;
   Stat sx{kEmpty, 0.f, 0.f, kNoIndex}, sy{kEmpty, 0.f, 0.f, kNoIndex};
-  float hx[kUnroll], hy[kUnroll];
+  float xv[kUnroll], yv[kUnroll];
   float xl = 0.f, yl = 0.f;
-  for (int base = lane; base < V; base += 32 * kUnroll) {
-    float xv[kUnroll], yv[kUnroll];
 #pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      const int v = base + 32 * k;
-      xv[k] = v < V ? to_f32(xr[v]) : 0.f;
-      yv[k] = v < V ? to_f32(yr[v]) : 0.f;
-    }
-    if (base == lane) {
+  for (int k = 0; k < kUnroll; ++k) {
+    const int v = lane + 32 * k;
+    xv[k] = v < V ? to_f32(x[off + v]) : 0.f;
+    yv[k] = v < V ? to_f32(y[off + v]) : 0.f;
+  }
 #pragma unroll
-      for (int k = 0; k < kUnroll; ++k) {
-        hx[k] = xv[k];
-        hy[k] = yv[k];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      const int v = base + 32 * k;
-      if (v < V) {
-        const float d = xv[k] - yv[k];
-        push_stat(sx, xv[k], d, v);
-        push_stat(sy, yv[k], -d, v);
-        if (v == lab) {
-          xl = xv[k];
-          yl = yv[k];
-        }
+  for (int k = 0; k < kUnroll; ++k) {
+    const int v = lane + 32 * k;
+    if (v < V) {
+      const float d = xv[k] - yv[k];
+      push_stat(sx, xv[k], d, v);
+      push_stat(sy, yv[k], -d, v);
+      if (v == lab) {
+        xl = xv[k];
+        yl = yv[k];
       }
     }
   }
@@ -661,19 +721,16 @@ __device__ __forceinline__ void warp_row(const T* __restrict__ x,
   // element v sits in lane v % 32
   xl = __shfl_sync(0xffffffffu, xl, lab & 31);
   yl = __shfl_sync(0xffffffffu, yl, lab & 31);
-  float lse_x, lse_y, e_x, e_y;
-  row_values(sx, sy, xl, yl, lab, ok, lane == 0 ? dst : nullptr, stride,
-             lse_x, lse_y, e_x, e_y);
-  for (int base = lane; base < V; base += 32 * kUnroll) {
+  const RowScalars r = row_values(sx, sy, xl, yl, lab, ok,
+                                  lane == 0 ? dst : nullptr, stride);
 #pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      const int v = base + 32 * k;
-      if (v < V) {
-        const bool held = base == lane;
-        grad_pair<T>(held ? hx[k] : to_f32(xr[v]),
-                     held ? hy[k] : to_f32(yr[v]), v == lab, lse_x, lse_y,
-                     e_x, e_y, l, dx + off + v, dy + off + v);
-      }
+  for (int k = 0; k < kUnroll; ++k) {
+    const int v = lane + 32 * k;
+    if (v < V) {
+      float gx, gy;
+      grad_vals(xv[k], yv[k], v == lab, r, l, gx, gy);
+      dx[off + v] = from_f32<T>(gx);
+      dy[off + v] = from_f32<T>(gy);
     }
   }
 }
@@ -696,120 +753,435 @@ __global__ void __launch_bounds__(kWarps * 32)
     warp_row<T>(x, y, labels[static_cast<size_t>(c) * lab_stride + b],
                 static_cast<size_t>(row) * V, V, l, dx, dy, rows + row, N);
   }
-  client_epilogue(rows, counters, out, c, C, B, N);
+  // the last block of the client to finish sums its rows
+  __threadfence();
+  if (last_block(&counters[c], gridDim.x)) {
+    sum_client(rows, out, c, C, B, N);
+    if (threadIdx.x == 0) counters[c] = 0u;  // ready for the next launch
+  }
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+using hopper::bulk_load;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_u32;
+
+// bytes a row block stages of one tensor: `per` units of W values, in
+// whole 128-byte lines
+template <typename T, int W>
+__host__ __device__ constexpr size_t slice_bytes(int per) {
+  return (static_cast<size_t>(per) * W * sizeof(T) + 127) / 128 * 128;
 }
 
-// One block of kRowThreads per row; STAGED: the row pair is staged in shared
-// memory by the bulk-copy engine, else both sweeps read device memory.
-template <typename T, bool STAGED>
-__global__ void __launch_bounds__(kRowThreads)
+// One stats step over U units of W values of x and of y, unit k's first
+// element at e0 + k * stride * W: the running argmax (first index on ties;
+// a thread's units come in increasing order) and the forward's max-first
+// step.
+template <typename T, int W, int U>
+__device__ __forceinline__ void stat_step(Online& ox, Online& oy, int& ax,
+                                          int& ay, const Pack<T, W> (&px)[U],
+                                          const Pack<T, W> (&py)[U], int e0,
+                                          int stride) {
+  const float mx = pack_max(px), my = pack_max(py);
+  if (mx > ox.m) {
+#pragma unroll
+    for (int k = U - 1; k >= 0; --k)
+#pragma unroll
+      for (int i = W - 1; i >= 0; --i)
+        if (px[k].get(i) == mx) ax = e0 + k * stride * W + i;
+  }
+  if (my > oy.m) {
+#pragma unroll
+    for (int k = U - 1; k >= 0; --k)
+#pragma unroll
+      for (int i = W - 1; i >= 0; --i)
+        if (py[k].get(i) == my) ay = e0 + k * stride * W + i;
+  }
+  step<T, W, U>(ox, oy, px, py);
+}
+
+// what a row block tells the others of its slice: the states of x and y,
+// and the labelled logits where the slice holds the label
+struct BlockState {
+  Stat x, y;
+  float xl, yl;
+};
+
+// units a thread of a row block takes at once in either sweep
+constexpr int kRowUnroll = 2;
+
+// Thread t of nt sweeps units [0, cnt) of a staged slice whose unit 0 is
+// element e0 of the row: kRowUnroll units at a time, then single ones.
+template <typename T, int W>
+__device__ __forceinline__ void stat_sweep(const T* xs, const T* ys, int cnt,
+                                           int e0, int t, int nt, Online& ox,
+                                           Online& oy, int& ax, int& ay) {
+  constexpr int U = kRowUnroll;
+  int v = t;
+  for (; v + (U - 1) * nt < cnt; v += U * nt) {
+    Pack<T, W> px[U], py[U];
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      px[k].load_plain(xs, v + k * nt);
+      py[k].load_plain(ys, v + k * nt);
+    }
+    stat_step<T, W, U>(ox, oy, ax, ay, px, py, e0 + v * W, nt);
+  }
+  for (; v < cnt; v += nt) {
+    Pack<T, W> px[1], py[1];
+    px[0].load_plain(xs, v);
+    py[0].load_plain(ys, v);
+    stat_step<T, W, 1>(ox, oy, ax, ay, px, py, e0 + v * W, nt);
+  }
+}
+
+// The gradients of unit v, from its x and y, to unit v of dx and dy; `hot`
+// where the unit holds the label, at value hot_i.
+template <typename T, int W>
+__device__ __forceinline__ void grad_unit(const Pack<T, W>& px,
+                                          const Pack<T, W>& py, bool hot,
+                                          int hot_i, const RowScalars& rs,
+                                          const Lambdas& l, T* dx, T* dy,
+                                          int v) {
+  float gx[W], gy[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i)
+    grad_vals(px.get(i), py.get(i), hot && i == hot_i, rs, l, gx[i], gy[i]);
+  store_pack<T, W>(dx, v, gx);
+  store_pack<T, W>(dy, v, gy);
+}
+
+// A block's slice of a row, `bytes` of x from xg and of y from yg, into
+// xs and ys onto the mbarrier at `bar`, by the bulk-copy engine (one
+// thread).
+__device__ __forceinline__ void fetch_slice(uint32_t bar, void* xs, void* ys,
+                                            const void* xg, const void* yg,
+                                            uint32_t bytes) {
+  mbar_expect_tx(bar, 2 * bytes);
+  if (bytes == 0) return;
+  bulk_load(smem_u32(xs), xg, bytes, bar);
+  bulk_load(smem_u32(ys), yg, bytes, bar);
+}
+
+// Rows wider than kWarpV. Each cluster of `cl` blocks (a plain block when
+// cl = 1) takes rows q, q + G, q + 2G, ... of the N, q its index among the
+// grid's G clusters; block r of a cluster holds the r-th of cl contiguous
+// slices of a row pair on chip, `per` units of W values a tensor: in
+// shared memory, staged by the bulk-copy engine on one mbarrier (W > 1) or
+// by the threads with scalar loads (W = 1, rows off 16 bytes); with REG,
+// the slice's first nt units in registers instead, one a thread, so that
+// three blocks fit an SM. Once a row's gradients are written, the next
+// row's slice is fetched, while the SM's other blocks sweep theirs. The
+// blocks' states meet in every block through distributed shared memory
+// and merge in a fixed tree; each block then writes its slice's gradients
+// from its copy. A row's results do not depend on which cluster takes it.
+template <typename T, int W, bool REG>
+__global__ void __launch_bounds__(kRowThreads, REG ? 3 : 4)
     kd_grad_row_kernel(const T* __restrict__ x, const T* __restrict__ y,
                        const int* __restrict__ labels, long long lab_stride,
-                       int C, int B, int V, Lambdas l, T* __restrict__ dx,
-                       T* __restrict__ dy, float* __restrict__ rows,
+                       int C, int B, int V, int cl, Lambdas l,
+                       T* __restrict__ dx, T* __restrict__ dy,
+                       float* __restrict__ rows,
                        unsigned* __restrict__ counters,
                        float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ Stat warp_stat[2][kRowThreads / 32];
-  const int c = blockIdx.y, b = blockIdx.x;
-  const int N = C * B, row = c * B + b;
-  const size_t off = static_cast<size_t>(row) * V;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int lab = labels[static_cast<size_t>(c) * lab_stride + b];
-  const T* xr = x + off;
-  const T* yr = y + off;
-  // staged: piece k holds elements [k * piece, min((k + 1) * piece, V))
-  const int piece = STAGED ? ((V + kChunks - 1) / kChunks + 7) / 8 * 8 : V;
-  if constexpr (STAGED) {
-    const size_t row_bytes = static_cast<size_t>(V) * sizeof(T);
-    T* xs = reinterpret_cast<T*>(smem + kStageBase);
-    T* ys = reinterpret_cast<T*>(smem + kStageBase +
-                                 (row_bytes + 127) / 128 * 128);
-    if (threadIdx.x == 0) {
-      for (int k = 0; k < kChunks; ++k)
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
-                         smem_u32(smem + 8 * k))
-                     : "memory");
+  // the cluster's blocks' states, [row parity][rank]
+  __shared__ BlockState cluster_state[2][kMaxGradCluster];
+  __shared__ RowScalars scalars;
+  const int N = C * B;
+  const int rank = blockIdx.x % cl, G = gridDim.x / cl;
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int lane = t & 31, warp = t >> 5;
+  // this block's units [lo, lo + cnt) of a row's V / W
+  const int nunit = V / W, per = (nunit + cl - 1) / cl;
+  const int lo = min(rank * per, nunit), cnt = min(per, nunit - lo);
+  // REG: units [0, R) of the slice stay in registers, thread t holding
+  // unit t; units [R, cnt) are staged in shared memory
+  const int R = REG ? min(nt, cnt) : 0;
+  const size_t slice = slice_bytes<T, W>(REG ? max(per - nt, 0) : per);
+  const uint32_t bytes = static_cast<uint32_t>(cnt - R) * W * sizeof(T);
+  // the staged units: x at xs, y at ys, their mbarrier at bar
+  T* xs = reinterpret_cast<T*>(smem + kStageBase);
+  T* ys = reinterpret_cast<T*>(smem + kStageBase + slice);
+  const uint32_t bar = smem_u32(smem);
+  auto slice_of = [&](int r) {
+    return static_cast<size_t>(r) * V + static_cast<size_t>(lo) * W;
+  };
+  Pack<T, W> rx, ry;  // unit t of the slice, where t < R
+  // row r's staged units [R, cnt) onto the mbarrier (thread 0); its units
+  // [0, R) go to rx and ry where the fetch is called
+  auto stage = [&](int r) {
+    if (t == 0)
+      fetch_slice(bar, xs, ys, x + slice_of(r) + R * W,
+                  y + slice_of(r) + R * W, bytes);
+  };
+  const Stat empty{kEmpty, 0.f, 0.f, kNoIndex};
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  int row = blockIdx.x / cl;
+  // a row's label, loaded a row ahead
+  auto label_of = [&](int r) {
+    const int c = r / B;
+    return labels[static_cast<size_t>(c) * lab_stride + (r - c * B)];
+  };
+  int lab_next = row < N ? label_of(row) : 0;
+  if constexpr (W > 1) {
+    if (t == 0) {
+      mbar_init(bar, 1);
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      for (int k = 0; k < kChunks; ++k) {
-        const int lo = min(k * piece, V), hi = min(lo + piece, V);
-        const uint32_t bytes = static_cast<uint32_t>(hi - lo) * sizeof(T);
-        const uint32_t bar = smem_u32(smem + 8 * k);
-        asm volatile(
-            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-            "r"(2 * bytes)
-            : "memory");
-        if (bytes == 0) continue;
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-            " [%0], [%1], %2, [%3];" ::"r"(smem_u32(xs + lo)),
-            "l"(xr + lo), "r"(bytes), "r"(bar)
-            : "memory");
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-            " [%0], [%1], %2, [%3];" ::"r"(smem_u32(ys + lo)),
-            "l"(yr + lo), "r"(bytes), "r"(bar)
-            : "memory");
+    }
+    __syncthreads();
+    if (row < N) {
+      stage(row);
+      if (t < R) {
+        rx.load(x + slice_of(row), t);
+        ry.load(y + slice_of(row), t);
       }
     }
-    __syncthreads();  // the barriers are initialised before anyone waits
-    xr = xs;
-    yr = ys;
   }
-  Stat sx{kEmpty, 0.f, 0.f, kNoIndex}, sy{kEmpty, 0.f, 0.f, kNoIndex};
-  for (int k = 0; k * piece < V; ++k) {
-    if constexpr (STAGED) {
-      const uint32_t bar = smem_u32(smem + 8 * k);
-      uint32_t done = 0;
-      do {
-        asm volatile(
-            "{\n.reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(bar)
-            : "memory");
-      } while (!done);
+  // the mbarrier is initialised before anyone waits, and every block of
+  // the cluster runs before any writes to another's shared memory
+  if (cl > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+  for (int j = 0; row < N; row += G, ++j) {
+    const int par = j & 1;
+    const int lab = lab_next;
+    if (row + G < N) lab_next = label_of(row + G);
+    const bool ok = lab >= 0 && lab < V;
+    const size_t off = slice_of(row);
+    if constexpr (W > 1) {
+      mbar_wait(bar, par);
+    } else {
+      // raw words: 8 of each tensor in flight a thread
+      using Raw = std::conditional_t<sizeof(T) == 4, unsigned, unsigned short>;
+      const Raw* xg = reinterpret_cast<const Raw*>(x + off);
+      const Raw* yg = reinterpret_cast<const Raw*>(y + off);
+      Raw* xw = reinterpret_cast<Raw*>(xs);
+      Raw* yw = reinterpret_cast<Raw*>(ys);
+      for (int i0 = t; i0 < cnt; i0 += 8 * nt) {
+        Raw a[8], e[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int i = i0 + k * nt;
+          if (i < cnt) {
+            a[k] = __ldcs(xg + i);
+            e[k] = __ldcs(yg + i);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int i = i0 + k * nt;
+          if (i < cnt) {
+            xw[i] = a[k];
+            yw[i] = e[k];
+          }
+        }
+      }
+      __syncthreads();
     }
-    const int hi = min((k + 1) * piece, V);
-    for (int v = k * piece + threadIdx.x; v < hi; v += kRowThreads) {
-      const float xv = to_f32(xr[v]), yv = to_f32(yr[v]);
-      const float d = xv - yv;
-      push_stat(sx, xv, d, v);
-      push_stat(sy, yv, -d, v);
+    Online ox{kEmpty, 0.f, 0.f}, oy{kEmpty, 0.f, 0.f};
+    int ax = kNoIndex, ay = kNoIndex;
+    if (t < R) {
+      const Pack<T, W> px[1] = {rx}, py[1] = {ry};
+      stat_step<T, W, 1>(ox, oy, ax, ay, px, py, (lo + t) * W, nt);
+    }
+    stat_sweep<T, W>(xs, ys, cnt - R, (lo + R) * W, t, nt, ox, oy, ax, ay);
+    // the labelled logits where a register unit holds them
+    __shared__ float reg_label[2];
+    if (ok && t < R && lab / W == lo + t) {
+#pragma unroll
+      for (int i = 0; i < W; ++i)
+        if (i == lab % W) {
+          reg_label[0] = rx.get(i);
+          reg_label[1] = ry.get(i);
+        }
+    }
+    // lanes, then warps, then the cluster's blocks, each in a fixed tree
+    Stat sx{ox.m, ox.s, ox.u, ax}, sy{oy.m, oy.s, oy.u, ay};
+    warp_merge(sx);
+    warp_merge(sy);
+    if (lane == 0) {
+      warp_stat[0][warp] = sx;
+      warp_stat[1][warp] = sy;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      sx = lane < nt / 32 ? warp_stat[0][lane] : empty;
+      sy = lane < nt / 32 ? warp_stat[1][lane] : empty;
+      warp_merge(sx, kRowThreads / 32);
+      warp_merge(sy, kRowThreads / 32);
+      // the labelled logits, from the block whose slice holds them
+      const int at = ok ? lab - lo * W : -1;
+      const bool in_reg = at >= 0 && at < R * W;
+      const bool in_smem = at >= R * W && at < cnt * W;
+      const int sat = in_smem ? at - R * W : 0;
+      const BlockState st{sx, sy,
+                          in_reg ? reg_label[0]
+                                 : in_smem ? to_f32(xs[sat]) : 0.f,
+                          in_reg ? reg_label[1]
+                                 : in_smem ? to_f32(ys[sat]) : 0.f};
+      // lane r writes the block's state into block r of the cluster
+      if (lane < cl)
+        *(cl > 1 ? cluster.map_shared_rank(&cluster_state[par][rank], lane)
+                 : &cluster_state[par][rank]) = st;
+    }
+    if (cl > 1)
+      cluster.sync();  // every block holds every block's state
+    else
+      __syncthreads();
+    if (warp == 0) {
+      sx = lane < cl ? cluster_state[par][lane].x : empty;
+      sy = lane < cl ? cluster_state[par][lane].y : empty;
+      warp_merge(sx, kMaxGradCluster);
+      warp_merge(sy, kMaxGradCluster);
+      if (lane == 0) {
+        // the rank whose slice holds the label
+        const BlockState& h = cluster_state[par][ok ? lab / W / per : 0];
+        scalars = row_values(sx, sy, h.xl, h.yl, lab, ok,
+                             rank == 0 ? rows + row : nullptr, N);
+      }
+    }
+    __syncthreads();
+    const RowScalars rs = scalars;
+    // the label's unit in this slice, if any
+    const int hot = ok ? lab / W - lo : -1, hot_i = ok ? lab % W : -1;
+    if (t < R)
+      grad_unit<T, W>(rx, ry, t == hot, hot_i, rs, l, dx + off, dy + off, t);
+    // shared memory's unit v is the slice's unit R + v
+    T* dxs = dx + off + R * W;
+    T* dys = dy + off + R * W;
+    const int sm = cnt - R, shot = hot - R;
+    constexpr int U = kRowUnroll;
+    int v = t;
+    for (; v + (U - 1) * nt < sm; v += U * nt) {
+      Pack<T, W> px[U], py[U];
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        px[k].load_plain(xs, v + k * nt);
+        py[k].load_plain(ys, v + k * nt);
+      }
+#pragma unroll
+      for (int k = 0; k < U; ++k)
+        grad_unit<T, W>(px[k], py[k], v + k * nt == shot, hot_i, rs, l, dxs,
+                        dys, v + k * nt);
+    }
+    for (; v < sm; v += nt) {
+      Pack<T, W> px, py;
+      px.load_plain(xs, v);
+      py.load_plain(ys, v);
+      grad_unit<T, W>(px, py, v == shot, hot_i, rs, l, dxs, dys, v);
+    }
+    __syncthreads();  // every thread is done with the slice
+    // the next row's slice: the staged values were all consumed before the
+    // barrier, so the copy cannot overtake a read of them
+    if constexpr (W > 1) {
+      if (row + G < N) {
+        stage(row + G);
+        if (t < R) {
+          rx.load(x + slice_of(row + G), t);
+          ry.load(y + slice_of(row + G), t);
+        }
+      }
     }
   }
-  warp_merge(sx);
-  warp_merge(sy);
-  if (lane == 0) {
-    warp_stat[0][warp] = sx;
-    warp_stat[1][warp] = sy;
+  if (rank == 0) {
+    // the last of the G first blocks to finish sums every client's rows
+    if (t == 0) __threadfence();
+    if (last_block(counters, G)) {
+      for (int c = 0; c < C; ++c) sum_client(rows, out, c, C, B, N);
+      if (t == 0) counters[0] = 0u;  // ready for the next launch
+    }
   }
-  __syncthreads();
-  sx = warp_stat[0][0];
-  sy = warp_stat[1][0];
-  for (int w = 1; w < kRowThreads / 32; ++w) {
-    merge_stat(sx, warp_stat[0][w]);
-    merge_stat(sy, warp_stat[1][w]);
-  }
-  const bool ok = lab >= 0 && lab < V;
-  const float xl = ok ? to_f32(xr[lab]) : 0.f;
-  const float yl = ok ? to_f32(yr[lab]) : 0.f;
-  float lse_x, lse_y, e_x, e_y;
-  row_values(sx, sy, xl, yl, lab, ok, threadIdx.x == 0 ? rows + row : nullptr,
-             N, lse_x, lse_y, e_x, e_y);
-  for (int v = threadIdx.x; v < V; v += kRowThreads)
-    grad_pair<T>(to_f32(xr[v]), to_f32(yr[v]), v == lab, lse_x, lse_y, e_x,
-                 e_y, l, dx + off + v, dy + off + v);
-  client_epilogue(rows, counters, out, c, C, B, N);
 }
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+// kd_loss_grad's row blocks a row for a row pair of `pair_bytes`: the
+// fewest, a power of two up to kMaxGradCluster, that cut it into slices of
+// at most kPairSlice, so that two blocks fit an SM
+inline int grad_cluster(size_t pair_bytes) {
+  int cl = 1;
+  while (cl < kMaxGradCluster &&
+         pair_bytes > static_cast<size_t>(cl) * kPairSlice)
+    cl *= 2;
+  return cl;
+}
+
+// row blocks with `smem` bytes of dynamic shared memory that fit an SM by
+// their shared memory
+inline int blocks_by_smem(size_t smem) {
+  return static_cast<int>(kSmSmem / (smem + kBlockSmemExtra));
+}
+
+template <typename T, int W, bool REG>
+int launch_rows(const T* x, const T* y, const int* labels, long long lab_stride,
+                int C, int B, int V, int cl, int threads, size_t smem,
+                Lambdas l, T* dx, T* dy, float* rows, unsigned* counters,
+                float* out, cudaStream_t s) {
+  auto kernel = kd_grad_row_kernel<T, W, REG>;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (fa.sharedSizeBytes > static_cast<size_t>(kGradStaticSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess && cl > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cl;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  // as many clusters as the card holds at once, at most one a row
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (active < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cfg.gridDim = dim3(min(C * B, active) * cl);
+  err = cudaLaunchKernelEx(&cfg, kernel, x, y, labels, lab_stride, C, B, V,
+                           cl, l, dx, dy, rows, counters, out);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The row kernel's cluster size, threads and shared memory, from V and the
+// dtype alone; a slice held partly in registers where that fits more blocks
+// on an SM.
+template <typename T, int W>
+int launch_grad_rows(const T* x, const T* y, const int* labels,
+                     long long lab_stride, int C, int B, int V, Lambdas l,
+                     T* dx, T* dy, float* rows, unsigned* counters,
+                     float* out, cudaStream_t s) {
+  const int cl = grad_cluster(2 * static_cast<size_t>(V) * sizeof(T));
+  const int per = (V / W + cl - 1) / cl;
+  // about two units of each tensor a thread, in whole warps
+  const int threads = min(kRowThreads, ((per + 1) / 2 + 31) / 32 * 32);
+  const size_t smem = kStageBase + 2 * slice_bytes<T, W>(per);
+  const size_t smem_reg =
+      kStageBase + 2 * slice_bytes<T, W>(max(per - threads, 0));
+  // rows wider than 16 blocks' shared memory hold are refused
+  if (smem > kGradSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (W > 1)
+    if (blocks_by_smem(smem) < 3 && blocks_by_smem(smem_reg) >= 3)
+      return launch_rows<T, W, true>(x, y, labels, lab_stride, C, B, V, cl,
+                                     threads, smem_reg, l, dx, dy, rows,
+                                     counters, out, s);
+  return launch_rows<T, W, false>(x, y, labels, lab_stride, C, B, V, cl,
+                                  threads, smem, l, dx, dy, rows, counters,
+                                  out, s);
 }
 
 template <typename T>
@@ -821,32 +1193,19 @@ int launch_grad(const void* x, const void* y, const int* labels,
   const T* yt = static_cast<const T*>(y);
   T* dxt = static_cast<T*>(dx);
   T* dyt = static_cast<T*>(dy);
-  if (V <= kWideV) {
+  if (V <= kWarpV) {
     const dim3 grid((B + kWarps - 1) / kWarps, C);
     kd_grad_warp_kernel<T><<<grid, kWarps * 32, 0, s>>>(
         xt, yt, labels, lab_stride, C, B, V, l, dxt, dyt, rows, counters, out);
     return static_cast<int>(cudaGetLastError());
   }
-  const dim3 grid(B, C);
-  const size_t row_bytes = static_cast<size_t>(V) * sizeof(T);
-  const size_t smem = kStageBase + 2 * ((row_bytes + 127) / 128 * 128);
-  const size_t static_smem = 2 * (kRowThreads / 32) * sizeof(Stat) + 1024;
-  const bool staged = row_bytes % 16 == 0 && aligned16(x) && aligned16(y) &&
-                      smem + static_smem <= kSmemLimit;
-  if (staged) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kd_grad_row_kernel<T, true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kd_grad_row_kernel<T, true><<<grid, kRowThreads, smem, s>>>(
-        xt, yt, labels, lab_stride, C, B, V, l, dxt, dyt, rows, counters, out);
-  } else {
-    kd_grad_row_kernel<T, false><<<grid, kRowThreads, 0, s>>>(
-        xt, yt, labels, lab_stride, C, B, V, l, dxt, dyt, rows, counters, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (vector_rows<T>(x, y, V) && aligned16(dx) && aligned16(dy))
+    return launch_grad_rows<T, 16 / sizeof(T)>(xt, yt, labels, lab_stride, C,
+                                               B, V, l, dxt, dyt, rows,
+                                               counters, out, s);
+  return launch_grad_rows<T, 1>(xt, yt, labels, lab_stride, C, B, V, l, dxt,
+                                dyt, rows, counters, out, s);
 }
-
 
 // the forward's blocks a row for rows of `row_bytes` a tensor: the fewest,
 // a power of two up to kMaxCluster, that cut the row into slices of at most
@@ -902,13 +1261,6 @@ int launch_bwd(const T* x, const T* y, const int* labels, const float* stats,
   return static_cast<int>(cudaGetLastError());
 }
 
-// 16-byte vectors where every row of x and y starts on 16 bytes
-template <typename T>
-bool vector_rows(const void* x, const void* y, int V) {
-  return static_cast<size_t>(V) * sizeof(T) % 16 == 0 && aligned16(x) &&
-         aligned16(y);
-}
-
 template <typename T>
 int kd_fwd(const void* x, const void* y, const int* labels, float* out, int N,
            int V, cudaStream_t s) {
@@ -932,6 +1284,7 @@ int kd_bwd(const void* x, const void* y, const int* labels, const float* stats,
                                           dyt, N, V, s);
   return launch_bwd<T, 1>(xt, yt, labels, stats, grads, dxt, dyt, N, V, s);
 }
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the

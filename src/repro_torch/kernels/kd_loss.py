@@ -191,7 +191,9 @@ def kd_loss_grad(x: torch.Tensor, y: torch.Tensor, labels: torch.Tensor,
     losses, with the Eqs. 33-34 stop-gradients) and means (6, C) fp32: the
     batch means of ce_x, ce_y, kl_xy, kl_yx, acc_x and acc_y per client.
     Labels may be a strided (C, B) view with unit stride within a client.
-    Not differentiable: the result is the gradient."""
+    On CUDA a row pair must fit 16 blocks' shared memory (V up to 458,240
+    in fp32, 916,480 in bf16); a wider row raises. Not differentiable: the
+    result is the gradient."""
     if x.dim() == 2:
         dx, dy, means = kd_loss_grad(x[None], y[None], labels[None], lambdas)
         return dx[0], dy[0], means
