@@ -1,0 +1,14 @@
+"""update_span_ms.train: device milliseconds of the program's
+`train.update` phase span (the global norm, the clip and AdamW's in-place
+update), one a step, read from its CUDA events in the profiled steps; the
+mean over those steps."""
+from portbench import spans
+
+
+def read(rec):
+    if rec.get("job") != "train":
+        return None
+    got = spans.named(rec, "train.step", "profile_steps", "train.update", 1)
+    if got is None:
+        return None
+    return spans.mean([spans.device_ms(s[0]) for s in got])

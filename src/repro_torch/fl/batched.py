@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.core.distill import make_mutual_train_fns
 from repro_torch.models.cnn import apply_cnn_fast
-from repro_torch.obs.trace import current as _tracer
+from repro_torch.obs.trace import phase
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import tree_map
 
@@ -143,9 +143,8 @@ class BatchedClientEngine:
                 mask = np.concatenate(
                     [mask, np.zeros((pad,) + mask.shape[1:], mask.dtype)])
             start = {"local": global_by_size[s], "lite": lite_params}
-            # names the group's step loop both in our tracer (wall span)
-            # and in any active torch.profiler trace
-            with _tracer().annotation(self._group_label(s, Cp, S)):
+            # the group's step loop as one phase span
+            with phase(self._group_label(s, Cp, S)):
                 trained = self._dispatch(s, start, xs, ys, mask)
             for j, i in enumerate(idx):
                 out[i] = tree_map(lambda a, j=j: a[j], trained)

@@ -11,8 +11,7 @@
                      (the transformer's training and prefill attention);
                      the forward keeps the rows' log-sum-exp for the
                      backward kernels (csrc/flash_attention_bwd.cu)
-  ops              — the kernels under tracer annotations: the model's and
-                     the HAPFL step's entry points
+  ops              — the model's and the HAPFL step's entry points
   ref              — plain PyTorch versions (the CPU path and the on-card oracle)
   cost             — each kernel's bytes and operations by formula, its bound
                      on the card, and the dry run's tally of the kernels

@@ -1,12 +1,11 @@
-"""The port's kernels, each under a tracer annotation: the entry points the
-model and the HAPFL step call.
+"""The port's kernels: the entry points the model and the HAPFL step call.
 
 Counterpart of ``repro.kernels.ops``. Where the reference runs its Pallas
 kernels in interpret mode off the TPU, here each wrapper dispatches on its
 tensors' device: the CUDA kernel for CUDA tensors, the plain version
-(`repro_torch.kernels.ref`) for CPU tensors. With tracing on
-(`repro_torch.obs.trace.enable`), every call lands as a wall span and, under
-`torch.profiler`, as a `record_function` range.
+(`repro_torch.kernels.ref`) for CPU tensors. A device profile names and
+times each launch; the phase spans (`repro_torch.obs.trace.phase`) time the
+layers around them.
 """
 from __future__ import annotations
 
@@ -15,35 +14,29 @@ from repro_torch.kernels.kd_loss import kd_loss as _kd
 from repro_torch.kernels.kd_loss import kd_loss_grad as _kd_grad
 from repro_torch.kernels.rmsnorm import add_rmsnorm as _add_rms
 from repro_torch.kernels.rmsnorm import rmsnorm as _rms
-from repro_torch.obs.trace import current as _tracer
 
 
 def flash_attention_op(q, k, v, *, causal=True, sliding_window=0):
     """q (B, H, S, hd); k, v (B, KV, S, hd) with H % KV == 0."""
-    with _tracer().annotation("cuda.flash_attention"):
-        return _flash(q, k, v, causal=causal, sliding_window=sliding_window)
+    return _flash(q, k, v, causal=causal, sliding_window=sliding_window)
 
 
 def kd_loss_op(x_logits, y_logits, labels):
     """(N, V) x 2 + (N,) labels -> per-row {ce_x, ce_y, kl_xy, kl_yx},
     differentiable through the backward kernel."""
-    with _tracer().annotation("cuda.kd_loss"):
-        return _kd(x_logits, y_logits, labels)
+    return _kd(x_logits, y_logits, labels)
 
 
 def kd_loss_grad_op(x_logits, y_logits, labels, lambdas):
     """(C, B, V) x 2 + (C, B) labels -> (dx, dy, means (6, C)): the
     mutual-KD step's logit gradients and batch means in one launch."""
-    with _tracer().annotation("cuda.kd_loss_grad"):
-        return _kd_grad(x_logits, y_logits, labels, lambdas)
+    return _kd_grad(x_logits, y_logits, labels, lambdas)
 
 
 def rmsnorm_op(x, scale, *, eps=1e-5):
-    with _tracer().annotation("cuda.rmsnorm"):
-        return _rms(x, scale, eps)
+    return _rms(x, scale, eps)
 
 
 def add_rmsnorm_op(x, delta, scale, *, eps=1e-5):
     """(N, d) rows x, delta -> (x + delta, rmsnorm(x + delta))."""
-    with _tracer().annotation("cuda.add_rmsnorm"):
-        return _add_rms(x, delta, scale, eps)
+    return _add_rms(x, delta, scale, eps)

@@ -14,7 +14,7 @@ from __future__ import annotations
 from repro_torch.kernels.ops import (flash_attention_op, kd_loss_op,
                                      rmsnorm_op)
 from repro_torch.launch.mesh import all_gather_rows, axis_sizes
-from repro_torch.obs.trace import current as _tracer
+from repro_torch.obs.trace import phase
 
 
 def _check_divisible(n: int, mesh, axis: str, what: str) -> None:
@@ -35,7 +35,7 @@ def sharded_kd_loss(x_logits, y_logits, labels, mesh, axis: str = "data"):
     split over the mesh's `axis`. N must divide by the axis size."""
     _check_divisible(x_logits.shape[0], mesh, axis, "rows")
     rows = _my_rows(x_logits.shape[0], mesh, axis)
-    with _tracer().annotation(f"sharded.kd_loss@{axis_sizes(mesh)[axis]}"):
+    with phase(f"sharded.kd_loss@{axis_sizes(mesh)[axis]}"):
         out = kd_loss_op(x_logits[rows], y_logits[rows], labels[rows])
         return {k: all_gather_rows(v, mesh, axis) for k, v in out.items()}
 
@@ -44,7 +44,7 @@ def sharded_rmsnorm(x, scale, mesh, axis: str = "data", *, eps: float = 1e-5):
     """(N, D) row-sharded rmsnorm; the (D,) scale is every rank's."""
     _check_divisible(x.shape[0], mesh, axis, "rows")
     rows = _my_rows(x.shape[0], mesh, axis)
-    with _tracer().annotation(f"sharded.rmsnorm@{axis_sizes(mesh)[axis]}"):
+    with phase(f"sharded.rmsnorm@{axis_sizes(mesh)[axis]}"):
         return all_gather_rows(rmsnorm_op(x[rows], scale, eps=eps), mesh,
                                axis)
 
@@ -54,8 +54,7 @@ def sharded_flash_attention(q, k, v, mesh, axis: str = "data", *,
     """(B, H, S, hd) attention with the batch axis split over the mesh."""
     _check_divisible(q.shape[0], mesh, axis, "batch")
     rows = _my_rows(q.shape[0], mesh, axis)
-    with _tracer().annotation(
-            f"sharded.flash_attention@{axis_sizes(mesh)[axis]}"):
+    with phase(f"sharded.flash_attention@{axis_sizes(mesh)[axis]}"):
         out = flash_attention_op(q[rows], k[rows], v[rows], causal=causal,
                                  sliding_window=sliding_window)
         return all_gather_rows(out, mesh, axis)

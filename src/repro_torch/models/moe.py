@@ -19,6 +19,11 @@ positions are tensor ops, and dropped pairs go to a sentinel row that is
 thrown away. So the decode step, MoE blocks included, is captured into one
 CUDA graph (`serve/engine.py`). Every expert runs at every step, even one
 that no token reached, as in the reference.
+
+Each eager call is one ``moe.layer`` phase span
+(`repro_torch.obs.trace.phase`: two a layer a training step under remat,
+whose backward runs the forward again); a call being captured into a CUDA
+graph adds none.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.axes import current_mesh, current_rules
 from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.layers import dense_init
+from repro_torch.obs.trace import phase
 from repro_torch.utils.device import resolve_device
 
 
@@ -114,6 +120,11 @@ def apply_moe(params, cfg: ModelConfig,
               x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d) -> (out (B, S, d), aux {"lb_loss", "z_loss",
     "dropped_frac"}: 0-d fp32 tensors)."""
+    with phase("moe.layer"):
+        return _apply_moe(params, cfg, x)
+
+
+def _apply_moe(params, cfg: ModelConfig, x: torch.Tensor):
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     N = B * S

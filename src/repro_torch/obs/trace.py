@@ -32,25 +32,52 @@ for spans (Perfetto nests by containment), "i" instants and "C" counters.
 `validate_chrome_trace` checks the invariants the exporter guarantees
 (required keys, non-negative durations, monotone `ts` per track) and is
 what the ``--only obs`` bench smoke asserts.
+
+Phase spans (`phase`) time the port's hot path: the train step and its
+parts, each MoE layer, the serve engine's prefill, graph replays and
+calls. A phase takes a host interval on `time.perf_counter` and, once CUDA
+is initialised, a pair of timing events on the current stream, drawn from
+a pool; it never synchronises, and its device interval is resolved only
+when spans are read (`profiled`) or exported. It records
+
+  - while a `Tracer` is enabled (the operator's switch): a wall span on
+    the "torch" thread, a `record_function` range for any running
+    profiler, and at export the device interval on a track of its own
+    (pid 3), aligned to the wall clock by an event recorded after a
+    synchronise when the tracer started;
+  - while a `torch.profiler` session runs (torch's own Python-side
+    flag): into a bounded process-wide buffer read by `profiled()`, with
+    no `record_function` range, so the profile's device timeline holds
+    only device work.
+
+Otherwise, and while the current stream is being captured into a CUDA
+graph, `phase` returns the shared null span.
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
+import torch
+from torch.autograd import profiler as _torch_profiler
+
 WALL = "wall"
 VIRTUAL = "virtual"
-_PID = {WALL: 1, VIRTUAL: 2}
-_PROCESS_NAMES = {1: "wall clock", 2: "virtual clock (sim)"}
+DEVICE = "device"
+_PID = {WALL: 1, VIRTUAL: 2, DEVICE: 3}
+_PROCESS_NAMES = {1: "wall clock", 2: "virtual clock (sim)",
+                  3: "device clock (CUDA events)"}
 
 
 class _NullSpan:
     """Shared reusable no-op context manager."""
 
     __slots__ = ()
+    recording = False
 
     def __enter__(self):
         return self
@@ -83,9 +110,6 @@ class NullTracer:
 
     def set_virtual(self, t):
         return None
-
-    def annotation(self, name):
-        return _NULL_SPAN
 
 
 NULL_TRACER = NullTracer()
@@ -123,9 +147,24 @@ class Tracer:
     enabled = True
 
     def __init__(self):
-        self._wall0 = time.perf_counter()
         self._vnow = 0.0
         self.events: List[Dict] = []
+        self.phases: List["_Phase"] = []
+        self._start()
+
+    def _start(self) -> None:
+        """Zero the wall clock; on a card, record the device reference event
+        after a synchronise, so that it completes at the wall time read
+        just after it."""
+        self._ref = None
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            ev.synchronize()
+            self._ref = ev
+        self._wall0 = time.perf_counter()
+        self._epoch0_ns = time.time_ns()
 
     # ------------------------------------------------------------------ #
     def _now(self, clock: str) -> float:
@@ -176,29 +215,38 @@ class Tracer:
         ts = self._now(clock) if t is None else float(t)
         return self._push(name, "C", clock, tid or name, ts, None, vals)
 
-    def annotation(self, name):
-        """A named block that lands both in this tracer (wall span) and in
-        any active `torch.profiler` trace (`record_function`) — used
-        around the batched cohort train step."""
-        from torch.profiler import record_function
+    def _add_phase(self, p: "_Phase") -> None:
+        """A closed phase: its host interval as a wall span on the "torch"
+        thread now, its device interval at export."""
+        self._push(p.name, "X", WALL, "torch", p.t0 - self._wall0,
+                   p.t1 - p.t0, p.args)
+        self.phases.append(p)
 
-        outer = self.span(name, clock=WALL, tid="torch")
-        inner = record_function(name)
-
-        class _Both:
-            __slots__ = ()
-
-            def __enter__(_s):
-                outer.__enter__()
-                inner.__enter__()
-                return _s
-
-            def __exit__(_s, *exc):
-                inner.__exit__(*exc)
-                outer.__exit__(*exc)
-                return False
-
-        return _Both()
+    def _device_rows(self) -> List[Dict]:
+        """The phases' device intervals as "X" events on the device clock,
+        in seconds from the wall clock's zero: the reference event's offset
+        to each phase's root start, plus the phase's offset in its root."""
+        if self._ref is None:
+            return []
+        rows, at = [], {}
+        for p in self.phases:
+            r = resolve(p)
+            if r["device"] is None:
+                continue
+            base = p.root if p.root.e0 is not None else p
+            if base.seq not in at:
+                try:
+                    at[base.seq] = self._ref.elapsed_time(base.e0) / 1e3
+                except RuntimeError:   # recorded on another device
+                    at[base.seq] = None
+            if at[base.seq] is None:
+                continue
+            d0, d1 = r["device"]
+            rows.append({"name": p.name, "ph": "X", "clock": DEVICE,
+                         "tid": "cuda", "ts": at[base.seq] + d0 / 1e3,
+                         "dur": max(d1 - d0, 0.0) / 1e3,
+                         **({"args": p.args} if p.args else {})})
+        return rows
 
     # ------------------------------------------------------------------ #
     def virtual_records(self) -> List:
@@ -217,8 +265,9 @@ class Tracer:
 
     def clear(self) -> None:
         self.events.clear()
-        self._wall0 = time.perf_counter()
+        self.phases.clear()
         self._vnow = 0.0
+        self._start()
 
     # ------------------------------------------------------------------ #
     def to_chrome(self) -> Dict:
@@ -238,7 +287,7 @@ class Tracer:
             return tids[key]
 
         rows = []
-        for ev in self.events:
+        for ev in self.events + self._device_rows():
             pid = _PID[ev["clock"]]
             row = {"name": ev["name"], "ph": ev["ph"], "pid": pid,
                    "tid": tid_of(pid, ev["tid"]),
@@ -252,7 +301,10 @@ class Tracer:
             rows.append(row)
         # monotone ts per track by construction: one global stable sort
         rows.sort(key=lambda r: (r["ts"], r["pid"], r["tid"]))
-        return {"traceEvents": meta + rows, "displayTimeUnit": "ms"}
+        # torch.profiler's host events are on the epoch clock: ts 0 here is
+        # this epoch time
+        return {"traceEvents": meta + rows, "displayTimeUnit": "ms",
+                "otherData": {"epoch_ns_at_ts0": self._epoch0_ns}}
 
     def export(self, path) -> Path:
         """Write the Chrome trace JSON; open it at https://ui.perfetto.dev."""
@@ -266,6 +318,7 @@ class Tracer:
 # process-wide singleton
 # --------------------------------------------------------------------- #
 _current = NULL_TRACER
+_tracing = False            # _current is a Tracer: phases record
 
 
 def current():
@@ -276,20 +329,140 @@ def current():
 def enable(tracer: Optional[Tracer] = None) -> Tracer:
     """Install (and return) the process-wide tracer. Idempotent when one
     is already active and no explicit tracer is given."""
-    global _current
+    global _current, _tracing
     if tracer is None:
         if isinstance(_current, Tracer):
             return _current
         tracer = Tracer()
-    _current = tracer
+    _current, _tracing = tracer, True
     return tracer
 
 
 def disable():
     """Swap the no-op singleton back in (recorded events are dropped with
     the old tracer unless the caller kept a reference)."""
-    global _current
-    _current = NULL_TRACER
+    global _current, _tracing
+    _current, _tracing = NULL_TRACER, False
+
+
+# --------------------------------------------------------------------- #
+# phase spans (module docstring)
+# --------------------------------------------------------------------- #
+#: the most phases `profiled()` keeps; the oldest go first
+PROFILED_MAX = 4096
+_profiled: collections.deque = collections.deque(maxlen=PROFILED_MAX)
+_pool: Dict[int, List] = {}     # device index -> free timing events
+_open: List["_Phase"] = []      # the open recording phases, outermost first
+_seq = 0                        # phases entered so far
+
+
+def _take_event(dev: int):
+    free = _pool.get(dev)
+    return free.pop() if free else torch.cuda.Event(enable_timing=True)
+
+
+class _Phase:
+    """A recording phase span (see `phase`). Closed, it is the record that
+    `resolve` reads: its root is the outermost phase open when it started
+    (itself if none was)."""
+
+    __slots__ = ("name", "args", "seq", "root", "depth", "t0", "t1", "dev",
+                 "e0", "e1", "_tracer", "_profiled", "_range", "_out")
+    recording = True
+
+    def __init__(self, name: str, args: Dict):
+        self.name = name
+        self.args = args
+        self._out = None
+
+    def __enter__(self):
+        global _seq
+        self._tracer = _current if _tracing else None
+        self._profiled = _torch_profiler._is_profiler_enabled
+        self.seq = _seq
+        _seq += 1
+        self.root = _open[0] if _open else self
+        self.depth = len(_open)
+        _open.append(self)
+        self._range = None
+        if self._tracer is not None:
+            self._range = _torch_profiler.record_function(self.name)
+            self._range.__enter__()
+        self.e0 = self.e1 = None
+        if torch.cuda.is_initialized():
+            self.dev = torch.cuda.current_device()
+            self.e0 = _take_event(self.dev)
+            self.e0.record()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1 = time.perf_counter()
+        if self.e0 is not None:
+            self.e1 = _take_event(self.dev)
+            self.e1.record()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        if _open and _open[-1] is self:
+            _open.pop()
+        if self._profiled:
+            _profiled.append(self)
+        if self._tracer is not None:
+            self._tracer._add_phase(self)
+            self._tracer = None
+        return False
+
+
+def phase(name: str, **args):
+    """A phase span named `name` (args ride on its record), or the shared
+    null span where nothing records it: no tracer enabled and no
+    torch.profiler session running, or the current stream capturing a CUDA
+    graph. Nothing in it synchronises with the card."""
+    if not (_tracing or _torch_profiler._is_profiler_enabled):
+        return _NULL_SPAN
+    if torch.cuda.is_initialized() and \
+            torch.cuda.is_current_stream_capturing():
+        return _NULL_SPAN
+    return _Phase(name, args)
+
+
+def resolve(p: _Phase) -> Dict:
+    """A closed phase's record: name, seq (entry order), root (its root's
+    seq), depth, host (start, end) on `time.perf_counter` in seconds,
+    device (start, end) in ms from its root's start event (from its own
+    where the root has none), or None off CUDA, and args. Waits for the
+    phase's end event on first read; then its events go back to the pool
+    (a root's start event, which its children are read against, does
+    not)."""
+    if p._out is not None:
+        return p._out
+    dev = None
+    if p.e1 is not None:
+        p.e1.synchronize()
+        base = p.root if p.root.e0 is not None else p
+        d0 = 0.0 if base is p else base.e0.elapsed_time(p.e0)
+        dev = (d0, base.e0.elapsed_time(p.e1))
+        free = _pool.setdefault(p.dev, [])
+        free.append(p.e1)
+        p.e1 = None
+        if base is not p:
+            free.append(p.e0)
+            p.e0 = None
+    p._out = {"name": p.name, "seq": p.seq, "root": p.root.seq,
+              "depth": p.depth, "host": (p.t0, p.t1), "device": dev,
+              "args": dict(p.args)}
+    return p._out
+
+
+def profiled(clear: bool = False) -> List[Dict]:
+    """The phases closed while a torch.profiler session ran (at most
+    `PROFILED_MAX`, the newest), resolved (`resolve`) in entry order;
+    `clear` empties the buffer after reading it."""
+    out = [resolve(p) for p in sorted(_profiled, key=lambda q: q.seq)]
+    if clear:
+        _profiled.clear()
+    return out
 
 
 # --------------------------------------------------------------------- #

@@ -18,6 +18,12 @@ and the cache from static buffers and writes the next token back into its
 token buffer, so a replay needs no host work beyond setting the position.
 On the CPU the same step runs eagerly on the same buffers. Prefill stays
 eager.
+
+Phase spans (`repro_torch.obs.trace.phase`; off unless a tracer or a
+profiler records them): ``serve.generate`` around a call, with the caching
+allocator's device mallocs and retries during it as its args on a card,
+``serve.prefill`` around the prefill and ``serve.replay`` around each
+decode step.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from repro_torch.launch.axes import current_mesh
 from repro_torch.models.api import (decode_step as _decode,
                                     make_decode_cache, prefill as _prefill)
 from repro_torch.models.attention import decode_shards
+from repro_torch.obs.trace import phase
 from repro_torch.utils.device import resolve_device
 
 #: every kernel wrapper's launch counts
@@ -162,11 +169,12 @@ class _DecodeStep:
     def step(self) -> torch.Tensor:
         """One step at the position in `index`; returns its logits (B, 1[,
         nq], vocab), a buffer that the next step overwrites."""
-        if self.graph is None:
-            self.logits = self._run()
-        else:
-            self.graph.replay()
-            _add_launches(self.launches)
+        with phase("serve.replay"):
+            if self.graph is None:
+                self.logits = self._run()
+            else:
+                self.graph.replay()
+        _add_launches(self.launches)
         return self.logits
 
 
@@ -196,45 +204,75 @@ class ServeEngine:
 
     @torch.no_grad()
     def generate(self, batch: Dict[str, torch.Tensor], n_new: int = 16,
-                 return_logits: bool = False):
+                 return_logits: bool = False, return_first: bool = False):
         """batch {"tokens": (B, S)}, an audio model's {"tokens": (B, S, nq)}
         or a VLM's {"embeddings": (B, S, d), "positions": (3, B, S)}
         (tensors or numpy arrays) -> (B, n_new[, nq]) numpy array of greedy
         tokens; with return_logits, also each step's logits, (B, n_new[,
-        nq], vocab) fp32 on the device.
+        nq], vocab) fp32 on the device; with return_first, last, the
+        argmax of the prompt's last position, (B[, nq]) numpy.
 
         As in the reference, the argmax of the prefill logits is fed to the
-        first decode step but not returned: the result is the n_new decode
-        argmaxes. The prefill cache is paired with the decode cache key by
-        key (a different key set raises ValueError). Also as in the
-        reference, a prefill cache leaf of exactly the decode cache leaf's
-        shape (prompt length == max_len, or == the sliding window) is not
-        copied into the decode cache, which decode then reads as zeros
-        (ROADMAP §3). Every recurrent-state leaf has the same shape in
-        prefill and decode, so for the SSM and hybrid families the
-        prompt's state is dropped and decode starts from a zero state: of
-        an xLSTM's or a pure Mamba2's prefill cache nothing is carried
-        over, and of zamba2's only the shared attention block's KV cache.
+        first decode step but not returned unless asked for: the result is
+        the n_new decode argmaxes. The prefill cache is paired with the
+        decode cache key by key (a different key set raises ValueError).
+        Also as in the reference, a prefill cache leaf of exactly the
+        decode cache leaf's shape (prompt length == max_len, or == the
+        sliding window) is not copied into the decode cache, which decode
+        then reads as zeros (ROADMAP §3). Every recurrent-state leaf has
+        the same shape in prefill and decode, so for the SSM and hybrid
+        families the prompt's state is dropped and decode starts from a
+        zero state: of an xLSTM's or a pure Mamba2's prefill cache nothing
+        is carried over, and of zamba2's only the shared attention block's
+        KV cache.
         `models.api.prefill` and `decode_step` carry the state."""
+        with phase("serve.generate") as span:
+            counts = (_alloc_counts(self.device) if span.recording
+                      else None)
+            out = self._generate(batch, n_new, return_logits, return_first)
+            if counts is not None:
+                span.args.update(
+                    (k, n - counts[k])
+                    for k, n in _alloc_counts(self.device).items())
+        return out
+
+    def _generate(self, batch, n_new, return_logits, return_first):
         batch = {k: torch.as_tensor(v, device=self.device)
                  for k, v in batch.items()}
         prompt = batch["embeddings" if self.cfg.input_mode == "embeddings"
                        else "tokens"]
         B, prompt_len = prompt.shape[:2]
-        logits, pre_cache = self._prefill(self.params, batch)
+        with phase("serve.prefill"):
+            logits, pre_cache = self._prefill(self.params, batch)
         st = self.decode_step_for(B)
         _load_prefill(st.cache, pre_cache)
         del pre_cache
         st.tokens.copy_(logits[:, -1].argmax(-1)[:, None])
-        out = torch.empty((B, n_new) + st.tokens.shape[2:], dtype=torch.int64,
-                          device=self.device)
+        first = int(return_first)       # column 0 holds the prompt's argmax
+        out = torch.empty((B, first + n_new) + st.tokens.shape[2:],
+                          dtype=torch.int64, device=self.device)
+        if return_first:
+            out[:, 0] = st.tokens[:, 0]
         kept = (torch.empty((B, n_new) + logits.shape[2:], dtype=logits.dtype,
                             device=self.device) if return_logits else None)
         for i in range(n_new):
             st.index.fill_(prompt_len + i)
             step_logits = st.step()
-            out[:, i] = st.tokens[:, 0]
+            out[:, first + i] = st.tokens[:, 0]
             if kept is not None:
                 kept[:, i] = step_logits[:, -1]
         toks = out.cpu().numpy()
-        return (toks, kept) if return_logits else toks
+        if not (return_logits or return_first):
+            return toks
+        return ((toks[:, first:],) + ((kept,) if return_logits else ())
+                + ((toks[:, 0],) if return_first else ()))
+
+
+def _alloc_counts(device: torch.device) -> Dict[str, int]:
+    """The caching allocator's device mallocs and retries so far on a card
+    (host-side counters; no sync), {} on the CPU."""
+    if device.type != "cuda":
+        return {}
+    s = torch.cuda.memory_stats(device)
+    return {"mallocs": s.get("num_device_alloc", 0),
+            "alloc_retries": s.get("num_alloc_retries", 0)}

@@ -25,6 +25,13 @@ outputs whose upstream gradients are the coefficients.
 The step updates its state in place (params, AdamW's m and v: the
 optimizer's `update_`), where the reference returns a new state and its
 training loop (`launch/train.py`) donates the old one.
+
+Phase spans (`repro_torch.obs.trace.phase`; off unless a tracer or a
+profiler records them): ``train.step`` around the whole step,
+``train.loss_and_grads`` around each call of `loss_and_grads`,
+``train.backward`` around each `torch.autograd.grad` call (remat's
+recompute included) and ``train.update`` around the norm, the clip and
+AdamW.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from repro_torch.core.distill import LAMBDAS
 from repro_torch.kernels.ops import kd_loss_grad_op
 from repro_torch.models.api import init_model
 from repro_torch.models.transformer import apply_model, unembed
+from repro_torch.obs.trace import phase
 from repro_torch.optim import adamw, clip_scale, global_norm
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
 
@@ -119,9 +127,10 @@ def _losses(live, cfg_local, cfg_lite, tcfg, batch, leaves: List):
         dx, dy, means = _kd_grads(ll, lt, batch["labels"], tcfg.lambdas)
         metrics = _metrics(means, tcfg.lambdas)
         outs, coefs = _aux_terms(tcfg, (aux_l, aux_t), metrics)
-        grads = torch.autograd.grad([ll, lt] + outs, leaves,
-                                    grad_outputs=[dx, dy] + coefs,
-                                    allow_unused=True)
+        with phase("train.backward"):
+            grads = torch.autograd.grad([ll, lt] + outs, leaves,
+                                        grad_outputs=[dx, dy] + coefs,
+                                        allow_unused=True)
     return metrics, [torch.zeros_like(p) if g is None else g
                      for p, g in zip(leaves, grads)]
 
@@ -157,8 +166,10 @@ def _losses_chunked(live, cfg_local, cfg_lite, tcfg, batch, leaves: List):
             ll = unembed(io[0], cfg_local, cut[0][:, sl], cut[1][:, sl])
             lt = unembed(io[1], cfg_lite, cut[2][:, sl], cut[3][:, sl])
             dx, dy, means = _kd_grads(ll, lt, labels[:, sl], lambdas)
-            g = torch.autograd.grad([ll, lt], io_leaves + cut,
-                                    grad_outputs=[dx, dy], allow_unused=True)
+            with phase("train.backward"):
+                g = torch.autograd.grad([ll, lt], io_leaves + cut,
+                                        grad_outputs=[dx, dy],
+                                        allow_unused=True)
         for acc, gi in zip(io_grads + cut_grads, g):
             if gi is not None:    # an untied model's embedding
                 acc.add_(gi)
@@ -169,7 +180,7 @@ def _losses_chunked(live, cfg_local, cfg_lite, tcfg, batch, leaves: List):
                for k in chunks[0]}
     metrics["loss"] = loss
     outs, coefs = _aux_terms(tcfg, (aux_l, aux_t), metrics)
-    with torch.enable_grad():
+    with torch.enable_grad(), phase("train.backward"):
         grads = torch.autograd.grad(hidden + outs, leaves,
                                     grad_outputs=cut_grads + coefs,
                                     allow_unused=True)
@@ -211,6 +222,10 @@ def make_hapfl_train_step(cfg_local: ModelConfig, cfg_lite: ModelConfig,
     opt = adamw(tcfg.lr, weight_decay=tcfg.weight_decay)
 
     def train_step(state, batch: Dict[str, torch.Tensor]):
+        with phase("train.step"):
+            return _step(state, batch)
+
+    def _step(state, batch):
         params = state["params"]
         if tcfg.microbatch > 1:
             # grad accumulation: the batch axis split into n microbatches
@@ -221,20 +236,23 @@ def make_hapfl_train_step(cfg_local: ModelConfig, cfg_lite: ModelConfig,
                 p, dtype=torch.float32), params)
             for j in range(n):
                 mb = {k: _microbatch(k, v, n, j) for k, v in batch.items()}
-                metrics, g = loss_and_grads(params, cfg_local, cfg_lite,
-                                            tcfg, mb)
+                with phase("train.loss_and_grads"):
+                    metrics, g = loss_and_grads(params, cfg_local, cfg_lite,
+                                                tcfg, mb)
                 for a, gi in zip(tree_leaves(grads), tree_leaves(g)):
                     a.add_(gi.float() / n)
                 del g
         else:
-            metrics, grads = loss_and_grads(params, cfg_local, cfg_lite,
-                                            tcfg, batch)
-        scale = None
-        if tcfg.grad_clip:
-            gn = global_norm(grads)
-            scale = clip_scale(gn, tcfg.grad_clip)
-            metrics["grad_norm"] = gn
-        opt.update_(grads, state["opt"], params, scale)
+            with phase("train.loss_and_grads"):
+                metrics, grads = loss_and_grads(params, cfg_local, cfg_lite,
+                                                tcfg, batch)
+        with phase("train.update"):
+            scale = None
+            if tcfg.grad_clip:
+                gn = global_norm(grads)
+                scale = clip_scale(gn, tcfg.grad_clip)
+                metrics["grad_norm"] = gn
+            opt.update_(grads, state["opt"], params, scale)
         return state, metrics
 
     return train_step

@@ -962,3 +962,196 @@ def test_cuda_kernels_unchanged_by_the_meta_path(cuda):
         for a, b in zip(first if isinstance(first, tuple) else (first,),
                         again if isinstance(again, tuple) else (again,)):
             assert torch.equal(a, b), name
+
+
+# --------------------------------------------------------------------- #
+# phase spans (repro_torch.obs.trace.phase) on the card
+# --------------------------------------------------------------------- #
+def _moe_train(cuda, seed=11):
+    import dataclasses
+
+    from repro_torch.models.api import dummy_batch
+    from repro_torch.train import (TrainStepConfig, make_hapfl_train_step,
+                                   make_train_state)
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b").smoke(),
+                              dtype=torch.bfloat16, remat=True)
+    lite = dataclasses.replace(cfg.lite(), remat=True)
+    state = make_train_state(torch.Generator(cuda).manual_seed(seed), cfg,
+                             lite, device=cuda)
+    batch = dummy_batch(cfg, 2, 64, device=cuda)
+    return cfg, make_hapfl_train_step(cfg, lite, TrainStepConfig()), state, \
+        batch
+
+
+@pytest.mark.gpu
+def test_cuda_phase_spans_record_ordered_device_intervals(cuda):
+    """Both of the benchmark's profiles (the device alone, and the host with
+    the device) set the flag the spans follow; a train step's spans and a
+    generate's carry positive device intervals from CUDA events, each
+    inside its root, siblings in order, replays one after another."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import trace
+    trace.profiled(clear=True)
+    cfg, step, state, batch = _moe_train(cuda)
+    step(state, batch)                       # warm
+    torch.cuda.synchronize()
+    for acts in ([ProfilerActivity.CUDA],
+                 [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with profile(activities=acts):
+            assert trace.phase("probe").recording
+            step(state, batch)
+            torch.cuda.synchronize()
+    got = trace.profiled(clear=True)
+    roots = [s for s in got if s["name"] == "train.step"]
+    assert len(roots) == 2
+    for r in roots:
+        kids = [s for s in got if s["root"] == r["seq"] and s is not r]
+        assert len([s for s in kids if s["name"] == "moe.layer"]) == \
+            2 * cfg.n_layers
+        assert r["device"][0] == 0.0 and r["device"][1] > 0.0
+        for s in kids:
+            d0, d1 = s["device"]
+            assert 0.0 <= d0 < d1 <= r["device"][1], s
+        by = {s["name"]: s for s in kids}
+        assert by["train.loss_and_grads"]["device"][1] <= \
+            by["train.update"]["device"][0]
+        assert by["train.loss_and_grads"]["device"][0] <= \
+            by["train.backward"]["device"][0]
+    engine = ServeEngine(cfg, state["params"]["local"], max_len=48,
+                         device=cuda)
+    tok = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 12)), device=cuda)
+    engine.generate({"tokens": tok}, n_new=6)  # capture
+    with profile(activities=[ProfilerActivity.CUDA]):
+        engine.generate({"tokens": tok}, n_new=6)
+    got = trace.profiled(clear=True)
+    reps = [s for s in got if s["name"] == "serve.replay"]
+    assert len(reps) == 6
+    assert {"mallocs", "alloc_retries"} <= set(got[0]["args"])
+    for a, b in zip(reps, reps[1:]):
+        assert 0.0 < a["device"][0] < a["device"][1] <= b["device"][0]
+    # the graph's MoE layers add no spans: only the prefill's
+    assert len([s for s in got if s["name"] == "moe.layer"]) == cfg.n_layers
+
+
+@pytest.mark.gpu
+def test_cuda_decode_graph_captured_with_tracing_on_replays_bitwise(cuda):
+    """A decode graph captured while the tracer records replays bit for bit
+    like one captured with it off: the spans add no node to the graph."""
+    import dataclasses
+
+    from repro_torch.obs import trace
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b").smoke(),
+                              dtype=torch.bfloat16)
+    params = init_model(torch.Generator(cuda).manual_seed(6), cfg, cuda)
+    tok = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (4, 12)), device=cuda)
+    outs = []
+    for traced in (False, True):
+        engine = ServeEngine(cfg, params, max_len=48, device=cuda)
+        tracer = trace.enable(trace.Tracer()) if traced else None
+        try:
+            first = engine.generate({"tokens": tok}, n_new=12,
+                                    return_logits=True)
+        finally:
+            trace.disable()
+        outs.append(first + engine.generate({"tokens": tok}, n_new=12,
+                                            return_logits=True))
+        if traced:
+            names = [p.name for p in tracer.phases]
+            # the prefill's MoE layers and the eager warm-up step's; none
+            # from the capture or the replays
+            assert names.count("moe.layer") == 2 * cfg.n_layers
+            assert names.count("serve.replay") == 12
+            trace.validate_chrome_trace(tracer.to_chrome())
+            assert any(ev["pid"] == 3 for ev in
+                       tracer.to_chrome()["traceEvents"] if ev["ph"] == "X")
+    for a, b in zip(outs[0], outs[1]):
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_phase_spans_add_no_sync(cuda):
+    """A span itself never waits for the card (sync debug mode "error"
+    around spans recording device events), and a traced train step makes
+    no more synchronising calls than the untraced step."""
+    import warnings
+
+    from repro_torch.obs import trace
+    x = torch.ones((256, 256), device=cuda)
+    tracer = trace.enable(trace.Tracer())
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        with trace.phase("outer"):
+            for _ in range(3):
+                with trace.phase("inner", n=1):
+                    x = x @ x / 256
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        trace.disable()
+    assert len(tracer.phases) == 4
+    cfg, step, state, batch = _moe_train(cuda)
+    step(state, batch)
+    torch.cuda.synchronize()
+    counts = []
+    for traced in (False, True):
+        if traced:
+            trace.enable(trace.Tracer())
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                step(state, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                trace.disable()
+        counts.append(len([w for w in seen
+                           if "synchroniz" in str(w.message)]))
+    assert counts[1] == counts[0]
+
+
+@pytest.mark.gpu
+def test_cuda_phase_clocks_line_up_with_the_profiler(cuda):
+    """An enabled tracer's wall span of a phase starts where the profiler's
+    range of it starts, once the export's epoch offset is added (the
+    profiler's host clock is the epoch clock), and its device interval lies
+    where the profiler saw the phase's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import trace
+    x = torch.ones((2048, 2048), device=cuda)
+    x @ x
+    tracer = trace.enable(trace.Tracer())
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with trace.phase("probe.clock"):
+                for _ in range(8):
+                    x = x @ x / 2048
+            torch.cuda.synchronize()
+    finally:
+        trace.disable()
+    trace.profiled(clear=True)
+    chrome = tracer.to_chrome()
+    epoch0 = chrome["otherData"]["epoch_ns_at_ts0"]
+    rows = [ev for ev in chrome["traceEvents"]
+            if ev.get("name") == "probe.clock"]
+    host = next(ev for ev in rows if ev["pid"] == 1)
+    dev = next(ev for ev in rows if ev["pid"] == 3)
+    kr = prof.profiler.kineto_results
+    rng = next(e for e in kr.events() if e.name() == "probe.clock"
+               and e.device_type() == torch.autograd.DeviceType.CPU)
+    gemms = [e for e in kr.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA
+             and e.name() != "probe.clock" and e.duration_ns() > 0]
+    host_ns = epoch0 + host["ts"] * 1e3
+    assert abs(rng.start_ns() - host_ns) < 2e6
+    first = min(e.start_ns() for e in gemms)
+    last = max(e.start_ns() + e.duration_ns() for e in gemms)
+    dev_ns = epoch0 + dev["ts"] * 1e3
+    assert abs(first - dev_ns) < 2e6
+    assert abs(last - (dev_ns + dev["dur"] * 1e3)) < 2e6
