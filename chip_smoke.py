@@ -84,6 +84,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 128's tiles: (4, 32, 32, 512, 112), S 300, window 64 and a
                 group of 4 ((2, 8, 2, 256, 112)), both dtypes and layouts,
                 and the hd-112 parity cut's (2, 2, 2, 128, 112) fp32.
+  3b. adamw   — the optimizer's kernels (csrc/adamw.cu) over each
+                benchmark train cell's whole leaf set (shapes from the
+                configuration files under portbench/configs/: the MoE
+                cut's 25 leaves, 3.19 B parameters, and qwen2-vl's 22,
+                1.79 B), seeded, one step: the fused update's p, m and v
+                bitwise the plain adamw_plain_'s given the plain norm's
+                clip factor, the
+                kernels' norm within 1e-5 of a float64 one and the same
+                bits twice, exactly 1 sumsq, 1 sumsq_finish and 1 adamw
+                launch a step, and each kernel's device ms from CUDA-graph
+                replays beside its byte bound (22 B a bf16 parameter for
+                the update, 2 for the norm) and its plain version's ms.
   4. HAPFL    — Algorithm 1 on the paper's cifar10 pool at full width
                 (small + large CNNs, 10 clients, 6 per round): 10
                 latency-only PPO pretraining rounds, then 3 training rounds
@@ -252,7 +264,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 TrainStepConfig()'s defaults; a warm step, then 3 counted
                 steps with exact launch counts derived from the config
                 (train_launch_shapes: with remat each block's kernels run
-                twice forward), finite loss and grad norm; seconds per
+                twice forward; optimizer_launches: the optimizer's sumsq,
+                sumsq_finish and adamw a step, from the leaves), finite
+                loss and grad norm; seconds per
                 step, tokens/s, peak memory; one more step under
                 torch.profiler.
   9c. moe train — phase 9 on qwen3-moe-30b-a3b at full width cut to 4 of
@@ -1331,6 +1345,169 @@ def phase_norm_flash_timing(torch, norm_shapes, add_shapes, flash_shapes):
 
 
 # ---------------------------------------------------------------------- #
+# 3b. the optimizer's fused kernels at the train cells' leaf sets
+# ---------------------------------------------------------------------- #
+#: the benchmark's train cells whose leaf sets phase 3b runs
+ADAMW_CELLS = ("qwen3moe-l4-train-b4s2048", "qwen2vl-train-b4s2048")
+
+
+def hf_model_config(cj, name, lite=False):
+    """The port's ModelConfig of a configuration file with Hugging Face's
+    key names (portbench/configs/), or of its LiteModel (`cj["lite"]`,
+    whose keys override the model's): the sizes that shape its leaves."""
+    import torch
+    from repro_torch.configs.base import ModelConfig
+    src = {**cj, **(cj["lite"] if lite else {})}
+    experts = src.get("num_experts", 0)
+    embeddings = src.get("input_mode", "tokens") == "embeddings"
+    return ModelConfig(
+        name=name, family="moe" if experts else "vlm" if embeddings
+        else "dense", n_layers=src["num_hidden_layers"],
+        d_model=src["hidden_size"], n_heads=src["num_attention_heads"],
+        n_kv_heads=src["num_key_value_heads"],
+        d_ff=0 if experts else src["intermediate_size"],
+        vocab_size=src["vocab_size"], head_dim=src.get("head_dim", 0),
+        n_experts=experts,
+        top_k=src.get("num_experts_per_tok", 0) if experts else 0,
+        moe_d_ff=src.get("moe_intermediate_size", 0) if experts else 0,
+        mrope_sections=tuple((src.get("rope_scaling") or {}).get(
+            "mrope_section", ())),
+        input_mode="embeddings" if embeddings else "tokens",
+        tie_embeddings=src["tie_word_embeddings"],
+        dtype=getattr(torch, src["torch_dtype"]))
+
+
+def adamw_cell(cell):
+    """(leaf shapes and dtypes of both models, the cell's step settings) of
+    a portbench train cell, its models built on the meta device from its
+    configuration file."""
+    import torch
+    from repro_torch.models.api import init_model
+    from repro_torch.utils.pytree import tree_leaves
+    wl = json.loads((ROOT / "portbench" / "workloads" / f"{cell}.json")
+                    .read_text())
+    cj = json.loads((ROOT / "portbench" / "configs" / f"{wl['config']}.json")
+                    .read_text())
+    leaves = []
+    for lite in (False, True):
+        cfg = hf_model_config(cj, cell, lite)
+        with torch.device("meta"):
+            tree = init_model(torch.Generator().manual_seed(0), cfg, "meta")
+        leaves += [(tuple(t.shape), t.dtype) for t in tree_leaves(tree)]
+    return leaves, wl["step"]
+
+
+def _adamw_leaf(torch, shape, dtype, seed):
+    """One leaf's seeded (g, p, m, v) before a step: g N(0, 1e-3) and p
+    N(0, 0.02) in the param's dtype, m N(0, 1e-4), v its square plus
+    N(0, 1e-4)^2, fp32."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(std):
+        return torch.randn(shape, generator=gen, device="cuda") * std
+    g, p = draw(1e-3).to(dtype), draw(0.02).to(dtype)
+    m = draw(1e-4)
+    v = m.square() + draw(1e-4).square()
+    return g, p, m, v
+
+
+def phase_adamw(torch):
+    """Phase 3b: the norm and update kernels over each train cell's whole
+    leaf set, seeded, one step from step 4: the update's p, m and v
+    bitwise `adamw_plain_`'s given the plain norm's clip factor (each leaf
+    re-drawn from its seed for the plain version), the kernels' norm
+    against the plain sum and a float64 one, launches a step, and device
+    ms (CUDA-graph replays) beside the byte bound and the plain versions'
+    ms (CUDA events around one eager call; their few hundred launches issue
+    far faster than the card runs them)."""
+    from repro_torch.kernels import adamw as fa
+    from repro_torch.optim import optimizers as topt
+    out = {}
+    for cell in ADAMW_CELLS:
+        t0 = time.perf_counter()
+        leaves, hp = adamw_cell(cell)
+        seeds = [1000 * (ADAMW_CELLS.index(cell) + 1) + i
+                 for i in range(len(leaves))]
+        g, p, m, v = (list(t) for t in zip(*[
+            _adamw_leaf(torch, s, dt, seed)
+            for (s, dt), seed in zip(leaves, seeds)]))
+        n = sum(t.numel() for t in p)
+        work = [(t.numel(), t.element_size(), q.element_size())
+                for t, q in zip(g, p)]
+        hyper = {"lr": hp["lr"], "weight_decay": hp.get("weight_decay", 0.0)}
+        opt = topt.adamw(**hyper)
+        step0 = torch.tensor(4, dtype=torch.int32, device="cuda")
+        state = {"step": step0.clone(), "m": m, "v": v}
+        gn_plain = topt.global_norm_plain(g)
+        scale = topt.clip_scale(gn_plain, hp["grad_clip"])
+        gn64 = math.sqrt(sum(float(t.double().square().sum()) for t in g))
+        fa.reset_launches()
+        gn = topt.global_norm(g)
+        opt.update_(g, state, p, scale)
+        torch.cuda.synchronize()
+        launches = dict(fa.launches)
+        gn_again = topt.global_norm(g)
+        # the plain version leaf by leaf from the same seeded state
+        bitwise = True
+        for i, ((shape, dt), seed) in enumerate(zip(leaves, seeds)):
+            lg, lp, lm, lv = _adamw_leaf(torch, shape, dt, seed)
+            topt.adamw_plain_([lg], {"step": step0.clone(), "m": [lm],
+                                     "v": [lv]}, [lp], scale, **hyper)
+            same = all(torch.equal(a, b) for a, b in
+                       ((p[i], lp), (m[i], lm), (v[i], lv)))
+            if not same:
+                log(f"[adamw] {cell}: leaf {i} {shape} {dt} differs from "
+                    f"the plain version")
+            bitwise &= same
+            del lg, lp, lm, lv
+        # device ms; the replays step the state on, which times alike
+        lr_t, bc1, bc2 = (torch.tensor(x, device="cuda") for x in (
+            hp["lr"], 0.1, 1e-3))
+        wd = hp.get("weight_decay", 0.0)
+        upd_ms = _graph_ms(torch, lambda: fa.adamw_(
+            g, p, m, v, lr_t, bc1, bc2, scale, 0.9, 0.999, 1e-8, wd), 5)
+        norm_ms = _graph_ms(torch, lambda: fa.global_norm(g), 20)
+        plain = {}
+        for name, fn in (
+                ("update", lambda: topt.adamw_plain_(g, state, p, scale,
+                                                     **hyper)),
+                ("norm", lambda: topt.global_norm_plain(g))):
+            fn()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            plain[name] = start.elapsed_time(end)
+        upd_bound, _ = _cost().adamw_bound(work)
+        norm_bound, _ = _cost().sumsq_bound(work)
+        rec = out[cell] = {
+            "leaves": len(leaves), "params": n, "bitwise": bitwise,
+            "gn_rel_fp64": abs(float(gn) - gn64) / gn64,
+            "gn_rel_plain": abs(float(gn) - float(gn_plain)) / gn64,
+            "gn_repeats": bool(torch.equal(gn, gn_again)),
+            "launches": launches,
+            "update": {"ms": upd_ms, "bound_ms": upd_bound,
+                       "share": upd_bound / upd_ms,
+                       "bytes": _cost().adamw_work(work)[0],
+                       "plain_ms": plain["update"]},
+            "norm": {"ms": norm_ms, "bound_ms": norm_bound,
+                     "share": norm_bound / norm_ms,
+                     "bytes": _cost().sumsq_work(work)[0],
+                     "plain_ms": plain["norm"]},
+            "wall_s": time.perf_counter() - t0}
+        log(f"[adamw] {cell}: {json.dumps(rec)}")
+        if not (bitwise and rec["gn_repeats"] and rec["gn_rel_fp64"] < 1e-5
+                and launches == {"sumsq": 1, "sumsq_finish": 1, "adamw": 1}):
+            raise SystemExit(f"chip_smoke: the optimizer kernels failed at "
+                             f"{cell}: {rec}")
+        del g, p, m, v, state, gn, gn_again, scale, gn_plain
+        free_device_memory(torch)
+    return out
+
+
+# ---------------------------------------------------------------------- #
 # 4. the HAPFL path
 # ---------------------------------------------------------------------- #
 def main_path_config():
@@ -1871,14 +2048,31 @@ def profile_service(torch, build, trace):
 
 
 def reset_all_launches():
-    from repro_torch.kernels import flash_attention, kd_loss, rmsnorm
-    for mod in (kd_loss, rmsnorm, flash_attention):
+    from repro_torch.kernels import adamw, flash_attention, kd_loss, rmsnorm
+    for mod in (kd_loss, rmsnorm, flash_attention, adamw):
         mod.reset_launches()
 
 
 def all_launches():
-    from repro_torch.kernels import flash_attention, kd_loss, rmsnorm
-    return {**kd_loss.launches, **rmsnorm.launches, **flash_attention.launches}
+    from repro_torch.kernels import adamw, flash_attention, kd_loss, rmsnorm
+    return {**kd_loss.launches, **rmsnorm.launches, **flash_attention.launches,
+            **adamw.launches}
+
+
+#: the optimizer's kernels (kernels/adamw.py), which every training step on
+#: the card launches (`optimizer_launches`)
+OPT_KERNELS = ("sumsq", "sumsq_finish", "adamw")
+
+
+def optimizer_launches(numels, clip=True):
+    """{kernel: launches} of one training step's optimizer on CUDA leaves of
+    these lengths: `global_norm` (when the step clips) one sumsq a group of
+    leaves (`kernels.adamw.groups`) and one sumsq_finish, then `update_` one
+    adamw a group."""
+    from repro_torch.kernels.adamw import groups
+    n = len(groups(numels))
+    return {"sumsq": n if clip else 0, "sumsq_finish": int(bool(clip)),
+            "adamw": n}
 
 
 # ---------------------------------------------------------------------- #
@@ -1919,7 +2113,8 @@ def serve_launch_shapes(cfg):
                                  dt, "bshd"): A} if A else {},
             "kd_loss_fwd": {}, "kd_loss_bwd": {}, "kd_loss_grad": {},
             "rmsnorm_bwd": {}, "add_rmsnorm_bwd": {},
-            "flash_attention_bwd": {}}
+            "flash_attention_bwd": {}, "sumsq": {}, "sumsq_finish": {},
+            "adamw": {}}
 
 
 def block_layout(cfg):
@@ -2670,8 +2865,9 @@ def train_launch_shapes(cfg, lite):
 def phase_train(torch, cfg=None, tag="train"):
     """`cfg` (llama3.2-3b at full width when None) with its LiteModel
     through repro_torch.launch.train's functions: one warm step, then
-    TRAIN["steps"] counted and timed steps. Returns the state, the step,
-    the batches, the counted launches and the expected shapes per step."""
+    TRAIN["steps"] counted and timed steps, their launches exact (the
+    optimizer's from the leaves). Returns the state, the step, the batches,
+    the counted launches and the expected shapes per step."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import token_batches
     from repro_torch.train import (TrainStepConfig, make_hapfl_train_step,
@@ -2717,6 +2913,9 @@ def phase_train(torch, cfg=None, tag="train"):
     peak = torch.cuda.max_memory_allocated()
     shapes = train_launch_shapes(cfg, lite)
     expected = {k: n * sum(v.values()) for k, v in shapes.items()}
+    numels = [t.numel() for t in params]
+    expected.update({k: n * c for k, c in optimizer_launches(
+        numels, tcfg.grad_clip).items()})
     log(f"[{tag}] launches over {n} steps {launches}, expected {expected}")
     if launches != expected:
         raise SystemExit(f"chip_smoke: {tag} launches {launches} != "
@@ -2732,7 +2931,8 @@ def phase_train(torch, cfg=None, tag="train"):
                          f"training")
     mean = sum(secs) / n
     PATHS[tag] = {"cfg": cfg, "mode": "train", "launches": dict(launches),
-                  "steps": n, "step_s": mean}
+                  "steps": n, "step_s": mean, "leaves": len(numels),
+                  "params": sum(numels)}
     log(f"[{tag}] seconds per step after the first {secs} (mean "
         f"{mean:.4f}), {B * S / mean:.1f} tokens/s ({B} x {S} tokens a "
         f"step), max_memory_allocated {peak} B")
@@ -2841,6 +3041,12 @@ def phase_fleet(torch):
     if launches["kd_loss_grad"] != steps:
         raise SystemExit(f"chip_smoke: fleet kd_loss_grad launches "
                          f"{launches['kd_loss_grad']} != {steps} local steps")
+    # a local step's optimizer: one norm, and as many sumsq as adamw (one
+    # a group of leaves)
+    if not (launches["sumsq_finish"] == steps
+            and launches["sumsq"] == launches["adamw"] >= steps):
+        raise SystemExit(f"chip_smoke: fleet optimizer launches {launches} "
+                         f"over {steps} local steps")
     if not (_finite(torch, fleet.lite_params) and all(
             _finite(torch, p) for p in fleet.global_by_size.values())):
         raise SystemExit("chip_smoke: non-finite fleet params")
@@ -4160,7 +4366,10 @@ def dryrun_path(torch, tag, path):
             + ", ".join(f"{k} {v['calls']:g} ({v['flops'] / v['calls']:.6e}"
                         f", {v['bytes'] / v['calls']:.6e})"
                         for k, v in res["kernels"].items()))
-    counted = {k: n for k, n in path["launches"].items() if n}
+    # on meta leaves the optimizer takes its plain version, so the dry run
+    # counts none of its kernels: phase 9 holds those launches exactly
+    counted = {k: n for k, n in path["launches"].items()
+               if n and k not in OPT_KERNELS}
     if counted != expected:
         raise SystemExit(f"chip_smoke: 14a {tag}: the dry run counts "
                          f"{expected} kernel calls, the card launched "
@@ -4341,6 +4550,7 @@ def main() -> int:
     grad_errs = phase_kd_grad(torch, GRAD_SHAPES + GRAD_SWITCH_SHAPES)
     nf_errs = phase_norm_flash_kernels(torch)
     bwd_errs = phase_bwd_kernels(torch)
+    adamw = phase_adamw(torch)
     server, launches, shapes = phase_main_path(torch)
     baselines_s = phase_baselines(torch)
     sim_launches, sim_shapes, async_s = phase_async(torch, grad_errs)
@@ -4674,6 +4884,29 @@ def main() -> int:
                           "path": path}
             if all(k in times_of for k in keys[name]):
                 row[entry].update(path_times(times_of, keys[name]))
+    # the optimizer's kernels: phase 3b's cells (bitwise, device ms against
+    # the byte bound; the norm's ms are sumsq and sumsq_finish together) and
+    # the launches each training path above counted over its steps
+    trained = {tag.replace(" ", "_"): path for tag, path in PATHS.items()
+               if path["mode"] == "train"}
+    for name, part in (("sumsq", "norm"), ("sumsq_finish", "norm"),
+                       ("adamw", "update")):
+        record["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/adamw.cu",
+            "replaces": "none: the JAX package's optimizer is plain jnp",
+            "launches": train_launches[name],
+            "dtype": "bfloat16 and float32 leaves",
+            "path": f"train {TRAIN['arch']} (launches over "
+                    f"{TRAIN['steps']} steps)",
+            "cells": {cell: {"leaves": rec["leaves"], "params": rec["params"],
+                             "bitwise": rec["bitwise"],
+                             "launches": rec["launches"][name], **rec[part]}
+                      for cell, rec in adamw.items()},
+            **{tag: {"launches": path["launches"][name],
+                     "steps": path["steps"], "leaves": path["leaves"],
+                     "params": path["params"]}
+               for tag, path in trained.items()}})
     log(f"[main] MoE serve (5c): prefill {moe_serve['prefill_ms']:.3f} ms, "
         f"decode {moe_serve['decode_ms']:.3f} ms a step graphed (bound "
         f"{moe_serve['decode_bound_ms']:.3f} ms), "

@@ -11,6 +11,8 @@
                      (the transformer's training and prefill attention);
                      the forward keeps the rows' log-sum-exp for the
                      backward kernels (csrc/flash_attention_bwd.cu)
+  adamw            — the optimizer's gradient global norm and in-place AdamW
+                     step, each one pass over every leaf of a tree
   ops              — the model's and the HAPFL step's entry points
   ref              — plain PyTorch versions (the CPU path and the on-card oracle)
   cost             — each kernel's bytes and operations by formula, its bound

@@ -137,6 +137,23 @@ def flash_bwd_work(B: int, H: int, KV: int, S: int, hd: int, window: int,
     return nbytes, 10 * hd * B * H * visible_pairs(S, causal, window)
 
 
+def sumsq_work(leaves) -> Tuple[int, int]:
+    """The norm's sum of squares over leaves of (numel, gradient element
+    size, param element size): each gradient read once; 2 operations an
+    element."""
+    return (sum(n * g for n, g, _ in leaves),
+            2 * sum(n for n, _, _ in leaves))
+
+
+def adamw_work(leaves) -> Tuple[int, int]:
+    """The AdamW step in place over leaves of (numel, gradient element
+    size, param element size): g read, p, m and v (fp32) read and written
+    once, 22 bytes an element at bf16 g and p; about 16 fp32 operations an
+    element (3 divisions and a square root among them)."""
+    return (sum(n * (g + 2 * p + 16) for n, g, p in leaves),
+            16 * sum(n for n, _, _ in leaves))
+
+
 # ---------------------------------------------------------------------- #
 # bounds: the least time (ms) on the card, and what sets it
 # ---------------------------------------------------------------------- #
@@ -184,3 +201,11 @@ def flash_bound(B, H, KV, S, hd, window, dtype, elt):
 def flash_bwd_bound(B, H, KV, S, hd, window, dtype, elt):
     return _bound(*flash_bwd_work(B, H, KV, S, hd, window, elt),
                   _rate(dtype))
+
+
+def sumsq_bound(leaves):
+    return _bound(*sumsq_work(leaves), HW["peak_flops_fp32"])
+
+
+def adamw_bound(leaves):
+    return _bound(*adamw_work(leaves), HW["peak_flops_fp32"])
