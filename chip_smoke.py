@@ -597,6 +597,13 @@ SSM = {"arch": "xlstm-1.3b", "parity_cut": {"n_layers": 2, "slstm_every": 2},
        "hybrid": "zamba2-7b", "train_layers": 12,
        "hd112_cut": {"n_layers": 2, "d_model": 224, "n_heads": 2,
                      "n_kv_heads": 2, "shared_attn_every": 2}}
+# Zamba2-7B-Instruct as published (phase 9h), whole in bf16 at the
+# benchmark cell zamba2-serve's shapes: 32 prompts of 512 tokens, 64 new
+# tokens, max_len 1024, the prompt's recurrent state carried into the
+# graphed decode; its hd-224 flash at the prefill's shape and the config's
+# scale (hd / 2)^-0.5
+ZAMBA2 = {"arch": "zamba2-7b-instruct", "batch": 32, "prompt": 512,
+          "n_new": 64, "max_len": 1024, "seed": 0}
 # backward checks: norms (N, d, dtype), flash as FLASH_SHAPES
 NORM_BWD_SHAPES = [(2048, 3072, "bfloat16"), (2048, 3072, "float32"),
                    (2048, 256, "bfloat16"), (2048, 256, "float32"),
@@ -689,10 +696,11 @@ def check_hgmma(_build):
     fed by TMA: the forward's flash_wgmma_kernel and the backward's
     flash_bwd_dkdv_wgmma_kernel and flash_bwd_dq_wgmma_kernel are
     instantiated for every head dim of HEAD_DIMS (112 included: its
-    mangled name carries ILi112E), and every instantiation has HGMMA in
+    mangled name carries ILi112E), the forward's also for FWD_HEAD_DIMS
+    (224), and every instantiation has HGMMA in
     its SASS, the backward's also UTMALDG (cp.async.bulk.tensor) and SYNCS
     (mbarrier) instructions."""
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    from repro_torch.kernels.flash_attention import FWD_HEAD_DIMS, HEAD_DIMS
     tool = Path(_build.nvcc()).with_name("cuobjdump")
     wanted = {"flash_attention": ("flash_wgmma_kernel",),
               "flash_attention_bwd": ("flash_bwd_dkdv_wgmma_kernel",
@@ -711,7 +719,9 @@ def check_hgmma(_build):
             f"{', '.join(kernels)}: {counts}")
         need = ("HGMMA",) if lib == "flash_attention" else (
             "HGMMA", "UTMALDG", "SYNCS")
-        missing = [f"{k}<{hd}>" for k in kernels for hd in HEAD_DIMS
+        dims = HEAD_DIMS + (FWD_HEAD_DIMS if lib == "flash_attention"
+                            else ())
+        missing = [f"{k}<{hd}>" for k in kernels for hd in dims
                    if not any(f"{k}ILi{hd}E" in name for name in counts)]
         if missing:
             raise SystemExit(f"chip_smoke: {lib} has no instantiation of "
@@ -2161,7 +2171,8 @@ def eager_decode(torch, engine, batch, n_new):
     with torch.no_grad():
         logits, pre = make_prefill_step(cfg)(params, batch)
         cache = make_decode_cache(cfg, B, engine.max_len, "cuda")
-        _load_prefill(cache, pre)       # as generate pairs them
+        _load_prefill(cache, pre,       # as generate pairs them
+                      carry=cfg.carry_prompt_state)
         del pre
         tok = logits[:, -1].argmax(-1)
         index = torch.zeros((), dtype=torch.int64, device="cuda")
@@ -2406,7 +2417,7 @@ def phase_serve_parity(torch):
 # 5c and 5d. the MoE family: qwen3-moe-30b-a3b served at full width and
 # depth, and a 2-layer fp32 cut of it on the card against the CPU
 # ---------------------------------------------------------------------- #
-def decode_bound_ms(torch, engine):
+def decode_bound_ms(torch, engine, B=None):
     """The least time of one decode step: every parameter read once (of an
     untied embedding table only the B rows a step gathers from it; a tied
     one is the head too, read whole; an MoE decode reads every expert, as
@@ -2417,11 +2428,14 @@ def decode_bound_ms(torch, engine):
     runs once per segment (zamba2-7b: 13 times a step), and its weights
     (0.411 GB at full width) do not stay in the 50 MB L2 from one
     invocation to the next, so they count once per invocation; the bound
-    with them counted once is logged beside it. Returns (bytes, ms, the
-    cache's bytes)."""
+    with them counted once is logged beside it. So do Zamba2-7B-Instruct's
+    two shared blocks (0.668 GB each) at each of their 13 calls. B is the
+    decode batch (SERVE's when None). Returns (bytes, ms, the cache's
+    bytes)."""
     from repro_torch.models.transformer import zamba_layout
     from repro_torch.utils.pytree import tree_leaves
-    params, B, cfg = engine.params, SERVE["batch"], engine.cfg
+    params, cfg = engine.params, engine.cfg
+    B = B or SERVE["batch"]
     emb = params["io"]["embed"]
     rows = B * (cfg.n_codebooks or 1)
     nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
@@ -2434,14 +2448,15 @@ def decode_bound_ms(torch, engine):
     cache_bytes = sum(t.numel() * t.element_size() for t in kv + state)
     nbytes += (sum(t.numel() * t.element_size() for t in kv)
                + 2 * sum(t.numel() * t.element_size() for t in state))
-    if cfg.shared_attn_every:
-        n_seg = zamba_layout(cfg)[0]
+    if cfg.shared_attn_every or cfg.family == "zamba2":
+        n_seg, blocks = ((zamba_layout(cfg)[0], 1) if cfg.shared_attn_every
+                         else (len(cfg.hybrid_layer_ids), cfg.shared_blocks))
         shared = sum(t.numel() * t.element_size()
                      for t in tree_leaves(params["shared"]))
         once = nbytes
-        nbytes += (n_seg - 1) * shared
+        nbytes += (n_seg - blocks) * shared // blocks
         log(f"[{cfg.family} serve] decode byte bound with the shared "
-            f"block's {shared} B of weights counted once: {once} B, "
+            f"blocks' {shared} B of weights counted once: {once} B, "
             f"{once / HW['hbm_bw'] * 1e3:.3f} ms; counted at each of its "
             f"{n_seg} invocations: {nbytes} B, "
             f"{nbytes / HW['hbm_bw'] * 1e3:.3f} ms (the bound used)")
@@ -3142,6 +3157,197 @@ def phase_family_serve(torch, arch, cfg=None):
     wall = time.perf_counter() - t_phase
     log(f"[{tag}] phase wall {wall:.2f} s")
     return launches, shapes, measured, wall
+
+
+def zamba2_launch_shapes(cfg, B, S, n):
+    """{kernel: {shape: launches}} of one generate of family "zamba2" (B
+    prompts of S tokens, n new): each forward norms every Mamba2 layer's
+    input, the first with rmsnorm unless a shared-block call joins it, the
+    others with add_rmsnorm (the residual add before it, a call's output
+    joined in); each call runs rmsnorm on its 2 d-wide input and on its
+    attention's output, and the final norm is an add_rmsnorm, on the last
+    position only in the prefill. The prefill runs flash attention once a
+    call at hd 224, the decode never."""
+    d, H, KV = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    dt = str(cfg.dtype).removeprefix("torch.")
+    C = len(cfg.hybrid_layer_ids)
+    first = int(0 not in cfg.hybrid_layer_ids)
+    rms, add = C + first, cfg.n_layers - first
+    shapes = {k: {} for k in serve_launch_shapes(cfg)}
+    shapes["rmsnorm"] = {(B * S, d, dt): rms, (B * S, 2 * d, dt): C,
+                         (B, d, dt): rms * n, (B, 2 * d, dt): C * n}
+    shapes["add_rmsnorm"] = {(B * S, d, dt): add, (B, d, dt): 1 + (add + 1) * n}
+    shapes["flash_attention"] = {(B, H, KV, S, cfg.resolved_head_dim, 0, dt,
+                                  "bshd"): C}
+    return shapes
+
+
+def check_zamba2_kernels(torch, cfg, shapes):
+    """The norms at every shape of the generate and flash at its prefill's
+    shape, with the config's scale (hd / 2)^-0.5, against their plain
+    versions (TOL_NORM, TOL_FLASH), and flash's times there: the kernel,
+    the plain version and SDPA at the same scale, against its bound.
+    Returns ({key: max|err|}, {flash key: times})."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa, ref
+    from repro_torch.kernels import rmsnorm as rn
+    scale = (cfg.resolved_head_dim / 2) ** -0.5
+    errs, times = {}, {}
+    with full_fp32(torch):
+        for N, d, dtype in shapes["rmsnorm"]:
+            x, sc = _norm_inputs(torch, N, d, dtype)
+            got, exp = (rn.rmsnorm(x, sc),), (ref.rmsnorm_ref(x, sc),)
+            _close(torch, got, exp, TOL_NORM[dtype], f"rmsnorm {N}x{d}")
+            errs[("rmsnorm", N, d, dtype)] = _max_err(torch, got, exp)
+        for N, d, dtype in shapes["add_rmsnorm"]:
+            x, delta, sc = _add_norm_inputs(torch, N, d, dtype)
+            got = rn.add_rmsnorm(x, delta, sc)
+            exp = ref.add_rmsnorm_ref(x, delta, sc)
+            _close(torch, got, exp, TOL_NORM[dtype], f"add_rmsnorm {N}x{d}")
+            errs[("add_rmsnorm", N, d, dtype)] = _max_err(torch, got, exp)
+        for key in shapes["flash_attention"]:
+            B, H, KV, S, hd, window, dtype, layout = key
+            q, k, v = _flash_inputs(torch, B, H, KV, S, hd, dtype, layout)
+            got = (fa.flash_attention(q, k, v, causal=True, scale=scale),)
+            torch.cuda.synchronize()
+            exp = (ref.flash_attention_ref(q, k, v, causal=True,
+                                           scale=scale),)
+            what = (f"flash_attention B{B} H{H} KV{KV} S{S} hd{hd} scale "
+                    f"{scale:.6f} {dtype} {layout}")
+            _close(torch, got, exp, TOL_FLASH[dtype], what)
+            errs[("flash_attention", *key)] = e = _max_err(torch, got, exp)
+            log(f"[zamba2 serve] {what}: max|err| {e:.3e} (tol "
+                f"{TOL_FLASH[dtype]})")
+            del got, exp
+            nxt = _cold_copies((q, k, v), (2 * q.numel() + k.numel()
+                                           + v.numel()) * q.element_size())
+            fns = {"kernel": lambda: fa.flash_attention(
+                       *nxt(), causal=True, scale=scale),
+                   "plain": lambda: ref.flash_attention_ref(
+                       *nxt(), causal=True, scale=scale),
+                   "library": lambda: F.scaled_dot_product_attention(
+                       *nxt(), is_causal=True, scale=scale,
+                       enable_gqa=True),
+                   "kernel_warm": lambda: fa.flash_attention(
+                       q, k, v, causal=True, scale=scale)}
+            times[("flash_attention", *key)] = _time_set(
+                torch, "flash_attention", key, fns,
+                _cost().flash_bound(B, H, KV, S, hd, window, dtype,
+                                    q.element_size()), 10)
+    log("[zamba2 serve] the norms against their plain versions: " + ", ".join(
+        f"{k[0]} {k[1]}x{k[2]} {e:.3e}" for k, e in errs.items()
+        if k[0] != "flash_attention"))
+    return errs, times
+
+
+def phase_zamba2_serve(torch):
+    """Phase 9h: Zamba2-7B-Instruct as published (81 Mamba2 layers, two
+    shared blocks over 13 calls at hd 224, 7.36 B parameters) whole on the
+    card at ZAMBA2's shapes, through `ServeEngine.generate` with the
+    prompt's state carried: its kernels at their shapes (`check_zamba2_
+    kernels`); the exact launches of a generate (13 flash a call); graphed
+    == eager bit for bit; the times, peak memory and the decode step's
+    byte bound; a profiled generate, whose flash launches must be the
+    port's flash_wgmma_kernel, once a call. Returns (launches, shapes,
+    errs, times, measured)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import init_model
+    from repro_torch.serve import ServeEngine
+    from repro_torch.utils.pytree import tree_leaves
+    t_phase = time.perf_counter()
+    cfg = get_config(ZAMBA2["arch"])
+    tag = "zamba2 serve"
+    B, S, n = ZAMBA2["batch"], ZAMBA2["prompt"], ZAMBA2["n_new"]
+    if not cfg.carry_prompt_state:
+        raise SystemExit(f"chip_smoke: {cfg.name} does not carry the "
+                         f"prompt's state into the decode")
+    shapes = zamba2_launch_shapes(cfg, B, S, n)
+    free_device_memory(torch)
+    errs, times = check_zamba2_kernels(torch, cfg, shapes)
+    free_device_memory(torch)
+    params = init_model(torch.Generator("cuda").manual_seed(ZAMBA2["seed"]),
+                        cfg, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} Mamba2 layers (groups "
+        f"{cfg.mamba_groups}, dt_min {cfg.dt_min}), {cfg.shared_blocks} "
+        f"shared blocks over calls at {list(cfg.hybrid_layer_ids)}, d "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.resolved_head_dim}, "
+        f"adapter rank {cfg.shared_mlp_adapter_rank}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}; {n_params} parameters "
+        f"(num_params() {cfg.num_params()}), "
+        f"{sum(t.numel() * t.element_size() for t in tree_leaves(params))} B")
+    batch = serve_batch(torch, cfg, B, S, ZAMBA2["seed"])
+    engine = ServeEngine(cfg, params, max_len=ZAMBA2["max_len"],
+                         device="cuda")
+    engine.generate(batch, n_new=2)   # captures the decode step; warm-up
+    step = engine.decode_step_for(B)
+    if step.graph is None:
+        raise SystemExit(f"chip_smoke: {tag}: the decode step is not a CUDA "
+                         f"graph")
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    out = engine.generate(batch, n_new=n)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    expected = {k: sum(v.values()) for k, v in shapes.items()}
+    log(f"[{tag}] launches {launches}, expected {expected}")
+    if launches != expected:
+        raise SystemExit(f"chip_smoke: {tag} launches {launches} != "
+                         f"{expected}")
+    if (out.shape != (B, n) or out.min() < 0
+            or out.max() >= cfg.vocab_size):
+        raise SystemExit(f"chip_smoke: {tag}: generate gave {out.shape} "
+                         f"tokens in [{out.min()}, {out.max()}]")
+    check_graph_is_eager(torch, engine, batch, n, f"{cfg.name} whole", tag)
+    runs = {}
+    for k in (1, n, n, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.generate(batch, n_new=k)
+        torch.cuda.synchronize()
+        runs.setdefault(k, []).append(time.perf_counter() - t0)
+    t1, tn = (sum(runs[k]) / 2 for k in (1, n))
+    decode_ms = (tn - t1) / (n - 1) * 1e3
+    prefill_ms = t1 * 1e3 - decode_ms
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(n):
+        step.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    replay_ms = start.elapsed_time(end) / n
+    nbytes, bound, cache = decode_bound_ms(torch, engine, B)
+    log(f"[{tag}] generate(1) {runs[1]} s, generate({n}) {runs[n]} s -> "
+        f"prefill {prefill_ms:.3f} ms ({B * S / prefill_ms * 1e3:.0f} prompt "
+        f"tokens/s), decode {decode_ms:.3f} ms a step of {B} tokens graphed "
+        f"(replay device time {replay_ms:.3f} ms); {B * n / tn:.1f} "
+        f"generated tokens/s over generate({n}); a decode step moves "
+        f"{nbytes} B (the {cache} B cache at max_len {ZAMBA2['max_len']}): "
+        f"byte bound {bound:.3f} ms, {100 * bound / replay_ms:.1f}% of the "
+        f"replay; max_memory_allocated {peak} B")
+    prof = phase_profile(torch, f"{cfg.name} generate({n})",
+                         lambda: engine.generate(batch, n_new=n),
+                         ("norm_kernel", "flash_wgmma_kernel"))
+    flash = sum(ev.count for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and "flash_wgmma_kernel" in ev.key)
+    C = len(cfg.hybrid_layer_ids)
+    if flash != C:
+        raise SystemExit(f"chip_smoke: {tag}: the profiled generate ran "
+                         f"flash_wgmma_kernel {flash} times, not once a "
+                         f"shared-block call ({C})")
+    report_device_gaps(torch, prof, f"{cfg.name} generate({n})")
+    del engine, batch, params, prof, step, out
+    free_device_memory(torch)
+    measured = {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
+                "replay_ms": replay_ms, "decode_bound_ms": bound,
+                "tokens_per_s": B * n / tn, "peak_bytes": peak,
+                "flash_profiled": flash,
+                "wall_s": time.perf_counter() - t_phase}
+    log(f"[{tag}] phase wall {measured['wall_s']:.2f} s")
+    return launches, shapes, errs, times, measured
 
 
 def phase_family_parity(torch, arch, cfg=None):
@@ -4698,6 +4904,10 @@ def main() -> int:
     (fam_launches["hybrid_train"], fam_keys["hybrid_train"],
      fam_walls["hybrid train (9g)"]) = phase_family_train(
         torch, SSM["hybrid"], hybrid_train)
+    # Zamba2-7B-Instruct whole at the zamba2-serve cell's shapes (9h)
+    z_launches, z_shapes, z_errs, z_times, z_serve = phase_zamba2_serve(
+        torch)
+    fam_walls["zamba2 serve (9h)"] = z_serve["wall_s"]
     fam_keys = {entry: {name: {(name, *shape): n
                                for shape, n in by_shape.items()}
                         for name, by_shape in shapes_of.items() if by_shape}
@@ -4873,6 +5083,23 @@ def main() -> int:
         f"train {hybrid.name} at full width, {SSM['train_layers']} layers "
         f"({per_step})",
         fam_keys["hybrid_train"], fam_launches["hybrid_train"], train_times)
+    # Zamba2-7B-Instruct's serve path (9h): its launches and shapes, the
+    # kernels' errors there, and flash's times at its hd-224 prefill shape
+    z_keys = {name: {(name, *shape): k for shape, k in by_shape.items()}
+              for name, by_shape in z_shapes.items() if by_shape}
+    for row in record["kernels"]:
+        keys = z_keys.get(row["name"])
+        if not keys:
+            continue
+        row["zamba2_serve"] = {
+            "launches": z_launches[row["name"]],
+            "shapes": [[*k[1:], m] for k, m in keys.items()],
+            "max_abs_err": max(z_errs[k] for k in keys),
+            "path": f"serve {ZAMBA2['arch']} whole, batch "
+                    f"{ZAMBA2['batch']} x prompt {ZAMBA2['prompt']}, "
+                    f"{ZAMBA2['n_new']} new tokens (zamba2-serve's shapes)"}
+        if all(k in z_times for k in keys):
+            row["zamba2_serve"].update(path_times(z_times, keys))
     for row in record["kernels"]:
         name = row["name"]
         for entry, (path, keys, counted, times_of) in paths.items():
@@ -4922,6 +5149,13 @@ def main() -> int:
             f"{m['tokens_per_s']:.1f} tokens/s, peak {m['peak_bytes']} B"
             + (f"; the sLSTM blocks {100 * m['slstm']['share']:.1f}% of a "
                f"prefill" if "slstm" in m else ""))
+    log(f"[main] zamba2 serve (9h, {ZAMBA2['arch']} at batch "
+        f"{ZAMBA2['batch']}): prefill {z_serve['prefill_ms']:.3f} ms, decode "
+        f"{z_serve['decode_ms']:.3f} ms a step graphed (replay "
+        f"{z_serve['replay_ms']:.3f} ms, bound "
+        f"{z_serve['decode_bound_ms']:.3f} ms), "
+        f"{z_serve['tokens_per_s']:.1f} tokens/s, peak "
+        f"{z_serve['peak_bytes']} B")
     # phase 13, the mesh-sharded path
     add_sharded_launches(record, phase_sharded(torch, card))
     # phase 14, the launch tooling

@@ -11,6 +11,11 @@ each block under ``torch.utils.checkpoint`` when autograd records, as the
 reference wraps it in ``jax.checkpoint`` (``models/transformer.py``).
 ``scan_layers`` is kept as a field but means nothing in the port, which
 loops over layers in Python.
+
+The port adds fields of its own (`PORT_DEFAULTS`) for Zamba2 as published
+(``family="zamba2"``, `models/zamba2.py`) and for serving; ``asdict()``
+leaves each out while it holds its default, so every config the reference
+has compares with the reference's field by field.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import torch
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | ssm | hybrid | vlm | audio
+    family: str     # dense | moe | ssm | hybrid | zamba2 | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -57,6 +62,18 @@ class ModelConfig:
     scan_layers: bool = True
     # --- provenance ---
     source: str = ""
+    # --- the port's own (PORT_DEFAULTS) ---
+    # family "zamba2" is Zamba2 as published (`models/zamba2.py`): each
+    # shared block reads RMSNorm(concat(h, embedding)) at width 2 d, scales
+    # its scores by (hd / 2)^-0.5 and has a gated exact-gelu MLP, and its
+    # output, mapped by a d x d linear, joins the input of a Mamba2 layer;
+    # each Mamba2 layer ends in a gated RMSNorm over `mamba_groups` groups
+    mamba_groups: int = 1            # Mamba2 B/C groups, heads split evenly
+    shared_blocks: int = 1           # zamba2: shared blocks, taken in turn
+    hybrid_layer_ids: Tuple[int, ...] = ()  # zamba2: layers a block joins
+    shared_mlp_adapter_rank: int = 0  # zamba2: LoRA rank on gate_up, each call
+    dt_min: float = 0.0              # Mamba2: dt clamped below (0: no clamp)
+    carry_prompt_state: bool = False  # serve: prompt state goes to decode
 
     # ------------------------------------------------------------------ #
     @property
@@ -71,18 +88,21 @@ class ModelConfig:
     def block_kind(self) -> str:
         if self.family == "ssm":
             return "xlstm" if self.slstm_every else "mamba2"
-        if self.family == "hybrid":
+        if self.family in ("hybrid", "zamba2"):
             return "mamba2"
         return "attention"
 
     @property
     def subquadratic(self) -> bool:
         """Whether long-context (500k) decode is feasible for this config."""
-        return self.family in ("ssm", "hybrid") or self.sliding_window > 0
+        return (self.family in ("ssm", "hybrid", "zamba2")
+                or self.sliding_window > 0)
 
     # ------------------------------------------------------------------ #
     def num_params(self) -> int:
         """Analytic parameter count (used by the latency model & rooflines)."""
+        if self.family == "zamba2":
+            return self._zamba2_params()
         d, h, kv, hd = self.d_model, self.n_heads, self.n_kv_heads, self.resolved_head_dim
         emb = self.vocab_size * d * (self.n_codebooks or 1)
         unemb = 0 if self.tie_embeddings else self.vocab_size * d * (self.n_codebooks or 1)
@@ -109,6 +129,24 @@ class ModelConfig:
             # one shared attention+MLP block reused every `shared_attn_every` layers
             total += d * h * hd + 2 * d * kv * hd + h * hd * d + 3 * d * self.d_ff
         return int(total)
+
+    def _zamba2_params(self) -> int:
+        """Every leaf of `models/zamba2.py`'s tree, norms and biases too."""
+        d, h, kv, hd = (self.d_model, self.n_heads, self.n_kv_heads,
+                        self.resolved_head_dim)
+        inner, n, G = 2 * d, self.ssm_state, self.mamba_groups
+        H = inner // 64
+        conv = inner + 2 * G * n
+        mamba = (d * (inner + conv + H) + self.ssm_conv * conv + conv
+                 + 3 * H + inner + inner * d + d)
+        block = (2 * d + 2 * d * (h + 2 * kv) * hd + h * hd * d + d
+                 + 3 * d * self.d_ff)
+        calls = len(self.hybrid_layer_ids)
+        r = self.shared_mlp_adapter_rank
+        per_call = r * (d + 2 * self.d_ff) + d * d
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return int(emb + d + self.n_layers * mamba
+                   + self.shared_blocks * block + calls * per_call)
 
     def active_params(self) -> int:
         """Params touched per token (MoE: top_k of n_experts)."""
@@ -199,9 +237,23 @@ class ModelConfig:
         return replace(self, name=f"{self.name}-swa", sliding_window=8192)
 
     def asdict(self):
+        """The fields by name, the dtype's name for the dtype; each of the
+        port's own fields (`PORT_DEFAULTS`) only where it differs from its
+        default."""
         d = dataclasses.asdict(self)
         d["dtype"] = str(self.dtype).removeprefix("torch.")
+        for k, v in PORT_DEFAULTS.items():
+            if d[k] == v:
+                del d[k]
         return d
+
+
+#: the port's own fields, which the reference's config does not have, and
+#: their defaults
+PORT_DEFAULTS = {f.name: f.default for f in dataclasses.fields(ModelConfig)
+                 if f.name in ("mamba_groups", "shared_blocks",
+                               "hybrid_layer_ids", "shared_mlp_adapter_rank",
+                               "dt_min", "carry_prompt_state")}
 
 
 # ---------------------------------------------------------------------- #

@@ -1,4 +1,5 @@
-"""Architecture registry — the assigned 10-arch pool (+ the paper's CNN pool)."""
+"""Architecture registry — the assigned 10-arch pool (+ the paper's CNN
+pool), and the configurations served as published (`_SERVED`)."""
 from __future__ import annotations
 
 import importlib
@@ -21,11 +22,18 @@ _MODULES = {
 
 ARCH_IDS: List[str] = list(_MODULES)
 
+#: served as published, outside the pool (the reference has no such config)
+_SERVED = {
+    "zamba2-7b-instruct": "repro_torch.configs.zamba2_7b_instruct",
+}
+
 
 def get_config(name: str) -> ModelConfig:
-    if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
-    return importlib.import_module(_MODULES[name]).CONFIG
+    module = _MODULES.get(name) or _SERVED.get(name)
+    if module is None:
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{[*_MODULES, *_SERVED]}")
+    return importlib.import_module(module).CONFIG
 
 
 def all_configs() -> Dict[str, ModelConfig]:

@@ -56,6 +56,14 @@
 //   zero fill included. So the kernel moves hd 112's bytes from device
 //   memory and spends hd 128's shared memory and registers and 8/7 of its
 //   P V products.
+//   hd 224 (Zamba2-7B's shared blocks, scale (hd / 2)^-0.5) runs on tiles
+//   of four panels, 256 wide, zero-filled past 224 as hd 112's are past
+//   112: Q K^T takes 14 k-steps, P V two m64n128k16 products a k-step (the
+//   second on V's panels 2-3, `wgmma_rs<256>`), and O is 128 fp32
+//   registers a thread. Shared memory: 1024 + 32 KB Q + 2 x (32 + 32) KB
+//   K/V + 72 bytes = 164,936 bytes, one block an SM, so one block's Q load
+//   and O store are no longer hidden behind another's main loop. Forward
+//   only: the backward keeps hd 64, 112 and 128.
 //   Why one consumer warpgroup a block and not two over 128 rows: with two
 //   (288 threads, about 150 registers) only one block fits an SM, and each
 //   block's Q load and O store stall its SM; two independent 64-row blocks
@@ -585,7 +593,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace
 
 // dtype: 0 = float32 (the SIMT kernel), 1 = bfloat16 (the wgmma kernel); q,
-// k, v and o all of it; hd 64, 112 or 128. `strides` holds 12 element strides,
+// k, v and o all of it; hd 64, 112 or 128, and 224 in bfloat16. `sm_scale`
+// multiplies the scores (1/sqrt(hd), or Zamba2's (hd / 2)^-0.5). `strides` holds 12 element strides,
 // (batch, head, row) of q, k, v and o in turn; hd's stride is 1. Every
 // pointer and every stride is a multiple of 16 bytes; row strides fit in
 // int32. lse, when not null, receives each row's log-sum-exp, (B, H, S)
@@ -628,5 +637,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == 1 && hd == 128)
     return wg::launch<128>(q, k, v, o, lse, st, B, H, KV, S, causal, window,
                                sm_scale, s);
+  if (dtype == 1 && hd == 224)
+    return wg::launch<224>(q, k, v, o, lse, st, B, H, KV, S, causal, window,
+                           sm_scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

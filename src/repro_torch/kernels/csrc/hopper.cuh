@@ -11,7 +11,8 @@
 // descriptors read. A tile is K-major for an operand whose contraction runs
 // along hd, MN-major ("transposed") for one whose contraction runs along its
 // rows. An hd that is not a multiple of 64 (112: zamba2's shared block) is
-// padded to whole panels: the tensor map knows the true hd, so TMA fills the
+// padded to whole panels (224, Zamba2-7B's shared blocks: four panels, 256
+// wide): the tensor map knows the true hd, so TMA fills the
 // last panel's columns past it with zeros on a load and clips them on a
 // store. A product that contracts over hd runs hd / 16 k-steps and never
 // reads the pad; one whose N is hd runs at the padded width, and its pad
@@ -36,7 +37,8 @@ constexpr int kRowBytes = 128;             // one swizzled row of a panel
 constexpr int kTensorMapError = 10000;     // + the CUresult of a refused map
 
 // the columns a tile of hd columns takes in shared memory and in a wgmma
-// accumulator: whole 64-column panels (64 -> 64, 112 -> 128, 128 -> 128)
+// accumulator: whole 64-column panels (64 -> 64, 112 -> 128, 128 -> 128,
+// 224 -> 256)
 __host__ __device__ constexpr int padded_hd(int hd) {
   return (hd + kPanel - 1) / kPanel * kPanel;
 }
@@ -273,6 +275,17 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&o)[64],
                                               const uint32_t (&a)[4],
                                               uint64_t b) {
   wgmma_rs_n128(o, a, b);
+}
+// n256 as two n128 products: accumulator registers 64.. hold columns 128..
+// in the n256 fragment layout, and their V columns start two panels on
+// (the descriptor's start address, in 16-byte units, moves by 2 x 8 KB)
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&o)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[0]), a, b);
+  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[64]), a,
+                b + ((2 * kTileRows * kRowBytes) >> 4));
 }
 
 // issues and commits C[64 x 64] = A B^T for two tiles A, B (rows x hd,

@@ -36,6 +36,11 @@ launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 #: or by the loads (fp32) and never stored
 HEAD_DIMS = (64, 112, 128)
 
+#: head dims of the bf16 forward alone (no backward, no fp32 kernel): 224
+#: (Zamba2-7B's shared blocks) runs on 256-wide tiles, its last 32 columns
+#: zero-filled by TMA and never stored
+FWD_HEAD_DIMS = (224,)
+
 #: rows of the bf16 backward's tiles; its D and lse scratch rows are padded
 #: to a multiple of it
 TILE_ROWS = 64
@@ -77,8 +82,9 @@ def _bshd_like(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            sliding_window: int, with_lse: bool = False):
-    """o, or (o, lse) with lse (B, H, S) fp32 when with_lse."""
+            sliding_window: int, with_lse: bool = False, scale=None):
+    """o, or (o, lse) with lse (B, H, S) fp32 when with_lse; scores scaled
+    by `scale`, 1/sqrt(hd) when None."""
     B, H, S, hd = q.shape
     o = _bshd_like(q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -95,7 +101,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(), B, H,
             k.shape[1], S, hd, strides, int(causal), int(sliding_window),
-            1.0 / math.sqrt(hd), _build.DTYPE_CODE[q.dtype],
+            1.0 / math.sqrt(hd) if scale is None else float(scale),
+            _build.DTYPE_CODE[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, "flash_attention")
     launches["flash_attention"] += 1
@@ -176,7 +183,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                            causal=causal,
                                            sliding_window=sliding_window)
-    _check_cuda(q, k, v, S, hd)
+    _check_cuda(q, k, v, S, hd, forward=False)
     if not _readable(do):
         do = do.contiguous()
     _check_views((o, do), "flash_attention_bwd")
@@ -206,24 +213,31 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    sliding_window: int = 0) -> torch.Tensor:
+                    causal: bool = True, sliding_window: int = 0,
+                    scale=None) -> torch.Tensor:
     """q (B, H, S, hd), k and v (B, KV, S, hd) with H % KV == 0, one dtype
     (float32 or bfloat16) -> (B, H, S, hd) in that dtype. Query head h
-    reads KV head h // (H / KV). Any S; hd 64, 112 or 128 on CUDA, where q,
-    k and v may be strided views (hd's stride 1, the others multiples of 16
-    bytes) and the result is the (B, H, S, hd) view of a (B, S, H, hd)
-    tensor, so that ``.transpose(1, 2)`` gives it back contiguous."""
+    reads KV head h // (H / KV); scores are scaled by `scale`, 1/sqrt(hd)
+    when None. Any S; hd 64, 112 or 128 on CUDA, and 224 in bfloat16 with
+    no gradient (`FWD_HEAD_DIMS`), where q, k and v may be strided views
+    (hd's stride 1, the others multiples of 16 bytes) and the result is the
+    (B, H, S, hd) view of a (B, S, H, hd) tensor, so that
+    ``.transpose(1, 2)`` gives it back contiguous."""
     _check_args(q, k, v, sliding_window)
     B, H, S, hd = q.shape
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
-                                       sliding_window=sliding_window)
+                                       sliding_window=sliding_window,
+                                       scale=scale)
     _check_cuda(q, k, v, S, hd)
     _check_views((q, k, v), "flash_attention")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if scale is not None or hd in FWD_HEAD_DIMS:
+            raise ValueError(f"flash_attention's backward takes hd in "
+                             f"{HEAD_DIMS} and the 1/sqrt(hd) scale, got hd "
+                             f"{hd}, scale {scale}")
         return FlashAttention.apply(q, k, v, causal, sliding_window)
-    return _launch(q, k, v, causal, sliding_window)
+    return _launch(q, k, v, causal, sliding_window, scale=scale)
 
 
 def _check_args(q, k, v, sliding_window: int) -> None:
@@ -247,13 +261,16 @@ def _check_args(q, k, v, sliding_window: int) -> None:
         raise ValueError(f"sliding_window must be >= 0, got {sliding_window}")
 
 
-def _check_cuda(q, k, v, S: int, hd: int) -> None:
+def _check_cuda(q, k, v, S: int, hd: int, forward: bool = True) -> None:
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention runs on CUDA or the CPU, got "
                          f"{q.device}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"the flash_attention kernel takes hd in "
-                         f"{HEAD_DIMS}, got {hd}")
+    wide = forward and q.dtype == torch.bfloat16
+    if hd not in HEAD_DIMS + (FWD_HEAD_DIMS if wide else ()):
+        raise ValueError(f"the flash_attention{'' if forward else '_bwd'} "
+                         f"kernel takes hd in {HEAD_DIMS}"
+                         + (f", and {FWD_HEAD_DIMS} in the bfloat16 forward"
+                            if forward else "") + f", got {hd}")
     if (S + 63) // 64 > 65535:
         raise ValueError(f"S must be at most {65535 * 64} (the grid's second "
                          f"dimension), got {S}")

@@ -16,9 +16,12 @@ from repro_torch.kernels.rmsnorm import add_rmsnorm as _add_rms
 from repro_torch.kernels.rmsnorm import rmsnorm as _rms
 
 
-def flash_attention_op(q, k, v, *, causal=True, sliding_window=0):
-    """q (B, H, S, hd); k, v (B, KV, S, hd) with H % KV == 0."""
-    return _flash(q, k, v, causal=causal, sliding_window=sliding_window)
+def flash_attention_op(q, k, v, *, causal=True, sliding_window=0,
+                       scale=None):
+    """q (B, H, S, hd); k, v (B, KV, S, hd) with H % KV == 0; scores scaled
+    by `scale` (1/sqrt(hd) when None)."""
+    return _flash(q, k, v, causal=causal, sliding_window=sliding_window,
+                  scale=scale)
 
 
 def kd_loss_op(x_logits, y_logits, labels):

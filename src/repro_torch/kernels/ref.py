@@ -155,13 +155,15 @@ def add_rmsnorm_bwd_ref(s: torch.Tensor, scale: torch.Tensor,
     return dx.to(s.dtype), (g * xhat).sum(0).to(scale.dtype)
 
 
-def _flash_scores(q, k, causal, sliding_window):
+def _flash_scores(q, k, causal, sliding_window, scale=None):
     """fp32 scores (B, H, S, S) with the masked pairs at -inf, and K
-    repeated over each group's query heads."""
+    repeated over each group's query heads; scaled by 1/sqrt(hd), or by
+    `scale` where it is given."""
     B, H, S, hd = q.shape
     G = H // k.shape[1]
     kf = k.float().repeat_interleave(G, dim=1)
-    scores = (q.float() @ kf.transpose(-1, -2)) / math.sqrt(hd)
+    scores = q.float() @ kf.transpose(-1, -2)
+    scores = scores / math.sqrt(hd) if scale is None else scores * scale
     i = torch.arange(S, device=q.device)[:, None]
     j = torch.arange(S, device=q.device)[None, :]
     mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
@@ -174,15 +176,16 @@ def _flash_scores(q, k, causal, sliding_window):
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, sliding_window: int = 0,
-                        return_lse: bool = False):
+                        return_lse: bool = False, scale=None):
     """q (B, H, S, hd), k and v (B, KV, S, hd) with H % KV == 0 ->
     (B, H, S, hd) in q's dtype. Naive attention, materialised in fp32 with
-    scale 1/sqrt(hd). Query head h reads KV head h // (H / KV), as
-    ``models.attention.gqa_attention`` groups them. Key j is visible to
-    query i when j <= i (causal) and j > i - sliding_window (when set).
+    scale 1/sqrt(hd) (or `scale`, where given). Query head h reads KV head
+    h // (H / KV), as ``models.attention.gqa_attention`` groups them. Key j
+    is visible to query i when j <= i (causal) and j > i - sliding_window
+    (when set).
     With return_lse, also each row's log-sum-exp of its scaled scores,
     (B, H, S) fp32, what the backward needs of the forward."""
-    scores, _ = _flash_scores(q, k, causal, sliding_window)
+    scores, _ = _flash_scores(q, k, causal, sliding_window, scale)
     G = q.shape[1] // k.shape[1]
     vf = v.float().repeat_interleave(G, dim=1)
     o = (torch.softmax(scores, -1) @ vf).to(q.dtype)

@@ -157,13 +157,15 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device,
     }
 
 
-def _gqa_scores_chunk(q, k, v, q_start, kv_len_valid, sliding_window, causal):
+def _gqa_scores_chunk(q, k, v, q_start, kv_len_valid, sliding_window, causal,
+                      scale=None):
     """q: (B, KV, G, qc, hd); k, v: (B, KV, S, hd) -> (B, KV, G, qc, hd).
     Scores and probabilities are rounded to the inputs' dtype where the
-    reference rounds them."""
+    reference rounds them; scores scaled by 1/sqrt(hd), or `scale`."""
     S = k.shape[2]
     scores = torch.einsum("bkgqh,bkth->bkgqt", q, k).float()
-    scores = scores / math.sqrt(q.shape[-1])
+    scores = (scores / math.sqrt(q.shape[-1]) if scale is None
+              else scores * scale)
     q_idx = q_start + torch.arange(q.shape[3], device=q.device)
     k_idx = torch.arange(S, device=q.device)
     mask = torch.ones((q.shape[3], S), dtype=torch.bool, device=q.device)
@@ -179,10 +181,11 @@ def _gqa_scores_chunk(q, k, v, q_start, kv_len_valid, sliding_window, causal):
 
 
 def gqa_attention(q, k, v, *, causal=True, sliding_window=0, q_start=0,
-                  kv_len_valid=None, q_chunk=1024):
+                  kv_len_valid=None, q_chunk=1024, scale=None):
     """q: (B, S_q, H, hd); k, v: (B, S_kv, KV, hd) -> (B, S_q, H, hd).
     Queries go in chunks of q_chunk rows, so the score matrix held at once
-    is (B, KV, G, q_chunk, S_kv)."""
+    is (B, KV, G, q_chunk, S_kv). Scores are scaled by 1/sqrt(hd), or by
+    `scale` where given."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -191,19 +194,21 @@ def gqa_attention(q, k, v, *, causal=True, sliding_window=0, q_start=0,
     vh = v.permute(0, 2, 1, 3)
     out = torch.cat([
         _gqa_scores_chunk(qh[:, :, :, i:i + q_chunk], kh, vh, q_start + i,
-                          kv_len_valid, sliding_window, causal)
+                          kv_len_valid, sliding_window, causal, scale)
         for i in range(0, Sq, q_chunk)], dim=3)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
 
 
 def apply_attention(params, cfg: ModelConfig, x, positions,
-                    cache=None, cache_index=None,
+                    cache=None, cache_index=None, scale=None,
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x: (B, S, d). cache: None (train), "init" (prefill: the layer's k, v
     come back as its cache) or {"k", "v": (B, L, KV, hd)} with S == 1
     (decode at position cache_index, a 0-d int64 tensor: the token's k, v
     are written at slot cache_index % L, in place, and the query attends
-    over the min(cache_index + 1, L) slots filled so far).
+    over the min(cache_index + 1, L) slots filled so far). Scores are
+    scaled by 1/sqrt(hd), or by `scale` where given (Zamba2's shared
+    block: (hd / 2)^-0.5, whose decode cache is never length-sharded).
 
     Returns (out, new_cache)."""
     B, S, d = x.shape
@@ -236,7 +241,7 @@ def apply_attention(params, cfg: ModelConfig, x, positions,
             cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
             out = gqa_attention(q, cache["k"], cache["v"], causal=False,
                                 sliding_window=0, kv_len_valid=kv_valid,
-                                q_start=cache_index)
+                                q_start=cache_index, scale=scale)
         new_cache = cache
     else:
         # (B, H, S, hd) views: the kernel reads them through their strides,
@@ -244,7 +249,8 @@ def apply_attention(params, cfg: ModelConfig, x, positions,
         # card, so the reshape below is a view there
         out = flash_attention_op(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), causal=True,
-                                 sliding_window=cfg.sliding_window)
+                                 sliding_window=cfg.sliding_window,
+                                 scale=scale)
         out = out.transpose(1, 2)
         if cache is not None:  # prefill ("init" marker): emit cache
             new_cache = {"k": k, "v": v}

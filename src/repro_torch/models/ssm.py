@@ -45,6 +45,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.obs.trace import phase
 
 MAMBA_HEAD_DIM = 64
 CHUNK = 128
@@ -58,10 +59,10 @@ def _causal_mask(Lc: int, device) -> torch.Tensor:
 
 
 def _chunk_len(L: int) -> int:
-    """The chunk length of a sequence of L positions, which it divides."""
-    Lc = min(CHUNK, L)
-    assert L % Lc == 0
-    return Lc
+    """The chunk length of a sequence of L positions: CHUNK, or L where it
+    is shorter. A length it does not divide ends in a shorter chunk, whose
+    causal mask is the top-left corner of the whole chunk's."""
+    return min(CHUNK, L)
 
 
 # ===================================================================== #
@@ -76,16 +77,24 @@ def mamba2_dims(cfg: ModelConfig, d_model: Optional[int] = None):
     return d, inner, H, P, n
 
 
+def mamba2_conv_dim(cfg: ModelConfig, d_model: Optional[int] = None) -> int:
+    """The conv's channels: x, then B and C of each of cfg.mamba_groups."""
+    d, inner, H, P, n = mamba2_dims(cfg, d_model)
+    return inner + 2 * cfg.mamba_groups * n
+
+
 def init_mamba2(gen: torch.Generator, cfg: ModelConfig, device,
                 d_model: Optional[int] = None):
+    """The reference's leaves; family "zamba2" adds "gnorm", the gated
+    RMSNorm's scale (ones)."""
     d, inner, H, P, n = mamba2_dims(cfg, d_model)
-    conv_dim = inner + 2 * n
-    in_proj = dense_init(gen, d, 2 * inner + 2 * n + H, cfg.dtype, device)
+    conv_dim = mamba2_conv_dim(cfg, d_model)
+    in_proj = dense_init(gen, d, inner + conv_dim + H, cfg.dtype, device)
     conv_w = (torch.randn((cfg.ssm_conv, conv_dim), generator=gen,
                           device=device) * 0.1).to(cfg.dtype)
     u = torch.rand((H,), generator=gen, device=device)
     dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
-    return {
+    out = {
         "in_proj": in_proj,
         "conv_w": conv_w,
         "conv_b": torch.zeros((conv_dim,), dtype=cfg.dtype, device=device),
@@ -95,6 +104,9 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig, device,
         "d_skip": torch.ones((H,), dtype=torch.float32, device=device),
         "out_proj": dense_init(gen, inner, d, cfg.dtype, device),
     }
+    if cfg.family == "zamba2":
+        out["gnorm"] = torch.ones((inner,), dtype=cfg.dtype, device=device)
+    return out
 
 
 def _causal_conv(x, w, b, state=None):
@@ -127,6 +139,7 @@ def _ssd_chunk_scan(xh, Bm, Cm, dt, A):
     ys = []
     for xk, Bk, Ck, dtk in zip(*(t.float().split(Lc, 1)
                                  for t in (xh, Bm, Cm, dt))):
+        r = xk.shape[1]                                    # Lc, or the tail
         a = dtk * A                                        # (B, Lc, H) < 0
         cum = torch.cumsum(a, 1)
         cum_end = cum[:, -1]                               # (B, H)
@@ -135,7 +148,7 @@ def _ssd_chunk_scan(xh, Bm, Cm, dt, A):
                    * torch.exp(cum)[..., None])
         # intra-chunk: seg[t, s] = cum_t - cum_s, masked above the diagonal
         seg = cum[:, :, None, :] - cum[:, None, :, :]      # (B, Lc, Lc, H)
-        decay = torch.exp(seg.masked_fill(masked, -math.inf))
+        decay = torch.exp(seg.masked_fill(masked[:, :r, :r], -math.inf))
         cb = torch.einsum("bln,bsn->bls", Ck, Bk)          # (B, Lc, Lc)
         xdt = xk * dtk[..., None]                          # (B, Lc, H, P)
         y_intra = torch.einsum("blsh,bshp->blhp", cb[..., None] * decay, xdt)
@@ -153,43 +166,88 @@ def apply_mamba2(params, cfg: ModelConfig, x, cache=None,
     """x: (B, L, d). cache: None (train), "init" (prefill: the final state
     comes back as the cache) or {"conv": (B, w-1, conv_dim), "ssm": (B, H,
     n, P) fp32} with L == 1 (decode: both written in place). Returns
-    (out, cache)."""
+    (out, cache).
+
+    B and C come in cfg.mamba_groups groups, head h reading group h // (H /
+    groups); the chunk scan runs each group's heads apart, inside a
+    ``ssm.scan`` phase span. dt is clamped below at cfg.dt_min where it is
+    set. Family "zamba2" ends in the gated RMSNorm (HF Zamba2's
+    ``Zamba2RMSNormGated``): y silu(z) normed over each group's inner /
+    groups channels in fp32 (eps 1e-5), times "gnorm", where the others
+    take y silu(z)."""
     d, inner, H, P, n = mamba2_dims(cfg, d_model)
+    G = cfg.mamba_groups
     B, L, _ = x.shape
     proj = x @ params["in_proj"]
-    z, xBC, dt_raw = torch.split(proj, [inner, inner + 2 * n, H], -1)
+    z, xBC, dt_raw = torch.split(proj, [inner, inner + 2 * G * n, H], -1)
     A = -torch.exp(params["a_log"])                                # (H,)
     dt = F.softplus(dt_raw.float() + params["dt_bias"])            # (B,L,H)
+    if cfg.dt_min:
+        dt = dt.clamp(min=cfg.dt_min)
 
     new_cache = None
     if isinstance(cache, dict) and L == 1:
         xBC, conv_state = _causal_conv(xBC, params["conv_w"],
                                        params["conv_b"], cache["conv"])
-        xi, Bm, Cm = torch.split(xBC, [inner, n, n], -1)
+        xi, Bm, Cm = torch.split(xBC, [inner, G * n, G * n], -1)
         xh = xi.reshape(B, 1, H, P).float()
         da = torch.exp(dt[:, 0] * A)                               # (B, H)
         xdt = xh[:, 0] * dt[:, 0, :, None]                         # (B,H,P)
-        dBx = Bm[:, 0].float()[:, None, :, None] * xdt[:, :, None, :]
+        dBx = (_group_heads(Bm[:, 0].float(), G, H)[:, :, :, None]
+               * xdt[:, :, None, :])
         h = cache["ssm"]                                           # (B,H,n,P)
         h.mul_(da[:, :, None, None]).add_(dBx)
         cache["conv"].copy_(conv_state)
-        y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), h)
+        if G == 1:
+            y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), h)
+        else:
+            y = torch.einsum("bgn,bghnp->bghp",
+                             Cm[:, 0].float().view(B, G, n),
+                             h.view(B, G, H // G, n, P)).reshape(B, H, P)
         y = y[:, None] + params["d_skip"][None, None, :, None] * xh
         new_cache = cache
     else:
         xBC_raw = xBC
         xBC, _ = _causal_conv(xBC, params["conv_w"], params["conv_b"])
-        xi, Bm, Cm = torch.split(xBC, [inner, n, n], -1)
+        xi, Bm, Cm = torch.split(xBC, [inner, G * n, G * n], -1)
         xh = xi.reshape(B, L, H, P)
-        y, hT = _ssd_chunk_scan(xh, Bm, Cm, dt, A)
+        with phase("ssm.scan"):
+            if G == 1:
+                y, hT = _ssd_chunk_scan(xh, Bm, Cm, dt, A)
+            else:
+                Hg = H // G
+                parts = [_ssd_chunk_scan(
+                    xh[:, :, g * Hg:(g + 1) * Hg], Bm[..., g * n:(g + 1) * n],
+                    Cm[..., g * n:(g + 1) * n], dt[..., g * Hg:(g + 1) * Hg],
+                    A[g * Hg:(g + 1) * Hg]) for g in range(G)]
+                y = torch.cat([p[0] for p in parts], 2)
+                hT = torch.cat([p[1] for p in parts], 1)
+                del parts
         y = y + params["d_skip"][None, None, :, None] * xh.float()
         if cache is not None:                              # prefill: state
             W = cfg.ssm_conv
             pad = xBC_raw.new_zeros((B, W - 1, xBC_raw.shape[-1]))
             conv_state = torch.cat([pad, xBC_raw], 1)[:, -(W - 1):]
             new_cache = {"conv": conv_state, "ssm": hT}
-    y = y.reshape(B, -1, inner).to(x.dtype) * F.silu(z)
+    if cfg.family == "zamba2":
+        yz = y.reshape(B, -1, G, inner // G) * F.silu(
+            z.float()).view(B, -1, G, inner // G)
+        yz = yz * torch.rsqrt(yz.square().mean(-1, keepdim=True) + 1e-5)
+        y = (yz.view(B, -1, inner) * params["gnorm"].float()).to(x.dtype)
+    else:
+        y = y.reshape(B, -1, inner).to(x.dtype) * F.silu(z)
     return y @ params["out_proj"], new_cache
+
+
+def _group_heads(t: torch.Tensor, G: int, H: int) -> torch.Tensor:
+    """A (B, G n) row of B or C as each head reads it: (B, 1, n) for one
+    group (every head the same), else (B, H, n), head h group h // (H /
+    G)."""
+    Bsz, Gn = t.shape
+    if G == 1:
+        return t[:, None, :]
+    n = Gn // G
+    return t.view(Bsz, G, 1, n).expand(Bsz, G, H // G, n).reshape(Bsz, H, n)
 
 
 # ===================================================================== #
@@ -233,12 +291,13 @@ def _mlstm_chunk_scan(q, k, v, li, lf):
     hs = []
     for qk_, kk, vk, lik, lfk in zip(*(t.float().split(Lc, 1)
                                        for t in (q, k, v, li, lf))):
+        r = qk_.shape[1]                                    # Lc, or the tail
         cumf = torch.cumsum(lfk, 1)                         # (B, Lc, H)
         # log-weights: intra (t from s): cumf_t - cumf_s + li_s; inter:
         # cumf_t + m
         logw_intra = (cumf[:, :, None, :] - cumf[:, None, :, :]
                       + lik[:, None, :, :])                 # (B,Lc,Lc,H)
-        logw_intra = logw_intra.masked_fill(masked, -math.inf)
+        logw_intra = logw_intra.masked_fill(masked[:, :r, :r], -math.inf)
         logw_inter = cumf + m[:, None, :]                   # (B, Lc, H)
         m_row = torch.maximum(logw_intra.amax(2), logw_inter)
         m_row = m_row.clamp_min(NEG_BIG)

@@ -21,6 +21,9 @@ Counterpart of ``repro.models.transformer``. The families:
   mamba2          : n_layers Mamba2 blocks (an SSM config without
                     slstm_every, or a hybrid's LiteModel, whose
                     shared_attn_every is 0).
+  zamba2          : Zamba2 as published, family "zamba2": its own module,
+                    `models/zamba2.py`, to which `init_params`,
+                    `init_cache` and `apply_blocks` hand it.
 
 ``init_params(gen, cfg, device)`` builds the parameter tree of the
 reference, leaf for leaf: block params are stacked on a leading (n_layers,
@@ -225,6 +228,9 @@ def _grouped(tree, lead: Tuple[int, int]):
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, device):
+    if cfg.family == "zamba2":
+        from repro_torch.models import zamba2
+        return zamba2.init_params(gen, cfg, device)
     params: Dict[str, Any] = {"io": init_io(gen, cfg, device)}
 
     def blocks(n, kind):
@@ -266,7 +272,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
     keys of the stacks it has. kv_split (batch shards, length shards) makes
     each KV cache this rank's (batch / dp, kv_len / model) slice, as the
     length-sharded decode (`models.attention.flash_decode_sharded`) holds
-    it."""
+    it. Family "zamba2" takes `models/zamba2.py`'s (no kv_split)."""
+    if cfg.family == "zamba2":
+        from repro_torch.models import zamba2
+        if kv_split != (1, 1):
+            raise ValueError("zamba2's decode cache is not length-sharded")
+        return zamba2.init_cache(cfg, batch, max_len, device)
     kv_len = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     dp, shards = kv_split
 
@@ -280,8 +291,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
 
     def mamba_cache(lead):
         d, inner, H, P, n = ssm.mamba2_dims(cfg)
-        return {"conv": zeros(lead + (batch, cfg.ssm_conv - 1, inner + 2 * n),
-                              cfg.dtype),
+        return {"conv": zeros(lead + (batch, cfg.ssm_conv - 1,
+                                      ssm.mamba2_conv_dim(cfg)), cfg.dtype),
                 "ssm": zeros(lead + (batch, H, n, P), torch.float32)}
 
     def mlstm_cache(lead):
@@ -343,7 +354,13 @@ def apply_blocks(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     the cache, KV ring buffers and recurrent states alike, is updated in
     place and returned). A tensor index keeps the decode step free of host
     syncs and of host-side shapes that change from step to step, so one
-    CUDA graph replays it at every position."""
+    CUDA graph replays it at every position. Family "zamba2" runs
+    `models/zamba2.py`'s layout (aux {})."""
+    if cfg.family == "zamba2":
+        from repro_torch.models import zamba2
+        x, delta, new_cache = zamba2.apply_blocks(params, cfg, batch, cache,
+                                                  cache_index)
+        return x, delta, new_cache, {}
     x, positions = embed_inputs(params["io"], cfg, batch)
     prefill = isinstance(cache, str) and cache == "init"
     decode = cache is not None and not prefill

@@ -20,10 +20,10 @@ On the CPU the same step runs eagerly on the same buffers. Prefill stays
 eager.
 
 Phase spans (`repro_torch.obs.trace.phase`; off unless a tracer or a
-profiler records them): ``serve.generate`` around a call, with the caching
-allocator's device mallocs and retries during it as its args on a card,
-``serve.prefill`` around the prefill and ``serve.replay`` around each
-decode step.
+profiler records them): ``serve.generate`` around a call, with the decode
+cache's state and KV bytes as its args, and on a card the caching
+allocator's device mallocs and retries during it; ``serve.prefill`` around
+the prefill and ``serve.replay`` around each decode step.
 """
 from __future__ import annotations
 
@@ -89,12 +89,13 @@ def _write_prefix(big: torch.Tensor, small: torch.Tensor) -> torch.Tensor:
     return big
 
 
-def _load_prefill(big, small, path=()) -> None:
+def _load_prefill(big, small, path=(), carry: bool = False) -> None:
     """Zero the decode cache `big` and copy the prefill cache `small` into
     it, leaf paired with leaf by key at every level, as the reference's
     ``tree_map(cache, pre_cache)`` pairs them: a leaf of another shape is
     written at the origin (`_write_prefix`); a leaf of the same shape is
-    left zero, as the reference leaves it (`ServeEngine.generate`). Raises
+    left zero, as the reference leaves it (`ServeEngine.generate`), unless
+    `carry`, which copies it (a recurrent state: the prompt's). Raises
     ValueError where the two trees' keys differ."""
     if isinstance(big, dict) or isinstance(small, dict):
         if not (isinstance(big, dict) and isinstance(small, dict)
@@ -105,11 +106,31 @@ def _load_prefill(big, small, path=()) -> None:
                              f"pair with the decode cache: keys {keys[1]} "
                              f"against {keys[0]}")
         for key in big:
-            _load_prefill(big[key], small[key], path + (key,))
+            _load_prefill(big[key], small[key], path + (key,), carry)
         return
-    big.zero_()
     if big.shape != small.shape:
+        big.zero_()
         _write_prefix(big, small)
+    elif carry:
+        big.copy_(small)
+    else:
+        big.zero_()
+
+
+def cache_bytes(cache) -> Dict[str, int]:
+    """Bytes of a decode cache: "kv_bytes" its KV leaves (those under a
+    {"k", "v"} dict), "state_bytes" every other leaf (recurrent states)."""
+    out = {"state_bytes": 0, "kv_bytes": 0}
+
+    def walk(tree):
+        for leaf in tree.values():
+            if isinstance(leaf, dict):
+                walk(leaf)
+            else:
+                key = "kv_bytes" if set(tree) == {"k", "v"} else "state_bytes"
+                out[key] += leaf.numel() * leaf.element_size()
+    walk(cache)
+    return out
 
 
 class _DecodeStep:
@@ -131,6 +152,7 @@ class _DecodeStep:
         self.tokens = torch.zeros(shape, dtype=torch.int64, device=device)
         self.index = torch.zeros((), dtype=torch.int64, device=device)
         self.cache = make_decode_cache(cfg, batch, max_len, device)
+        self.cache_bytes = cache_bytes(self.cache)
         self.graph = None
         self.logits = None
         self.launches: Dict[str, int] = {}   # per replay
@@ -224,19 +246,26 @@ class ServeEngine:
         families the prompt's state is dropped and decode starts from a
         zero state: of an xLSTM's or a pure Mamba2's prefill cache nothing
         is carried over, and of zamba2's only the shared attention block's
-        KV cache.
-        `models.api.prefill` and `decode_step` carry the state."""
+        KV cache. A config with `carry_prompt_state` (Zamba2 as published)
+        copies every such leaf instead, so its decode continues from the
+        prompt's state. `models.api.prefill` and `decode_step` carry the
+        state too.
+
+        A recorded ``serve.generate`` span carries, besides the
+        allocator's counts, the decode cache's "state_bytes" and
+        "kv_bytes" (`cache_bytes`)."""
         with phase("serve.generate") as span:
             counts = (_alloc_counts(self.device) if span.recording
                       else None)
-            out = self._generate(batch, n_new, return_logits, return_first)
+            out = self._generate(batch, n_new, return_logits, return_first,
+                                 span)
             if counts is not None:
                 span.args.update(
                     (k, n - counts[k])
                     for k, n in _alloc_counts(self.device).items())
         return out
 
-    def _generate(self, batch, n_new, return_logits, return_first):
+    def _generate(self, batch, n_new, return_logits, return_first, span):
         batch = {k: torch.as_tensor(v, device=self.device)
                  for k, v in batch.items()}
         prompt = batch["embeddings" if self.cfg.input_mode == "embeddings"
@@ -245,7 +274,9 @@ class ServeEngine:
         with phase("serve.prefill"):
             logits, pre_cache = self._prefill(self.params, batch)
         st = self.decode_step_for(B)
-        _load_prefill(st.cache, pre_cache)
+        if span.recording:
+            span.args.update(st.cache_bytes)
+        _load_prefill(st.cache, pre_cache, carry=self.cfg.carry_prompt_state)
         del pre_cache
         st.tokens.copy_(logits[:, -1].argmax(-1)[:, None])
         first = int(return_first)       # column 0 holds the prompt's argmax

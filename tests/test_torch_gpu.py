@@ -11,6 +11,7 @@ The file imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -341,6 +342,64 @@ def test_cuda_flash_attention_matches_plain(cuda, B, H, KV, S, hd, window,
     assert got.transpose(1, 2).is_contiguous()
     torch.testing.assert_close(got.float(), exp.float(),
                                atol=TOL_FLASH[dtype], rtol=TOL_FLASH[dtype])
+
+
+# flash at hd 224 (B, H, KV, S, window): Zamba2-7B's shared blocks at the
+# serve cell's prefill, a ragged S, a window and a group of 4; the scale is
+# theirs, (hd / 2)^-0.5
+HD224_CASES = [(32, 32, 32, 512, 0), (2, 4, 4, 300, 0), (1, 4, 4, 256, 64),
+               (2, 8, 2, 256, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("B,H,KV,S,window", HD224_CASES)
+def test_cuda_flash_attention_hd224_matches_plain(cuda, B, H, KV, S, window,
+                                                  layout):
+    """The bf16 forward at hd 224 runs on 256-wide tiles (TMA zero-fills
+    columns 224..255 and clips them on the store) and takes the softmax
+    scale as an argument."""
+    q, k, v = _flash_inputs(B, H, KV, S, 224, "bfloat16", layout, cuda)
+    scale = 112 ** -0.5
+    before = tflash.launches["flash_attention"]
+    got = tflash.flash_attention(q, k, v, causal=True, sliding_window=window,
+                                 scale=scale)
+    torch.cuda.synchronize()
+    assert tflash.launches["flash_attention"] == before + 1
+    exp = flash_attention_ref(q, k, v, causal=True, sliding_window=window,
+                              scale=scale)
+    assert got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got.float(), exp.float(),
+                               atol=TOL_FLASH["bfloat16"],
+                               rtol=TOL_FLASH["bfloat16"])
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_hd224_is_forward_only(cuda):
+    """hd 224 has the bf16 forward alone: its backward, a forward that
+    autograd records and the fp32 kernel raise ValueError."""
+    q, k, v = _flash_inputs(1, 2, 2, 64, 224, "bfloat16", "bhsd", cuda)
+    o, lse = q.clone(), torch.zeros((1, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="flash_attention_bwd"):
+        tflash.flash_attention_bwd(q, k, v, o, lse, o)
+    with pytest.raises(ValueError, match="backward"):
+        tflash.flash_attention(q.requires_grad_(True), k, v)
+    with pytest.raises(ValueError):
+        f = [t.detach().float() for t in (q, k, v)]
+        tflash.flash_attention(*f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,dtype", [(64, "bfloat16"), (112, "bfloat16"),
+                                      (128, "bfloat16"), (112, "float32"),
+                                      (128, "float32")])
+def test_cuda_flash_attention_default_scale_bitwise(cuda, hd, dtype):
+    """The scale argument at 1/sqrt(hd) gives the bits of a call without
+    it, at every head dim the kernels had before it."""
+    q, k, v = _flash_inputs(2, 8, 4, 300, hd, dtype, "bshd", cuda)
+    a = tflash.flash_attention(q, k, v)
+    b = tflash.flash_attention(q, k, v, scale=1.0 / hd ** 0.5)
+    assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -779,6 +838,56 @@ def _ssm_cut(name, dtype):
         cfg = get_config("zamba2-7b").smoke()
         cfg = cfg.lite() if name == "mamba2" else cfg
     return dataclasses.replace(cfg, dtype=dtype)
+
+
+def _zamba2_published_cut(dtype):
+    """Zamba2 as published, cut to a test's size with its shapes kept: hd
+    224 (d 448 over 4 heads at width 2 d), 2 groups of 7 Mamba2 heads, 2
+    shared blocks over calls at layers 1 and 3, adapters of rank 8."""
+    return dataclasses.replace(
+        get_config("zamba2-7b-instruct"), n_layers=4, d_model=448,
+        n_heads=4, n_kv_heads=4, head_dim=224, d_ff=256, vocab_size=256,
+        ssm_state=16, hybrid_layer_ids=(1, 3), shared_mlp_adapter_rank=8,
+        dtype=dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_zamba2_published_graphed_generate_carries_state(cuda):
+    """Zamba2 as published in bf16 on the card (flash at hd 224): the
+    graphed generate starts its decode from the prompt's state (the
+    engine's cache ends in the eager loop's state after a prefill loaded
+    with carry) and its tokens and logits equal the eager loop's bit for
+    bit; with carry_prompt_state off the tokens differ."""
+    from repro_torch.serve.engine import _load_prefill
+    cfg = _zamba2_published_cut(torch.bfloat16)
+    params = init_model(torch.Generator(cuda).manual_seed(8), cfg, cuda)
+    tok = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (3, 140)), device=cuda)
+    engine = ServeEngine(cfg, params, max_len=192, device=cuda)
+    before = tflash.launches["flash_attention"]
+    got, logits = engine.generate({"tokens": tok}, n_new=16,
+                                  return_logits=True)
+    assert tflash.launches["flash_attention"] == before + 2
+    st = engine.decode_step_for(3)
+    assert st.graph is not None
+    step = make_decode_step(cfg)
+    with torch.no_grad():
+        first, pre = prefill(params, cfg, {"tokens": tok})
+        cache = make_decode_cache(cfg, 3, 192, cuda)
+        _load_prefill(cache, pre, carry=True)
+        nxt = first[:, -1].argmax(-1)
+        index = torch.zeros((), dtype=torch.int64, device=cuda)
+        for i in range(16):
+            index.fill_(140 + i)
+            nxt, lg, cache = step(params, {"tokens": nxt[:, None]}, cache,
+                                  index)
+            assert torch.equal(lg[:, -1], logits[:, i])
+            np.testing.assert_array_equal(nxt.cpu().numpy(), got[:, i])
+    for a, b in zip(tree_leaves(st.cache), tree_leaves(cache)):
+        assert torch.equal(a, b)
+    engine.cfg = dataclasses.replace(cfg, carry_prompt_state=False)
+    assert not np.array_equal(engine.generate({"tokens": tok}, n_new=16),
+                              got)
 
 
 @pytest.mark.gpu

@@ -21,6 +21,7 @@ from repro_torch.configs import get_config
 from repro_torch.models.api import dummy_batch, init_model
 from repro_torch.obs import trace
 from repro_torch.serve import ServeEngine
+from repro_torch.serve.engine import cache_bytes
 from repro_torch.train.step import (TrainStepConfig, make_hapfl_train_step,
                                     make_train_state)
 from repro_torch.utils.pytree import tree_leaves
@@ -209,7 +210,9 @@ def test_generate_spans(arch):
     assert names.get("moe.layer", 0) == (
         cfg.n_layers * (1 + n_new) if cfg.is_moe else 0)
     assert got[0]["name"] == "serve.generate"
-    assert got[0]["args"] == {}        # the allocator's counts: a card's
+    # the decode cache's bytes; the allocator's counts are a card's only
+    assert got[0]["args"] == cache_bytes(eng.decode_step_for(2).cache)
+    assert got[0]["args"]["kv_bytes"] > 0
     replays = [s for s in got if s["name"] == "serve.replay"]
     assert all(a["host"][1] <= b["host"][0]
                for a, b in zip(replays, replays[1:]))
