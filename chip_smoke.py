@@ -96,6 +96,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 launch a step, and each kernel's device ms from CUDA-graph
                 replays beside its byte bound (22 B a bf16 parameter for
                 the update, 2 for the norm) and its plain version's ms.
+  3c. decode  — the decode attention (csrc/decode_attention.cu) at every
+                config's decode shape (hd 64/112/128/224, G 1/3/4/6/8/48;
+                bf16 at the serve paths' B 4, L 1024, fp32 at B 2, L 256)
+                and both serve cells' ((32, 32, 4, 1024, 128) and (32, 32,
+                32, 1024, 224), bf16), each at kv_valid 1, 545 (or L / 2),
+                L and a ring wrapped past L: max|err| against float64 at
+                most TOL_DECODE and at most the plain version's (or
+                DECODE_FLOOR), two launches bitwise; graph replays at
+                every position == eager launches bitwise; device ms at the
+                cells' shapes at 545 filled slots beside the byte bound,
+                the plain version and SDPA over the filled slots. Every
+                serve phase then counts one decode_attention launch an
+                attention call a step, finds no copy of a cache-sized
+                tensor in two eager decode steps, and 9h's profiled
+                generate runs each decode-attention kernel 13 x 64 times.
   4. HAPFL    — Algorithm 1 on the paper's cifar10 pool at full width
                 (small + large CNNs, 10 clients, 6 per round): 10
                 latency-only PPO pretraining rounds, then 3 training rounds
@@ -375,7 +390,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
                 2e-3), the new k/v in exactly one rank's slice; a 2-layer
                 fp32 cut of qwen2-vl-2b at full width, prefill and 16
                 decode steps through models.api on a (1, 4) mesh against no
-                mesh, logits at 1e-4. 13e: the grouped MoE dispatch, a
+                mesh, logits at 1e-4; every launch equal but the decode
+                attention's, once a layer a step without the mesh and
+                never on it (the sharded decode is plain PyTorch). 13e: the grouped MoE dispatch, a
                 2-layer fp32 cut of qwen3-moe-30b-a3b at full width, the
                 blocks' forward at G = 2 and 4 on the card and on the CPU:
                 equal routes and kept pairs at every MoE call, y at 1e-3.
@@ -1520,6 +1537,207 @@ def phase_adamw(torch):
 # ---------------------------------------------------------------------- #
 # 4. the HAPFL path
 # ---------------------------------------------------------------------- #
+# ---------------------------------------------------------------------- #
+# 3c. the decode attention (kernels/decode_attention.py) at every decode
+# shape of the serve paths and of both serve cells
+# ---------------------------------------------------------------------- #
+#: the serve cells' decode attention (B, H, KV, L, hd, dtype), timed at
+#: DECODE_TIMED_VALID filled slots: qwen3moe-serve-b32's and zamba2-serve's
+DECODE_CELLS = [(32, 32, 4, 1024, 128, "bfloat16"),
+                (32, 32, 32, 1024, 224, "bfloat16")]
+DECODE_TIMED_VALID = 545
+#: the shapes whose graph replays are held against eager launches
+DECODE_GRAPHED = DECODE_CELLS + [(2, 24, 8, 256, 128, "float32")]
+#: the kernel's max|err| against float64: at most TOL_DECODE, and at most
+#: the plain version's (which rounds scores and probabilities to the dtype)
+#: or DECODE_FLOOR where that is smaller (fp32: sums in another order; bf16:
+#: one rounding of an output below 2)
+TOL_DECODE = {"float32": 1e-5, "bfloat16": 1e-2}
+DECODE_FLOOR = {"float32": 2e-6, "bfloat16": 2.0 ** -8}
+
+
+def decode_shape(cfg, B, max_len):
+    """(B, H, KV, L, hd, dtype) of `cfg`'s decode attention at batch B and
+    max_len (L: the ring, at most the sliding window)."""
+    L = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    return (B, cfg.n_heads, cfg.n_kv_heads, L, cfg.resolved_head_dim,
+            str(cfg.dtype).removeprefix("torch."))
+
+
+def decode_scale(hd):
+    """The scale of a decode shape's scores: Zamba2-7B's (hd / 2)^-0.5 at its
+    hd 224, else None (1/sqrt(hd))."""
+    return (hd / 2) ** -0.5 if hd == 224 else None
+
+
+def decode_shapes():
+    """The decode attention's (B, H, KV, L, hd, dtype) of every config with
+    attention: at SERVE's batch and max_len in bf16 (phase 5's serve
+    paths), at B 2, L 256 in fp32 (the parity cuts' dtype), its smoke cut's
+    heads (G 1, 2, 4 at hd 64) too, and the cells'."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    out = set(DECODE_CELLS)
+    for arch in list(ARCH_IDS) + [ZAMBA2["arch"]]:
+        cfg = get_config(arch)
+        if cfg.block_kind == "xlstm":
+            continue
+        out.add(decode_shape(cfg, SERVE["batch"], SERVE["max_len"]))
+        for c in (cfg, cfg.smoke()):
+            out.add((2, c.n_heads, c.n_kv_heads, 256, c.resolved_head_dim,
+                     "float32"))
+    return sorted(out)
+
+
+def decode_positions(L):
+    """Positions a decode shape is checked at: kv_valid 1, 545 (or L / 2
+    below it), L, and a ring wrapped 37 slots past L."""
+    return sorted({0, (DECODE_TIMED_VALID if L > DECODE_TIMED_VALID
+                       else L // 2) - 1, L - 1, L + 36})
+
+
+def _decode_inputs(torch, B, H, KV, L, hd, dtype):
+    g = torch.Generator(device="cuda").manual_seed(B * L + H * hd + KV)
+    return (_randn(torch, (B, 1, H, hd), dtype, g),
+            _randn(torch, (B, L, KV, hd), dtype, g),
+            _randn(torch, (B, L, KV, hd), dtype, g))
+
+
+def decode_exact(torch, q, k, v, index, scale):
+    """The decode attention in float64 over the kv_valid filled slots."""
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    n = min(index + 1, k.shape[1])
+    qd = q.double().reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkgh,btkh->bkgt", qd, k[:, :n].double()) * (
+        hd ** -0.5 if scale is None else scale)
+    o = torch.einsum("bkgt,btkh->bkgh", torch.softmax(s, -1),
+                     v[:, :n].double())
+    return o.reshape(B, 1, H, hd)
+
+
+def check_decode_attention(torch, shape, index):
+    """The kernel at one shape and position against float64 and the plain
+    version (TOL_DECODE, DECODE_FLOOR), and two launches bitwise. Returns
+    (kernel max|err|, plain max|err|)."""
+    from repro_torch.kernels import decode_attention as da, ref
+    B, H, KV, L, hd, dtype = shape
+    scale = decode_scale(hd)
+    q, k, v = _decode_inputs(torch, *shape)
+    pos = torch.tensor(index, device="cuda")
+    got = da.decode_attention(q, k, v, pos, scale=scale)
+    again = da.decode_attention(q, k, v, pos, scale=scale)
+    torch.cuda.synchronize()
+    with full_fp32(torch):
+        plain = ref.decode_attention_ref(q, k, v, pos, scale=scale)
+    exact = decode_exact(torch, q, k, v, index, scale)
+    err = float((got.double() - exact).abs().max())
+    plain_err = float((plain.double() - exact).abs().max())
+    what = (f"decode_attention B{B} H{H} KV{KV} L{L} hd{hd} {dtype} at "
+            f"kv_valid {min(index + 1, L)} (position {index})")
+    if got.shape != q.shape or got.dtype != q.dtype or not torch.equal(
+            got, again):
+        raise SystemExit(f"chip_smoke: {what}: {tuple(got.shape)} "
+                         f"{got.dtype}, two launches bitwise "
+                         f"{torch.equal(got, again)}")
+    if not (err <= TOL_DECODE[dtype]
+            and err <= max(plain_err, DECODE_FLOOR[dtype])):
+        raise SystemExit(f"chip_smoke: {what}: max|err| {err:.3e} against "
+                         f"float64, the plain version's {plain_err:.3e} "
+                         f"(tol {TOL_DECODE[dtype]}, floor "
+                         f"{DECODE_FLOOR[dtype]})")
+    return err, plain_err
+
+
+def check_decode_graph(torch, shape):
+    """One launch captured in a CUDA graph on a static position, replayed at
+    each of `decode_positions`: bitwise the eager launch there."""
+    from repro_torch.kernels import decode_attention as da
+    B, H, KV, L, hd, dtype = shape
+    q, k, v = _decode_inputs(torch, *shape)
+    pos = torch.zeros((), dtype=torch.int64, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.decode_attention(q, k, v, pos, scale=decode_scale(hd))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.decode_attention(q, k, v, pos, scale=decode_scale(hd))
+    for index in decode_positions(L):
+        pos.fill_(index)
+        graph.replay()
+        eager = da.decode_attention(q, k, v, pos, scale=decode_scale(hd))
+        torch.cuda.synchronize()
+        if not torch.equal(out, eager):
+            raise SystemExit(f"chip_smoke: decode_attention {shape}: the "
+                             f"graph replay at position {index} differs "
+                             f"from the eager launch")
+
+
+def time_decode_attention(torch, shape, n_valid=DECODE_TIMED_VALID):
+    """The kernel's device ms at `shape` with n_valid filled slots against
+    its byte bound, the plain version's and SDPA's over the filled slots
+    (the yardstick; the port never calls it), each call on inputs cold in
+    the L2."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import cost, decode_attention as da, ref
+    B, H, KV, L, hd, dtype = shape
+    scale = decode_scale(hd)
+    q, k, v = _decode_inputs(torch, *shape)
+    pos = torch.tensor(n_valid - 1, device="cuda")
+    work = cost.decode_attention_work(B, H, KV, n_valid, hd,
+                                      q.element_size())
+    nxt = _cold_copies((q, k, v), work[0])
+
+    def sdpa(q_, k_, v_):
+        return F.scaled_dot_product_attention(
+            q_.transpose(1, 2), k_[:, :n_valid].transpose(1, 2),
+            v_[:, :n_valid].transpose(1, 2), scale=scale, enable_gqa=True)
+    fns = {"kernel": lambda: da.decode_attention(*nxt(), pos, scale=scale),
+           "plain": lambda: ref.decode_attention_ref(*nxt(), pos,
+                                                     scale=scale),
+           "library": lambda: sdpa(*nxt()),
+           "kernel_warm": lambda: da.decode_attention(q, k, v, pos,
+                                                      scale=scale)}
+    return _time_set(torch, "decode_attention", (*shape, n_valid), fns,
+                     cost.decode_attention_bound(B, H, KV, n_valid, hd,
+                                                 q.element_size()), 20)
+
+
+def phase_decode_attention(torch):
+    """Phase 3c: the decode attention at every shape of `decode_shapes` and
+    position of `decode_positions` (`check_decode_attention`), graphed ==
+    eager at the cells' shapes and one fp32 shape, and its times at the
+    cells' shapes. Returns ({("decode_attention", *shape): max|err|},
+    {("decode_attention", *shape): times})."""
+    t0 = time.perf_counter()
+    errs = {}
+    for shape in decode_shapes():
+        pairs = [check_decode_attention(torch, shape, index)
+                 for index in decode_positions(shape[3])]
+        errs[("decode_attention", *shape)] = max(e for e, _ in pairs)
+        log(f"[decode] {shape}: max|err| against float64 "
+            f"{max(e for e, _ in pairs):.3e}, the plain version's "
+            f"{max(e for _, e in pairs):.3e}, over positions "
+            f"{decode_positions(shape[3])}; two launches bitwise")
+        free_device_memory(torch)
+    for shape in DECODE_GRAPHED:
+        check_decode_graph(torch, shape)
+    log(f"[decode] graph replays == eager launches bitwise at "
+        f"{DECODE_GRAPHED}")
+    times = {}
+    for shape in DECODE_CELLS:
+        times[("decode_attention", *shape)] = t = time_decode_attention(
+            torch, shape)
+        log(f"[decode] {shape} at {DECODE_TIMED_VALID} filled slots: "
+            f"{t['ms']:.6f} ms, {100 * t['bound_ms'] / t['ms']:.1f}% of the "
+            f"{t['bound_ms']:.6f} ms byte bound; plain {t['plain_ms']:.6f}, "
+            f"SDPA {t['library_ms']:.6f} ms")
+        free_device_memory(torch)
+    log(f"[decode] phase 3c {time.perf_counter() - t0:.2f} s")
+    return errs, times
+
+
 def main_path_config():
     from repro_torch.fl import FLSimConfig
     # paper Table II: K=10 clients, k=6 per round, E=20, batch 32; the
@@ -2058,15 +2276,17 @@ def profile_service(torch, build, trace):
 
 
 def reset_all_launches():
-    from repro_torch.kernels import adamw, flash_attention, kd_loss, rmsnorm
-    for mod in (kd_loss, rmsnorm, flash_attention, adamw):
+    from repro_torch.kernels import (adamw, decode_attention,
+                                     flash_attention, kd_loss, rmsnorm)
+    for mod in (kd_loss, rmsnorm, flash_attention, adamw, decode_attention):
         mod.reset_launches()
 
 
 def all_launches():
-    from repro_torch.kernels import adamw, flash_attention, kd_loss, rmsnorm
+    from repro_torch.kernels import (adamw, decode_attention,
+                                     flash_attention, kd_loss, rmsnorm)
     return {**kd_loss.launches, **rmsnorm.launches, **flash_attention.launches,
-            **adamw.launches}
+            **adamw.launches, **decode_attention.launches}
 
 
 #: the optimizer's kernels (kernels/adamw.py), which every training step on
@@ -2108,9 +2328,10 @@ def serve_launch_shapes(cfg):
     (every other norm of its N block norms, each with the residual add
     before it, and the final norm), the last of which, before the
     unembedding, prefill applies to the last position only; prefill runs
-    flash attention once per attention call, decode never. A layernorm
-    config (musicgen, xlstm) launches no norm kernel, an attention-free one
-    (xlstm) no flash."""
+    flash attention once per attention call, each decode step the decode
+    attention once per attention call. A layernorm config (musicgen, xlstm)
+    launches no norm kernel, an attention-free one (xlstm) no attention
+    kernel."""
     B, S, n = SERVE["batch"], SERVE["prompt"], SERVE["n_new"]
     d, H, KV = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     N, A = block_norms(cfg)
@@ -2121,6 +2342,8 @@ def serve_launch_shapes(cfg):
                             (B, d, dt): 1 + N * n} if rms else {},
             "flash_attention": {(B, H, KV, S, cfg.resolved_head_dim, 0,
                                  dt, "bshd"): A} if A else {},
+            "decode_attention": {decode_shape(cfg, B, SERVE["max_len"]):
+                                 A * n} if A else {},
             "kd_loss_fwd": {}, "kd_loss_bwd": {}, "kd_loss_grad": {},
             "rmsnorm_bwd": {}, "add_rmsnorm_bwd": {},
             "flash_attention_bwd": {}, "sumsq": {}, "sumsq_finish": {},
@@ -2289,6 +2512,7 @@ def phase_serve(torch, cfg=None, tag="serve"):
                          "shape (B, 1[, nq], vocab)")
     eager_s = check_graph_is_eager(torch, engine, batch, n_new,
                                    f"{cfg.name} at full width", tag)
+    check_decode_reads_in_place(torch, engine, B, tag, block_norms(cfg)[1])
     # prefill + one decode step, and 31 more decode steps: the difference
     # is the decode time per token
     runs = {}
@@ -2518,7 +2742,7 @@ def phase_moe_serve(torch):
     prof = phase_profile(
         torch, "MoE decode loop (graph replays)",
         lambda: decode_loop(torch, engine, SERVE["prompt"], SERVE["n_new"]),
-        ("norm_kernel",))
+        ("norm_kernel", "decode_attention_kernel"))
     report_device_gaps(torch, prof, "MoE decode loop (graph replays)")
     with torch.no_grad():
         phase_profile(torch, "MoE prefill",
@@ -2832,13 +3056,55 @@ def check_no_layout_copies(torch, prof, cfg):
                          f"around the flash kernel: {clones}")
 
 
+def check_decode_reads_in_place(torch, engine, B, tag, calls):
+    """Two eager runs of the engine's decode step (the function its graph
+    captured, on the cache the last generate left) under the profiler: no
+    copy operator (aten::clone, copy_, contiguous, _to_copy) of a tensor
+    the size of one attention call's K or V cache, and `calls`
+    decode_attention launches a step; and the kernel's device time a
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import decode_attention as da
+    st = engine.decode_step_for(B)
+    KV, hd = engine.cfg.n_kv_heads, engine.cfg.resolved_head_dim
+    # a call's cache: (B, L, KV, hd), stacked over calls or layers or not
+    sizes = {math.prod(t.shape[-4:]) for path, t in _leaf_paths(st.cache)
+             if path[-1] in ("k", "v") and tuple(t.shape[-2:]) == (KV, hd)}
+    st._run()
+    torch.cuda.synchronize()
+    before = da.launches["decode_attention"]
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA],
+                                  record_shapes=True) as prof:
+        for _ in range(2):
+            st._run()
+        torch.cuda.synchronize()
+    ran = (da.launches["decode_attention"] - before) // 2
+    copies = [(ev.key, ev.count, ev.input_shapes)
+              for ev in prof.key_averages(group_by_input_shape=True)
+              if ev.key in ("aten::clone", "aten::copy_", "aten::contiguous",
+                            "aten::_to_copy") and ev.input_shapes
+              and any(math.prod(sh) in sizes for sh in ev.input_shapes
+                      if sh and all(isinstance(x, int) for x in sh))]
+    dev = sum(ev.self_device_time_total for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA
+              and "decode_attention_kernel" in ev.key) / 2e3
+    log(f"[{tag}] eager decode step: copies of a cache-sized tensor "
+        f"{copies or 'none'}; {ran} decode_attention launches a step "
+        f"({calls} attention calls), {dev:.3f} ms of its device time a step")
+    if copies or ran != calls:
+        raise SystemExit(f"chip_smoke: {tag}: the decode step copies its "
+                         f"KV cache ({copies}) or launches decode_attention "
+                         f"{ran} times for {calls} attention calls")
+
+
 # ---------------------------------------------------------------------- #
 # 9-12. the training path: llama3.2-3b at full width, the LLM fleet, their
 # card-vs-CPU parity, and the backward kernels' times
 # ---------------------------------------------------------------------- #
 TRAIN_KERNELS = ("rmsnorm", "add_rmsnorm", "rmsnorm_bwd", "add_rmsnorm_bwd",
-                 "flash_attention", "flash_attention_bwd", "kd_loss_grad",
-                 "kd_loss_fwd", "kd_loss_bwd")
+                 "flash_attention", "flash_attention_bwd", "decode_attention",
+                 "kd_loss_grad", "kd_loss_fwd", "kd_loss_bwd")
 
 
 def train_launch_shapes(cfg, lite):
@@ -3159,15 +3425,16 @@ def phase_family_serve(torch, arch, cfg=None):
     return launches, shapes, measured, wall
 
 
-def zamba2_launch_shapes(cfg, B, S, n):
+def zamba2_launch_shapes(cfg, B, S, n, max_len):
     """{kernel: {shape: launches}} of one generate of family "zamba2" (B
-    prompts of S tokens, n new): each forward norms every Mamba2 layer's
-    input, the first with rmsnorm unless a shared-block call joins it, the
+    prompts of S tokens, n new, a decode cache of max_len slots): each
+    forward norms every Mamba2 layer's input, the first with rmsnorm
+    unless a shared-block call joins it, the
     others with add_rmsnorm (the residual add before it, a call's output
     joined in); each call runs rmsnorm on its 2 d-wide input and on its
     attention's output, and the final norm is an add_rmsnorm, on the last
     position only in the prefill. The prefill runs flash attention once a
-    call at hd 224, the decode never."""
+    call at hd 224, each decode step the decode attention once a call."""
     d, H, KV = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     dt = str(cfg.dtype).removeprefix("torch.")
     C = len(cfg.hybrid_layer_ids)
@@ -3179,6 +3446,7 @@ def zamba2_launch_shapes(cfg, B, S, n):
     shapes["add_rmsnorm"] = {(B * S, d, dt): add, (B, d, dt): 1 + (add + 1) * n}
     shapes["flash_attention"] = {(B, H, KV, S, cfg.resolved_head_dim, 0, dt,
                                   "bshd"): C}
+    shapes["decode_attention"] = {decode_shape(cfg, B, max_len): C * n}
     return shapes
 
 
@@ -3261,7 +3529,7 @@ def phase_zamba2_serve(torch):
     if not cfg.carry_prompt_state:
         raise SystemExit(f"chip_smoke: {cfg.name} does not carry the "
                          f"prompt's state into the decode")
-    shapes = zamba2_launch_shapes(cfg, B, S, n)
+    shapes = zamba2_launch_shapes(cfg, B, S, n, ZAMBA2["max_len"])
     free_device_memory(torch)
     errs, times = check_zamba2_kernels(torch, cfg, shapes)
     free_device_memory(torch)
@@ -3301,6 +3569,8 @@ def phase_zamba2_serve(torch):
         raise SystemExit(f"chip_smoke: {tag}: generate gave {out.shape} "
                          f"tokens in [{out.min()}, {out.max()}]")
     check_graph_is_eager(torch, engine, batch, n, f"{cfg.name} whole", tag)
+    check_decode_reads_in_place(torch, engine, B, tag,
+                                len(cfg.hybrid_layer_ids))
     runs = {}
     for k in (1, n, n, 1):
         torch.cuda.synchronize()
@@ -3329,15 +3599,19 @@ def phase_zamba2_serve(torch):
         f"replay; max_memory_allocated {peak} B")
     prof = phase_profile(torch, f"{cfg.name} generate({n})",
                          lambda: engine.generate(batch, n_new=n),
-                         ("norm_kernel", "flash_wgmma_kernel"))
-    flash = sum(ev.count for ev in prof.key_averages()
-                if ev.device_type == torch.autograd.DeviceType.CUDA
-                and "flash_wgmma_kernel" in ev.key)
+                         ("norm_kernel", "flash_wgmma_kernel",
+                          "decode_attention_kernel"))
+    ran = {k: sum(ev.count for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and k in ev.key)
+           for k in ("flash_wgmma_kernel", "decode_attention_kernel")}
+    flash = ran["flash_wgmma_kernel"]
     C = len(cfg.hybrid_layer_ids)
-    if flash != C:
+    if ran != {"flash_wgmma_kernel": C, "decode_attention_kernel": C * n}:
         raise SystemExit(f"chip_smoke: {tag}: the profiled generate ran "
-                         f"flash_wgmma_kernel {flash} times, not once a "
-                         f"shared-block call ({C})")
+                         f"{ran}, not flash once a shared-block call ({C}) "
+                         f"and the decode attention once a call a step "
+                         f"({C * n})")
     report_device_gaps(torch, prof, f"{cfg.name} generate({n})")
     del engine, batch, params, prof, step, out
     free_device_memory(torch)
@@ -4387,9 +4661,18 @@ def phase_sharded_ranks(torch, card):
         if cut["err"] > 1e-4:
             raise SystemExit(f"chip_smoke: 13d rank {r}: cut logits err "
                              f"{cut['err']} > 1e-4")
-        if cut["launches"] != cut["plain_launches"] or not cut["launches"]:
+        # without a mesh the decode attends through the decode-attention
+        # kernel, once a layer a step; on the mesh through the sharded
+        # function, which is plain PyTorch; every other launch is the same
+        steps = SHARDED["cut"]["n_layers"] * SHARDED["cut"]["n_new"]
+        plain = dict(cut["plain_launches"])
+        if (plain.pop("decode_attention", 0) != steps
+                or "decode_attention" in cut["launches"]
+                or cut["launches"] != plain or not cut["launches"]):
             raise SystemExit(f"chip_smoke: 13d rank {r}: launches "
-                             f"{cut['launches']} != {cut['plain_launches']}")
+                             f"{cut['launches']} on the mesh, "
+                             f"{cut['plain_launches']} without (decode "
+                             f"attention {steps} expected there only)")
     wrote = [[res["decode_fn"][n]["wrote"] for res in w4]
              for n in ("float32", "bfloat16")]
     if wrote != [[False, False, True, False]] * 2:
@@ -4757,6 +5040,8 @@ def main() -> int:
     nf_errs = phase_norm_flash_kernels(torch)
     bwd_errs = phase_bwd_kernels(torch)
     adamw = phase_adamw(torch)
+    dec_errs, dec_times = phase_decode_attention(torch)
+    nf_errs.update(dec_errs)
     server, launches, shapes = phase_main_path(torch)
     baselines_s = phase_baselines(torch)
     sim_launches, sim_shapes, async_s = phase_async(torch, grad_errs)
@@ -4907,6 +5192,8 @@ def main() -> int:
     # Zamba2-7B-Instruct whole at the zamba2-serve cell's shapes (9h)
     z_launches, z_shapes, z_errs, z_times, z_serve = phase_zamba2_serve(
         torch)
+    z_errs.update(dec_errs)
+    z_times.update(dec_times)
     fam_walls["zamba2 serve (9h)"] = z_serve["wall_s"]
     fam_keys = {entry: {name: {(name, *shape): n
                                for shape, n in by_shape.items()}
@@ -5014,6 +5301,22 @@ def main() -> int:
             **path_times(nf_times, keys),
             "shapes": [[*k[1:], n] for k, n in keys.items()],
             "dtype": "bfloat16", "path": "serve llama3.2-3b"})
+    dec_keys = serve_keys["decode_attention"]
+    record["kernels"].append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "none: the JAX package's decode attention is plain jnp",
+        "launches": serve_launches["decode_attention"],
+        "max_abs_err": max(dec_errs.values()),
+        "shapes": [[*k[1:], n] for k, n in dec_keys.items()],
+        "dtype": "bfloat16 and float32",
+        "path": f"serve {SERVE['arch']} (max|err| against float64 over "
+                f"phase 3c's shapes)",
+        "cells": [{"shape": [*k[1:], DECODE_TIMED_VALID],
+                   **{f: t[f] for f in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms",
+                                        "warm_ms", "eager_ms")}}
+                  for k, t in dec_times.items()]})
     for name, replaces in (
             ("rmsnorm_bwd", "src/repro/kernels/rmsnorm.py:11"),
             ("add_rmsnorm_bwd", "src/repro/kernels/rmsnorm.py:11"),

@@ -11,6 +11,8 @@
                      (the transformer's training and prefill attention);
                      the forward keeps the rows' log-sum-exp for the
                      backward kernels (csrc/flash_attention_bwd.cu)
+  decode_attention — one-token attention over a KV cache, read in place over
+                     the filled slots (the serving decode step)
   adamw            — the optimizer's gradient global norm and in-place AdamW
                      step, each one pass over every leaf of a tree
   ops              — the model's and the HAPFL step's entry points

@@ -13,8 +13,9 @@ count. Inside `counting()` those records are summed.
 Bytes are each input read once and each output written once. Operations
 are the kernel's arithmetic: for flash attention the two (forward) or five
 (backward) matrix products over the (query, key) pairs its mask leaves
-visible, 2 a multiply-add; for the norms and kd_loss the fp32 operations
-an element (exps not counted).
+visible, 2 a multiply-add, and for the decode attention the same over the
+slots it reads; for the norms and kd_loss the fp32 operations an element
+(exps not counted).
 """
 from __future__ import annotations
 
@@ -137,6 +138,17 @@ def flash_bwd_work(B: int, H: int, KV: int, S: int, hd: int, window: int,
     return nbytes, 10 * hd * B * H * visible_pairs(S, causal, window)
 
 
+def decode_attention_work(B: int, H: int, KV: int, slots: int, hd: int,
+                          elt: int) -> Tuple[int, int]:
+    """decode_attention: K and V (B, KV, slots, hd) read once over the
+    slots it attends to, q read and o written (B, H, hd); q K^T and p V
+    over those slots, 2 operations per multiply-add (the exps not
+    counted). On meta tensors the position is unknown, so slots is the
+    cache's L, the most a call reads."""
+    return (2 * B * KV * slots * hd * elt + 2 * B * H * hd * elt,
+            4 * B * H * slots * hd)
+
+
 def sumsq_work(leaves) -> Tuple[int, int]:
     """The norm's sum of squares over leaves of (numel, gradient element
     size, param element size): each gradient read once; 2 operations an
@@ -201,6 +213,13 @@ def flash_bound(B, H, KV, S, hd, window, dtype, elt):
 def flash_bwd_bound(B, H, KV, S, hd, window, dtype, elt):
     return _bound(*flash_bwd_work(B, H, KV, S, hd, window, elt),
                   _rate(dtype))
+
+
+def decode_attention_bound(B, H, KV, slots, hd, elt):
+    """Operations at the fp32 rate (bf16's products run on the tensor
+    cores, faster still): bytes set the bound at every config's shape."""
+    return _bound(*decode_attention_work(B, H, KV, slots, hd, elt),
+                  HW["peak_flops_fp32"])
 
 
 def sumsq_bound(leaves):

@@ -9,6 +9,8 @@ layers around them.
 """
 from __future__ import annotations
 
+from repro_torch.kernels.decode_attention import (
+    decode_attention as _decode_attn)
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.kd_loss import kd_loss as _kd
 from repro_torch.kernels.kd_loss import kd_loss_grad as _kd_grad
@@ -22,6 +24,13 @@ def flash_attention_op(q, k, v, *, causal=True, sliding_window=0,
     by `scale` (1/sqrt(hd) when None)."""
     return _flash(q, k, v, causal=causal, sliding_window=sliding_window,
                   scale=scale)
+
+
+def decode_attention_op(q, k_cache, v_cache, cache_index, *, scale=None):
+    """q (B, 1, H, hd) over the KV caches (B, L, KV, hd) at the 0-d int64
+    position cache_index, over the min(cache_index + 1, L) slots filled;
+    scores scaled by `scale` (1/sqrt(hd) when None)."""
+    return _decode_attn(q, k_cache, v_cache, cache_index, scale=scale)
 
 
 def kd_loss_op(x_logits, y_logits, labels):

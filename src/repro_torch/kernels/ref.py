@@ -7,6 +7,9 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+#: the mask value of `gqa_attention`'s scores (the reference's)
+NEG_INF = -1e30
+
 
 def kd_loss_ref(x_logits: torch.Tensor, y_logits: torch.Tensor,
                 labels: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -224,3 +227,64 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dk = dk.view(B, KV, G, S, hd).sum(2)
     dv = dv.view(B, KV, G, S, hd).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------- #
+# the model's plain attention (``repro.models.attention.gqa_attention``)
+# ---------------------------------------------------------------------- #
+def _gqa_scores_chunk(q, k, v, q_start, kv_len_valid, sliding_window, causal,
+                      scale=None):
+    """q: (B, KV, G, qc, hd); k, v: (B, KV, S, hd) -> (B, KV, G, qc, hd).
+    Scores and probabilities are rounded to the inputs' dtype where the
+    reference rounds them; scores scaled by 1/sqrt(hd), or `scale`."""
+    S = k.shape[2]
+    scores = torch.einsum("bkgqh,bkth->bkgqt", q, k).float()
+    scores = (scores / math.sqrt(q.shape[-1]) if scale is None
+              else scores * scale)
+    q_idx = q_start + torch.arange(q.shape[3], device=q.device)
+    k_idx = torch.arange(S, device=q.device)
+    mask = torch.ones((q.shape[3], S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = k_idx[None, :] <= q_idx[:, None]
+    if sliding_window:
+        mask = mask & (k_idx[None, :] > q_idx[:, None] - sliding_window)
+    if kv_len_valid is not None:
+        mask = mask & (k_idx[None, :] < kv_len_valid)
+    scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, -1).to(v.dtype)
+    return torch.einsum("bkgqt,bkth->bkgqh", probs, v)
+
+
+def gqa_attention(q, k, v, *, causal=True, sliding_window=0, q_start=0,
+                  kv_len_valid=None, q_chunk=1024, scale=None):
+    """q: (B, S_q, H, hd); k, v: (B, S_kv, KV, hd) -> (B, S_q, H, hd).
+    Queries go in chunks of q_chunk rows, so the score matrix held at once
+    is (B, KV, G, q_chunk, S_kv). Scores are scaled by 1/sqrt(hd), or by
+    `scale` where given."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qh = q.reshape(B, Sq, KV, G, hd).permute(0, 2, 3, 1, 4)  # (B, KV, G, Sq, hd)
+    kh = k.permute(0, 2, 1, 3)                                # (B, KV, S, hd)
+    vh = v.permute(0, 2, 1, 3)
+    out = torch.cat([
+        _gqa_scores_chunk(qh[:, :, :, i:i + q_chunk], kh, vh, q_start + i,
+                          kv_len_valid, sliding_window, causal, scale)
+        for i in range(0, Sq, q_chunk)], dim=3)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, cache_index: torch.Tensor,
+                         scale=None) -> torch.Tensor:
+    """One-token decode attention: q (B, 1, H, hd) over the caches
+    (B, L, KV, hd) at the 0-d int64 position cache_index, attending over
+    the kv_valid = min(cache_index + 1, L) slots filled so far (the whole
+    ring once it has wrapped) -> (B, 1, H, hd) in q's dtype. The
+    reference's decode call: `gqa_attention` over all L slots with those
+    past kv_valid masked, scores and probabilities rounded to the inputs'
+    dtype between its two einsums."""
+    kv_valid = torch.clamp(cache_index + 1, max=k_cache.shape[1])
+    return gqa_attention(q, k_cache, v_cache, causal=False, sliding_window=0,
+                         kv_len_valid=kv_valid, q_start=cache_index,
+                         scale=scale)

@@ -5,9 +5,13 @@ one new token, or building the cache) go through the port's flash-attention
 wrapper (`repro_torch.kernels.ops.flash_attention_op`): the CUDA kernel on the
 card, which takes the (B, S, H, hd) projections as transposed views with no
 copy, and its plain version on the CPU. Decode (one new token against a cache)
-writes the token's k/v into the ring-buffer cache and attends with
-`gqa_attention`, plain PyTorch, over the whole cache under the reference's
-mask, so that its shapes do not change from step to step.
+writes the token's k/v into the ring-buffer cache and attends through the
+decode-attention wrapper (`repro_torch.kernels.ops.decode_attention_op`):
+on the card a CUDA kernel that reads the cache in place over the filled
+slots only, on the CPU the reference's call, `gqa_attention` (plain
+PyTorch, `kernels/ref.py`) over the whole cache under its mask. Both take
+the position as a 0-d device tensor, so the step's shapes do not change
+from step to step.
 
 The decode step updates the cache tensors it is given in place (the
 reference returns new arrays), so a (B, L, KV, hd) cache is never copied.
@@ -29,12 +33,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ops import flash_attention_op
+from repro_torch.kernels.ops import decode_attention_op, flash_attention_op
+from repro_torch.kernels.ref import NEG_INF, gqa_attention  # noqa: F401
 from repro_torch.launch.axes import current_mesh, current_rules
 from repro_torch.launch.mesh import all_gather_rows, all_reduce_, axis_sizes
 from repro_torch.models.layers import apply_rope, dense_init
-
-NEG_INF = -1e30
 
 
 def _batch_spec_axes(mesh, batch: int):
@@ -157,48 +160,6 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device,
     }
 
 
-def _gqa_scores_chunk(q, k, v, q_start, kv_len_valid, sliding_window, causal,
-                      scale=None):
-    """q: (B, KV, G, qc, hd); k, v: (B, KV, S, hd) -> (B, KV, G, qc, hd).
-    Scores and probabilities are rounded to the inputs' dtype where the
-    reference rounds them; scores scaled by 1/sqrt(hd), or `scale`."""
-    S = k.shape[2]
-    scores = torch.einsum("bkgqh,bkth->bkgqt", q, k).float()
-    scores = (scores / math.sqrt(q.shape[-1]) if scale is None
-              else scores * scale)
-    q_idx = q_start + torch.arange(q.shape[3], device=q.device)
-    k_idx = torch.arange(S, device=q.device)
-    mask = torch.ones((q.shape[3], S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = k_idx[None, :] <= q_idx[:, None]
-    if sliding_window:
-        mask = mask & (k_idx[None, :] > q_idx[:, None] - sliding_window)
-    if kv_len_valid is not None:
-        mask = mask & (k_idx[None, :] < kv_len_valid)
-    scores = scores.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(scores, -1).to(v.dtype)
-    return torch.einsum("bkgqt,bkth->bkgqh", probs, v)
-
-
-def gqa_attention(q, k, v, *, causal=True, sliding_window=0, q_start=0,
-                  kv_len_valid=None, q_chunk=1024, scale=None):
-    """q: (B, S_q, H, hd); k, v: (B, S_kv, KV, hd) -> (B, S_q, H, hd).
-    Queries go in chunks of q_chunk rows, so the score matrix held at once
-    is (B, KV, G, q_chunk, S_kv). Scores are scaled by 1/sqrt(hd), or by
-    `scale` where given."""
-    B, Sq, H, hd = q.shape
-    KV = k.shape[2]
-    G = H // KV
-    qh = q.reshape(B, Sq, KV, G, hd).permute(0, 2, 3, 1, 4)  # (B, KV, G, Sq, hd)
-    kh = k.permute(0, 2, 1, 3)                                # (B, KV, S, hd)
-    vh = v.permute(0, 2, 1, 3)
-    out = torch.cat([
-        _gqa_scores_chunk(qh[:, :, :, i:i + q_chunk], kh, vh, q_start + i,
-                          kv_len_valid, sliding_window, causal, scale)
-        for i in range(0, Sq, q_chunk)], dim=3)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
-
-
 def apply_attention(params, cfg: ModelConfig, x, positions,
                     cache=None, cache_index=None, scale=None,
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
@@ -225,23 +186,25 @@ def apply_attention(params, cfg: ModelConfig, x, positions,
         # `window` long, so decode stays O(window). cache_index is a 0-d
         # int64 tensor: the slot, the write and the mask are tensor ops, so
         # the step has no host sync and the same shapes at every position
-        # (one CUDA graph replays it), and the query attends over all L
-        # slots with those past min(cache_index + 1, L) masked out, as the
-        # reference does.
+        # (one CUDA graph replays it). The query attends over the
+        # min(cache_index + 1, L) slots filled so far: on the card the
+        # kernel reads only those, read from the device's position; on the
+        # CPU the plain version attends over all L under the reference's
+        # mask.
         mesh = current_mesh()
         shards = decode_shards(cfg, mesh)
         L = cache["k"].shape[1] * shards
-        kv_valid = torch.clamp(cache_index + 1, max=L)
         if shards > 1:
             out = flash_decode_sharded(q, cache["k"], cache["v"], k, v,
-                                       cache_index % L, kv_valid, mesh)
+                                       cache_index % L,
+                                       torch.clamp(cache_index + 1, max=L),
+                                       mesh)
         else:
             slot = (cache_index % L).view(1)
             cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
             cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
-            out = gqa_attention(q, cache["k"], cache["v"], causal=False,
-                                sliding_window=0, kv_len_valid=kv_valid,
-                                q_start=cache_index, scale=scale)
+            out = decode_attention_op(q, cache["k"], cache["v"], cache_index,
+                                      scale=scale)
         new_cache = cache
     else:
         # (B, H, S, hd) views: the kernel reads them through their strides,

@@ -21,8 +21,9 @@ eager.
 
 Phase spans (`repro_torch.obs.trace.phase`; off unless a tracer or a
 profiler records them): ``serve.generate`` around a call, with the decode
-cache's state and KV bytes as its args, and on a card the caching
-allocator's device mallocs and retries during it; ``serve.prefill`` around
+cache's state and KV bytes and the call's decode-attention launches as its
+args, and on a card the caching allocator's device mallocs and retries
+during it; ``serve.prefill`` around
 the prefill and ``serve.replay`` around each decode step.
 """
 from __future__ import annotations
@@ -32,7 +33,8 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import flash_attention, kd_loss, rmsnorm
+from repro_torch.kernels import (decode_attention, flash_attention, kd_loss,
+                                 rmsnorm)
 from repro_torch.launch.axes import current_mesh
 from repro_torch.models.api import (decode_step as _decode,
                                     make_decode_cache, prefill as _prefill)
@@ -41,7 +43,8 @@ from repro_torch.obs.trace import phase
 from repro_torch.utils.device import resolve_device
 
 #: every kernel wrapper's launch counts
-_COUNTERS = (flash_attention.launches, kd_loss.launches, rmsnorm.launches)
+_COUNTERS = (flash_attention.launches, kd_loss.launches, rmsnorm.launches,
+             decode_attention.launches)
 
 
 def _launch_counts() -> Dict[str, int]:
@@ -253,16 +256,21 @@ class ServeEngine:
 
         A recorded ``serve.generate`` span carries, besides the
         allocator's counts, the decode cache's "state_bytes" and
-        "kv_bytes" (`cache_bytes`)."""
+        "kv_bytes" (`cache_bytes`) and the call's "decode_attention"
+        kernel launches (each attention call of each decode step; 0 on the
+        CPU)."""
         with phase("serve.generate") as span:
             counts = (_alloc_counts(self.device) if span.recording
                       else None)
+            attn = decode_attention.launches["decode_attention"]
             out = self._generate(batch, n_new, return_logits, return_first,
                                  span)
             if counts is not None:
                 span.args.update(
                     (k, n - counts[k])
                     for k, n in _alloc_counts(self.device).items())
+                span.args["decode_attention"] = (
+                    decode_attention.launches["decode_attention"] - attn)
         return out
 
     def _generate(self, batch, n_new, return_logits, return_first, span):

@@ -49,7 +49,7 @@ MODES = ("train", "prefill", "decode")
 B, S = 2, 64
 FORWARD = {"_rms": "rmsnorm", "_add_rms": "add_rmsnorm",
            "_flash": "flash_attention", "_kd_grad": "kd_loss_grad",
-           "_kd": "kd_loss_fwd"}
+           "_kd": "kd_loss_fwd", "_decode_attn": "decode_attention"}
 BACKWARD = {"rmsnorm": "rmsnorm_bwd", "add_rmsnorm": "add_rmsnorm_bwd",
             "flash_attention": "flash_attention_bwd"}
 

@@ -36,6 +36,8 @@ from repro_torch.utils.pytree import tree_leaves, tree_map
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import close_kd_grad  # noqa: E402  (the card's limits)
+from chip_smoke import (DECODE_GRAPHED, check_decode_attention,  # noqa: E402
+                        check_decode_graph, decode_positions, decode_shapes)
 
 TERMS = ("ce_x", "ce_y", "kl_xy", "kl_yx")
 # the tolerances of tests/test_kernels.py
@@ -1264,3 +1266,30 @@ def test_cuda_phase_clocks_line_up_with_the_profiler(cuda):
     dev_ns = epoch0 + dev["ts"] * 1e3
     assert abs(first - dev_ns) < 2e6
     assert abs(last - (dev_ns + dev["dur"] * 1e3)) < 2e6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", decode_shapes())
+def test_cuda_decode_attention_matches_float64(cuda, shape):
+    """(B, H, KV, L, hd, dtype) at kv_valid 1, 545, L and past a wrap:
+    within chip_smoke's TOL_DECODE of float64, no further than the plain
+    version (or DECODE_FLOOR), two launches bitwise."""
+    for index in decode_positions(shape[3]):
+        check_decode_attention(torch, shape, index)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", DECODE_GRAPHED)
+def test_cuda_decode_attention_graph_replay_is_eager_bitwise(cuda, shape):
+    check_decode_graph(torch, shape)
+
+
+@pytest.mark.gpu
+def test_cuda_decode_attention_raises_on_a_host_position(cuda):
+    from repro_torch.kernels import decode_attention as da
+    q = torch.zeros((2, 1, 8, 128), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((2, 64, 2, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="0-d int64"):
+        da.decode_attention(q, k, k, 5)
+    with pytest.raises(ValueError, match="0-d int64"):
+        da.decode_attention(q, k, k, torch.tensor(5))

@@ -210,8 +210,10 @@ def test_generate_spans(arch):
     assert names.get("moe.layer", 0) == (
         cfg.n_layers * (1 + n_new) if cfg.is_moe else 0)
     assert got[0]["name"] == "serve.generate"
-    # the decode cache's bytes; the allocator's counts are a card's only
-    assert got[0]["args"] == cache_bytes(eng.decode_step_for(2).cache)
+    # the decode cache's bytes and the call's decode-attention launches
+    # (none on the CPU); the allocator's counts are a card's only
+    assert got[0]["args"] == {**cache_bytes(eng.decode_step_for(2).cache),
+                              "decode_attention": 0}
     assert got[0]["args"]["kv_bytes"] > 0
     replays = [s for s in got if s["name"] == "serve.replay"]
     assert all(a["host"][1] <= b["host"][0]

@@ -252,7 +252,8 @@ def test_smoke_counts_a_generates_kernel_calls(tiny, monkeypatch):
     import chip_smoke
     from repro_torch.kernels import ops
     spec, cfg, params, tok = tiny
-    seen = {"rmsnorm": {}, "add_rmsnorm": {}, "flash_attention": {}}
+    seen = {"rmsnorm": {}, "add_rmsnorm": {}, "flash_attention": {},
+            "decode_attention": {}}
 
     def spy(name, real, key):
         def call(*a, **k):
@@ -269,8 +270,12 @@ def test_smoke_counts_a_generates_kernel_calls(tiny, monkeypatch):
         "flash_attention", ops._flash, lambda q, k, *_: (
             *q.shape[:2], k.shape[1], *q.shape[2:], 0, dt,
             "bhsd" if q.is_contiguous() else "bshd")))
+    monkeypatch.setattr(ops, "_decode_attn", spy(
+        "decode_attention", ops._decode_attn, lambda q, k, *_: (
+            q.shape[0], q.shape[2], k.shape[2], k.shape[1], q.shape[3],
+            dt)))
     ServeEngine(cfg, params, max_len=P + 8, device="cpu").generate(
         {"tokens": tok[:, :P]}, n_new=3)
-    want = chip_smoke.zamba2_launch_shapes(cfg, 2, P, 3)
+    want = chip_smoke.zamba2_launch_shapes(cfg, 2, P, 3, P + 8)
     assert seen == {k: want[k] for k in seen}
     assert all(not v for k, v in want.items() if k not in seen)
